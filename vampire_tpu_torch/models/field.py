@@ -1,0 +1,321 @@
+"""The image -> field backbone for the metrics graph; the port of
+`vampire_tpu/models/field.py` (`FieldBackbone`, `camera_renders=False`).
+
+Cameras are encoded by ResNet + SECONDFPN, lifted through the depth softmax
+into one ego voxel field by the block-compacted lift (whose inner step is the
+CUDA kernel of `ops/lift.py`), refined by the Unet3D, and queried for the
+Occ3D grid, the LiDAR points, the BEV column renders and the BEV feature of
+the detection head.
+
+Layouts: inputs and outputs keep the JAX package's layouts (channels-last
+images, (B, Z, Y, X) ordering, occ as (B, X, Y, Z, K)); inside, tensors are
+channels-first as torch convolutions want them.
+
+dtype flow (as in the JAX package): convolution stacks run in `dtype`; the
+depth softmax is fp32 then cast to `dtype`; the lift returns fp32; the heads'
+outputs, the density, queries and rendering are fp32.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..configs import BackboneConfig
+from ..core import geometry as G
+from ..core import rendering as R
+from ..core import sampling as S
+from ..ops import lift as lift_ops
+from .resnet import Conv2d, ResNet
+from .second_fpn import SECONDFPN
+from .unet3d import Conv3d, Unet3D
+
+_TODO = 'see ROADMAP.md, Queue 1'
+
+
+def block_major_voxels(c: BackboneConfig) -> np.ndarray:
+    """(G, Q, 4) voxel centers, block-major: G = (Y/blk)*(X/blk) blocks of
+    Q = Z*blk*blk voxels, each block a (Z, blk, blk) column."""
+    blk = c.lift_block
+    Z, Y, X = c.grid_zyx('seg')
+    if not blk or Y % blk or X % blk or not c.lift_block_topk:
+        raise NotImplementedError(
+            f'only the block-compacted lift is ported (lift_block={blk}, '
+            f'lift_block_topk={c.lift_block_topk}, grid {Y}x{X}); the dense '
+            f'lift waits, {_TODO}')
+    vox = G.make_voxel_coords(c.x_bound_seg, c.y_bound_seg, c.z_bound_seg)
+    v6 = vox.reshape(Z, Y // blk, blk, X // blk, blk, 4)
+    v6 = v6.transpose(1, 3, 0, 2, 4, 5)
+    return np.ascontiguousarray(v6.reshape((Y // blk) * (X // blk),
+                                           Z * blk * blk, 4))
+
+
+def coords_valid(pix: torch.Tensor, c: BackboneConfig):
+    """Per-camera pixel coords -> (normalized lift coords, fp32 validity).
+
+    The coords are clipped to [-2, 2] and sampled with align_corners=False.
+    """
+    fH, fW = c.final_dim
+    x, y, z = pix[..., 0], pix[..., 1], pix[..., 2]
+    valid = ((x > -0.5) & (x < fW - 0.5) & (y > -0.5) & (y < fH - 0.5)
+             & (z > c.d_bound[0]) & (z < c.d_bound[1])).to(torch.float32)
+    norm_x = 2.0 * (x / (fW - 1.0)) - 1.0
+    norm_y = 2.0 * (y / (fH - 1.0)) - 1.0
+    norm_z = 2.0 * ((z - c.d_bound[0]) / (c.d_bound[1] - c.d_bound[0])) - 1.0
+    coords = torch.stack([norm_x, norm_y, norm_z], dim=-1)
+    return torch.clamp(coords, -2.0, 2.0), valid
+
+
+def _norm1d(centers, bound):
+    return (centers - bound[0]) / (bound[1] - bound[0]) * 2.0 - 1.0
+
+
+class FieldBackbone(nn.Module):
+    """Camera images -> ego 3D feature field -> metric outputs."""
+
+    def __init__(self, cfg: BackboneConfig, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        c = cfg
+        if c.variant != 'lss_inpaintor':
+            raise NotImplementedError(
+                f'variant {c.variant!r}: only lss_inpaintor is ported, '
+                f'{_TODO}')
+        self.cfg = c
+        self.dtype = dtype
+        K = c.num_classes
+        mid = c.mid_channels
+        Zs, Ys, Xs = c.grid_zyx('seg')
+        Zd, _, _ = c.grid_zyx('det')
+
+        def buf(name, a):
+            self.register_buffer(
+                name, torch.as_tensor(np.ascontiguousarray(a), device=device),
+                persistent=False)
+
+        buf('voxel_coords_bm', block_major_voxels(c))
+        buf('norm_voxel_coords', G.make_norm_voxel_coords(
+            c.x_bound_seg, c.y_bound_seg, c.z_bound_seg).transpose(3, 0, 1, 2))
+        buf('bev_mids', G.make_bev_mids(c.z_bound_det))
+        # static-grid queries as separable interpolation matrices
+        for i, ax in enumerate('zyx'):
+            bd = getattr(c, f'{ax}_bound_det')
+            bs = getattr(c, f'{ax}_bound_seg')
+            buf(f'det_mat_{ax}', S.make_sample_matrix(
+                _norm1d(G.centers_of(bd), bs), (Zs, Ys, Xs)[i], True,
+                'zeros'))
+        occ_c = G.make_occ_coords(c.occ_pc_range, c.occ_voxel_size,
+                                  c.occ_grid)
+        occ_n = dict(x=occ_c[:, 0, 0, 0], y=occ_c[0, :, 0, 1],
+                     z=occ_c[0, 0, :, 2])
+        for i, ax in enumerate('zyx'):
+            n = _norm1d(occ_n[ax], getattr(c, f'{ax}_bound_seg'))
+            for pad in ('border', 'zeros'):
+                buf(f'occ_mat_{pad}_{ax}', S.make_sample_matrix(
+                    n, (Zs, Ys, Xs)[i], True, pad))
+
+        kw = dict(device=device)
+        self.img_backbone = ResNet(depth=c.img_backbone_depth,
+                                   out_indices=c.img_backbone_out_indices,
+                                   dtype=dtype, **kw)
+        self.img_neck = SECONDFPN(c.img_neck_in_channels,
+                                  c.img_neck_out_channels,
+                                  c.img_neck_upsample_strides, dtype=dtype,
+                                  **kw)
+        cimg = c.img_out_channels
+        self.mapping_along_depth = Conv2d(cimg, c.depth_channels, 3, 1, 1,
+                                          bias=False, compute_dtype=dtype,
+                                          **kw)
+        self.channel_lower = Conv2d(cimg, mid, 3, 1, 1, bias=False,
+                                    compute_dtype=dtype, **kw)
+        self.base_conv = Unet3D(mid + (3 if c.cat_pos else 0), mid,
+                                dtype=dtype, **kw)
+        self.density_conv = Conv3d(mid, 1, bias=True, compute_dtype=dtype,
+                                   **kw)
+        self.seg_conv = Conv3d(mid, K, bias=True, compute_dtype=dtype, **kw)
+        self.rgb_conv = Conv3d(mid, 3, bias=True, compute_dtype=dtype, **kw)
+        self.density_beta = nn.Parameter(
+            torch.tensor(0.1, dtype=torch.float32, device=device))
+        cv = mid + (K if c.cat_seg else 0)
+        self.voxel_output = Conv2d(cv * Zd, c.output_channels, 1, bias=True,
+                                   **kw)
+
+    # ------------------------------------------------------------------
+    def _density(self, x):
+        if self.cfg.density_mode == 'naive':
+            return R.naive_density(x)
+        return R.laplace_density(x, self.density_beta, self.cfg.sdf_bias)
+
+    def lift(self, depth: torch.Tensor, feat: torch.Tensor,
+             mats: Dict[str, torch.Tensor],
+             lift_fn: Optional[Callable] = None) -> torch.Tensor:
+        """Block-compacted masked-mean lift.
+
+        depth: (B, N, D, h, w) depth distribution; feat: (B, N, h, w, C).
+        Each camera selects its top-K (Y, X) blocks by valid-query count and
+        `lift_fn` (default `ops.lift.lift_accumulate_`) adds its samples
+        into block-major (G, Q, C) accumulators. Returns (B, C, Z, Y, X) fp32.
+        """
+        lift_fn = lift_fn or lift_ops.lift_accumulate_
+        c = self.cfg
+        Z, Y, X = c.grid_zyx('seg')
+        blk = c.lift_block
+        B, N = feat.shape[:2]
+        C = feat.shape[-1]
+        GY, GX = Y // blk, X // blk
+        Gn, Q = GY * GX, Z * blk * blk
+        topk = min(c.lift_block_topk, Gn)
+        # geometry straight from the block-major voxel constant:
+        # coords (B, N, G, Q, 3), validity (B, N, G, Q)
+        pix = G.get_pixel(self.voxel_coords_bm[:, :, None],
+                          mats['sensor2ego'], mats['intrin'], mats['ida'],
+                          mats.get('bda'))[..., 0, :]
+        coords, valid = coords_valid(pix, c)
+        counts = valid.sum(-1)
+        outs = []
+        for b in range(B):
+            numer = torch.zeros((Gn, Q, C), dtype=torch.float32,
+                                device=feat.device)
+            denom = torch.zeros_like(numer)
+            for n in range(N):
+                ids = torch.topk(counts[b, n], topk).indices
+                lift_fn(depth[b, n].contiguous(), feat[b, n].contiguous(),
+                        ids.contiguous(), coords[b, n][ids].contiguous(),
+                        valid[b, n][ids].contiguous(), numer, denom)
+            outs.append(numer / (denom + 1e-6))
+        out = torch.stack(outs).reshape(B, GY, GX, Z, blk, blk, C)
+        return out.permute(0, 6, 3, 1, 4, 2, 5).reshape(B, C, Z, Y, X)
+
+    def _query_points(self, fused, points):
+        """Point queries: pts_logits (B, P, K), pts_sdf (B, P).
+
+        Sampled from a bf16-rounded copy of the fused volume with fp32
+        weights and accumulation, like the JAX package's `sample_dtype`.
+        """
+        c = self.cfg
+        K = c.num_classes
+        norm = G.normalize_coords(points, c.x_bound_seg, c.y_bound_seg,
+                                  c.z_bound_seg)
+        vol = fused.to(torch.bfloat16).to(torch.float32)
+        samp = S.grid_sample_3d(vol, norm, align_corners=True,
+                                padding_mode='border')
+        pts_logits = samp[..., 1:K + 1]
+        pts_sdf = samp[..., 0] * G.inrange_mask(norm).to(torch.float32)
+        return pts_logits, pts_sdf
+
+    def _query_occ(self, seg_vol, sdf_vol):
+        """Occ3D grid queries on the static grid: (B, X, Y, Z, K), (B, X, Y, Z)."""
+        dens = self._density(sdf_vol)
+        occ_logits = S.apply_sample_matrices(
+            seg_vol, [getattr(self, f'occ_mat_border_{a}') for a in 'zyx'],
+            (2, 3, 4))                                   # (B, K, Z', Y', X')
+        occ_density = S.apply_sample_matrices(
+            dens, [getattr(self, f'occ_mat_zeros_{a}') for a in 'zyx'],
+            (2, 3, 4))[:, 0]                             # (B, Z', Y', X')
+        return (occ_logits.permute(0, 4, 3, 2, 1),
+                torch.tanh(occ_density.permute(0, 3, 2, 1)))
+
+    def _render_bev(self, fused, base_vol):
+        """BEV column renders over the det grid, z flipped (sky -> ground).
+        Returns bev_rgb, bev_seg, bev_height, bev_density (B, Zd, Y, X) and
+        vox_out (B, Cv, Zd, Y, X)."""
+        c = self.cfg
+        K = c.num_classes
+        fused_bev = torch.cat([fused, base_vol], dim=1)
+        vox = S.apply_sample_matrices(
+            fused_bev, [getattr(self, f'det_mat_{a}') for a in 'zyx'],
+            (2, 3, 4))
+        vox = torch.flip(vox, dims=(2,))
+        bev_density = self._density(vox[:, 0])
+        bev_seg_l = vox[:, 1:K + 1].permute(0, 2, 3, 4, 1)
+        bev_rgb_v = vox[:, K + 1:K + 4].permute(0, 2, 3, 4, 1)
+        vox_out = vox[:, K + 4:]
+        if c.cat_seg:
+            vox_out = torch.cat([vox_out, vox[:, 1:K + 1]], dim=1)
+        bev_rgb, bev_seg, bev_height = R.render_bev_columns(
+            bev_density, bev_seg_l, bev_rgb_v, self.bev_mids,
+            c.z_bound_det[2])
+        return bev_rgb, bev_seg, bev_height, bev_density, vox_out
+
+    # ------------------------------------------------------------------
+    def forward(self, imgs: torch.Tensor, mats: Dict[str, torch.Tensor],
+                points: Optional[torch.Tensor] = None,
+                camera_renders: bool = False,
+                lift_fn: Optional[Callable] = None
+                ) -> Dict[str, Optional[torch.Tensor]]:
+        """Metrics-graph forward.
+
+        Args:
+          imgs: (B, N, H, W, 3) normalized images (channels-last).
+          mats: 'sensor2ego'/'intrin'/'ida' (B, N, 4, 4) and 'bda' (B, 4, 4).
+          points: optional (B, P, 3) padded ego-frame query points.
+          camera_renders: must be False; the camera-ray branch is not ported.
+          lift_fn: the per-camera lift step; None is
+            `ops.lift.lift_accumulate_` (the CUDA kernel on a card). Only a
+            caller comparing against the plain version passes anything else.
+
+        Returns the JAX package's output dict, with None for the camera
+        renders.
+        """
+        c = self.cfg
+        if camera_renders:
+            raise NotImplementedError(
+                f'camera_renders=True: the camera-ray branch is not ported, '
+                f'{_TODO}')
+        if imgs.dim() != 5:
+            raise NotImplementedError(
+                f'imgs of shape {tuple(imgs.shape)}: only (B, N, H, W, 3) '
+                f'is ported; the multi-sweep input waits, {_TODO}')
+        B, N, H, W, _ = imgs.shape
+        x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
+        feats = self.img_neck(self.img_backbone(x.to(self.dtype)))
+        h, w = feats.shape[2:]
+        depth = torch.softmax(
+            self.mapping_along_depth(feats).to(torch.float32), dim=1)
+        depth = depth.to(self.dtype).reshape(B, N, -1, h, w)
+        low = self.channel_lower(feats).permute(0, 2, 3, 1)
+        low = low.reshape(B, N, h, w, -1)
+
+        voxel_feats = self.lift(depth, low, mats, lift_fn)        # fp32
+        if c.cat_pos:
+            pos = self.norm_voxel_coords[None].expand(B, -1, -1, -1, -1)
+            voxel_feats = torch.cat([voxel_feats, pos], dim=1)
+        base = self.base_conv(voxel_feats.to(self.dtype))
+        sdf_vol = self.density_conv(base).to(torch.float32)
+        seg_vol = self.seg_conv(base).to(torch.float32)
+        rgb_vol = torch.sigmoid(self.rgb_conv(base).to(torch.float32))
+        fused = torch.cat([sdf_vol, seg_vol, rgb_vol], dim=1)
+
+        pts_logits = pts_sdf = None
+        if points is not None:
+            pts_logits, pts_sdf = self._query_points(fused, points)
+        occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol)
+        (bev_rgb, bev_seg, bev_height, bev_density,
+         vox_out) = self._render_bev(fused, base.to(torch.float32))
+
+        # BEV feature for the det head; channel order c*Zd+z
+        gate = (torch.tanh(bev_density) if c.density_mode == 'sdf'
+                else bev_density)
+        vo = vox_out * gate[:, None]                    # (B, Cv, Zd, Y, X)
+        Bv, Cv, Zd, Yd, Xd = vo.shape
+        bev_feat = self.voxel_output(vo.reshape(Bv, Cv * Zd, Yd, Xd))
+        _, oY, oX = c.grid_zyx('det')
+        if oY == 256:
+            bev_feat = S.resize_linear(bev_feat, (oY // 2, oX // 2), (2, 3))
+
+        return dict(
+            bev_feature=bev_feat.permute(0, 2, 3, 1),  # (B, Y', X', C)
+            rgb_preds=None,
+            seg_logits_preds=None,
+            depth_preds=None,
+            bev_rgb_preds=bev_rgb,                     # (B, Y, X, 3)
+            bev_seg_logits_preds=bev_seg,              # (B, Y, X, K)
+            bev_height_preds=bev_height,               # (B, Y, X)
+            bev_density=bev_density,                   # (B, Zd, Y, X)
+            pts_logits=pts_logits,                     # (B, P, K) or None
+            pts_sdf=pts_sdf,                           # (B, P) or None
+            occ_logits=occ_logits,                     # (B, X, Y, Z, K)
+            occ_density=occ_density,                   # (B, X, Y, Z)
+        )
