@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,20 +8,29 @@ nonzero without printing a result:
 
   1. device  - a CUDA card must be present (no CPU fallback); prints
                `nvidia-smi --query-gpu=name,power.limit`.
-  2. build   - nvcc builds vampire_tpu_torch/csrc/lift.cu for sm_90a.
-  3. kernel  - the lift kernel against its plain torch version at the
-               flagship per-camera shapes (D=86, h=64, w=176, C=16, K=264,
-               Q=1280; camera_rig geometry, torch.topk selection), in fp32
-               and bf16, with the error and the median time of each.
-  4. slice   - InferenceServer(flagship_config(), device='cuda',
-               outputs='metrics') in bf16 with seeded random weights serves
-               3 full-width requests (6x256x704 images, 36,864 points).
-               Checks shapes, finiteness, det boxes after NMS, that the lift
-               kernel ran 6 times per request, and that request 0 matches
-               the same forward with the plain lift on the card.
+  2. build   - nvcc builds vampire_tpu_torch/csrc/{lift,corner_table,rays}.cu
+               for sm_90a, one process per source, all started together.
+  3. kernel  - each kernel against its plain torch version at the flagship
+               shapes, with the error and the median time of each:
+               the lift (D=86, h=64, w=176, C=16, K=264, Q=1280; camera_rig
+               geometry, torch.topk selection) in fp32 and bf16; the corner
+               table of a (22, 20, 256, 256) field in fp32 and bf16, which
+               must be byte-identical; the ray sampler over 67,584 rays x 85
+               samples of camera_rig geometry through a bf16 table of a
+               synthetic field whose rays end partly opaque.
+  4. slice   - InferenceServer(flagship_config(), device='cuda') in bf16 with
+               seeded random weights (BN calibrated on one frame) serves 3
+               full-width requests (6x256x704 images, 36,864 points) on each
+               path: outputs='metrics' (the metrics graph) and outputs=None
+               (the full-render graph, with the camera renders). Checks
+               keys, shapes, finiteness, the depth range, det boxes after
+               NMS, the kernels' launch counts per request, and that
+               request 0 matches the same forward with the plain versions
+               of the kernels on the card; the renders also under a
+               density head that leaves the rays partly opaque.
 
-The line before the last is a JSON object of the kernels run; the last line
-is `{"ok": true, "device": {...}}`.
+The last three lines are a JSON object of the kernels run, the card's name
+and power limit, and `{"ok": true, "device": {...}}`.
 """
 import json
 import os
@@ -32,10 +41,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_REQUESTS = 3
+KERNEL_LIBS = ('lift', 'corner_table', 'rays')
 # kernel vs plain: same input values, fp32 weights and sums in the same order
 # on both sides; only FMA contraction differs (~1e-7 of |value|)
 KERNEL_RTOL = 1e-5
-# whole forward, kernel lift vs plain lift: the two lifts differ in the last
+# ray kernel vs plain: the same values summed in another order, and the
+# plain transmittance is a parallel cumsum where the kernel carries a
+# running sum
+RAY_RTOL = 1e-4
+# at least this share of the ray check's rays must end partly opaque
+RAY_PARTIAL_MIN = 0.10
+# whole forward, kernels vs plain versions: the two lifts differ in the last
 # fp32 bits, which can flip the bf16 rounding of a voxel feature (2^-8
 # relative) entering the bf16 Unet3D; allow 5% of each output's magnitude
 SLICE_RTOL = 5e-2
@@ -60,14 +76,30 @@ def device_phase():
 
 
 def build_phase():
-    from vampire_tpu_torch.ops import lift
+    from vampire_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    info = lift.build()
-    ptxas = [ln for ln in info['log'].splitlines() if 'ptxas' in ln]
-    say(f'build: {os.path.relpath(info["path"], ROOT)} in '
-        f'{time.perf_counter() - t0:.2f} s (nvcc {info["seconds"]:.2f} s)')
-    for ln in ptxas:
-        say(f'  {ln.strip()}')
+    _build.build(KERNEL_LIBS)
+    say(f'build: {len(KERNEL_LIBS)} libraries in '
+        f'{time.perf_counter() - t0:.2f} s')
+    for name in KERNEL_LIBS:
+        info = _build.BUILD_INFO[name]
+        say(f'  {os.path.relpath(info["path"], ROOT)}: nvcc '
+            f'{info["seconds"]:.2f} s')
+        for ln in info['log'].splitlines():
+            if 'ptxas' in ln:
+                say(f'    {ln.strip()}')
+
+
+def counts():
+    """The launch counts of the three kernel wrappers."""
+    from vampire_tpu_torch.ops import lift, rays, tables
+    return dict(lift=lift.LAUNCHES, corner_table=tables.LAUNCHES,
+                rays=rays.LAUNCHES)
+
+
+def reset_counts():
+    from vampire_tpu_torch.ops import lift, rays, tables
+    lift.LAUNCHES = tables.LAUNCHES = rays.LAUNCHES = 0
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -87,15 +119,15 @@ def cuda_ms(fn, iters, warmup=3):
     return statistics.median(times)
 
 
-def kernel_phase(card, bc=None, dev='cuda'):
+def lift_check(card, bc, dev):
+    """The lift kernel against its plain version, one camera at a time."""
     import torch
-    from vampire_tpu_torch.configs import camera_rig, flagship_config
+    from vampire_tpu_torch.configs import camera_rig
     from vampire_tpu_torch.core.geometry import get_pixel
     from vampire_tpu_torch.models.field import block_major_voxels, coords_valid
     from vampire_tpu_torch.ops import lift
 
     dev = torch.device(dev)
-    bc = bc or flagship_config().backbone
     D, (h, w), C = bc.depth_channels, bc.feat_hw, bc.mid_channels
     rig = {k: torch.from_numpy(v).to(dev)
            for k, v in camera_rig(1, 6, bc.final_dim, seed=0).items()}
@@ -103,7 +135,7 @@ def kernel_phase(card, bc=None, dev='cuda'):
     pix = get_pixel(vox[:, :, None], rig['sensor2ego'], rig['intrin'],
                     rig['ida'], rig['bda'])[..., 0, :]
     coords, valid = coords_valid(pix, bc)
-    counts = valid.sum(-1)
+    counts_ = valid.sum(-1)
     G, Q = valid.shape[2:]
     K = min(bc.lift_block_topk, G)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -112,10 +144,10 @@ def kernel_phase(card, bc=None, dev='cuda'):
     feat = torch.randn(6, h, w, C, device=dev, generator=g)
     cams = []
     for n in range(6):
-        ids = torch.topk(counts[0, n], K).indices
+        ids = torch.topk(counts_[0, n], K).indices
         cams.append((ids, coords[0, n][ids].contiguous(),
                      valid[0, n][ids].contiguous()))
-    say(f'kernel: depth ({D},{h},{w}) feat ({h},{w},{C}) K={K} Q={Q} G={G}, '
+    say(f'lift: depth ({D},{h},{w}) feat ({h},{w},{C}) K={K} Q={Q} G={G}, '
         f'6 cameras, {int(valid[0].sum())} valid queries')
 
     result = dict(max_abs_err=0.0)
@@ -139,7 +171,7 @@ def kernel_phase(card, bc=None, dev='cuda'):
         plain = cuda_ms(lambda: lift.lift_accumulate_reference(
             dep[1], fea[1], ids, cc, vv, *scratch), 10)
         name = str(dt).replace('torch.', '')
-        say(f'kernel {name}: max abs err {err:.3e} (max |ref| {scale:.3e}, '
+        say(f'lift {name}: max abs err {err:.3e} (max |ref| {scale:.3e}, '
             f'tol {tol:.1e}); denom mismatches {dmis} of '
             f'{acc_r[1].numel()}; kernel {ms:.4f} ms, plain {plain:.4f} ms '
             f'per camera [{card}]')
@@ -155,9 +187,150 @@ def kernel_phase(card, bc=None, dev='cuda'):
     return result
 
 
+def table_check(card, bc, dev):
+    """The corner-table kernel against its plain version on a fused field of
+    the flagship grid: byte-identical, in fp32 and in bf16."""
+    import torch
+    from vampire_tpu_torch.core.sampling import corner_table_reference
+    from vampire_tpu_torch.ops import tables
+
+    shape = (1 + bc.num_classes + 3,) + tuple(bc.grid_zyx('seg'))
+    g = torch.Generator(device=dev).manual_seed(1)
+    vol = torch.randn(shape, device=dev, generator=g)
+    result = dict(max_abs_err=0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        v = vol.to(dt)
+        got = tables.corner_table(v)
+        want = corner_table_reference(v)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        mb = got.numel() * got.element_size() / 1e6
+        del got, want
+        ms = cuda_ms(lambda: tables.corner_table(v), 20)
+        plain = cuda_ms(lambda: corner_table_reference(v), 5)
+        name = str(dt).replace('torch.', '')
+        say(f'corner_table {name}: {shape} -> {mb:.0f} MB, byte-identical '
+            f'{same}, max abs err {err:.3e}; kernel {ms:.4f} ms '
+            f'({mb / ms:.0f} GB/s written), plain {plain:.4f} ms '
+            f'[{card}]')
+        if not same:
+            raise AssertionError(f'corner_table kernel {name} is not '
+                                 f'byte-identical to the plain version')
+        result['max_abs_err'] = max(result['max_abs_err'], err)
+        result[name] = dict(ms=ms, plain_ms=plain)
+    return result
+
+
+def sdf_along_rays(sdf_vol, coords, valid):
+    """(R, S) sdf of each ray sample (plain grid_sample of the (1, D, H, W)
+    sdf channel, zeros padding), masked by `valid`."""
+    from vampire_tpu_torch.core import sampling as S
+    Rn, Sn = valid.shape
+    s = S.grid_sample_3d(sdf_vol[None].float(), coords.reshape(1, -1, 3),
+                         True, 'zeros')
+    return s.reshape(Rn, Sn) * valid
+
+
+def ray_opacity(sdf, delta, bc, beta):
+    """Each ray's opacity 1 - exp(-sum density * delta) from its (R, S)
+    sampled sdf, and the share of rays in (0.05, 0.95)."""
+    import torch
+    from vampire_tpu_torch.core import rendering as R
+    sd = R.density(sdf, bc.density_mode, beta, bc.sdf_bias) * delta
+    opacity = 1.0 - torch.exp(-sd.sum(-1))
+    partial = ((opacity > 0.05) & (opacity < 0.95)).float().mean().item()
+    return opacity, partial
+
+
+def ray_check(card, bc, dev):
+    """The ray kernel against its plain version: all rays of one frame
+    (camera_rig geometry through get_geometry) on a bf16 table of a
+    synthetic fused field. The random-init field saturates every ray at its
+    first sample (density bias sdf_bias - 10), so the sdf here is drawn
+    around the density's knee instead, and the rays end partly opaque."""
+    import torch
+    from vampire_tpu_torch.configs import camera_rig
+    from vampire_tpu_torch.core import geometry as G
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.core import sampling as S
+    from vampire_tpu_torch.models.field import ray_inputs
+    from vampire_tpu_torch.ops import rays
+
+    dev = torch.device(dev)
+    rig = {k: torch.from_numpy(v).to(dev)
+           for k, v in camera_rig(1, 6, bc.final_dim, seed=0).items()}
+    frustum = torch.from_numpy(G.make_frustum(
+        bc.final_dim, bc.downsample_factor, bc.d_bound)).to(dev)
+    mids = torch.from_numpy(G.make_camera_mids(bc.d_bound)).to(dev)
+    geom = G.get_geometry(frustum, rig['sensor2ego'], rig['intrin'],
+                          rig['ida'], rig['bda'])
+    coords, valid, delta = (t[0] for t in ray_inputs(geom, bc))
+    Rn, Sn = valid.shape
+    vol_shape = tuple(bc.grid_zyx('seg'))
+    K = bc.num_classes
+    g = torch.Generator(device=dev).manual_seed(2)
+    sdf = bc.sdf_bias + 0.3 + 0.4 * torch.rand((1,) + vol_shape, device=dev,
+                                               generator=g)
+    seg = torch.randn((K,) + vol_shape, device=dev, generator=g)
+    rgb = torch.rand((3,) + vol_shape, device=dev, generator=g)
+    vol = torch.cat([sdf, seg, rgb]).to(torch.bfloat16)
+    table = S.build_neighborhood_table(vol)
+    beta = torch.tensor(0.1, device=dev)
+
+    opacity, partial = ray_opacity(sdf_along_rays(vol[:1], coords, valid),
+                                   delta, bc, beta)
+    q = torch.quantile(opacity, torch.tensor([0.05, 0.5, 0.95], device=dev))
+    say(f'rays: {Rn} rays x {Sn} samples, table {tuple(table.shape)} bf16; '
+        f'valid samples {valid.mean().item():.3f}; ray opacity p5/p50/p95 '
+        f'{q[0].item():.3f}/{q[1].item():.3f}/{q[2].item():.3f}, '
+        f'{partial:.3f} of rays in (0.05, 0.95)')
+    if partial < RAY_PARTIAL_MIN:
+        raise AssertionError(f'only {partial:.3f} of the rays end partly '
+                             f'opaque; the check would be degenerate')
+
+    args = (table, vol_shape, coords, valid, delta, mids, bc.d_bound[1],
+            bc.density_mode, beta, bc.sdf_bias)
+    got = rays.sample_and_composite_rays(*args)
+    want = R.sample_and_composite_rays_reference(*args)
+    torch.cuda.synchronize()
+    result = dict(max_abs_err=0.0)
+    for name, sl in (('rgb', slice(0, 3)), ('seg', slice(3, K + 3)),
+                     ('depth', slice(K + 3, K + 4))):
+        err = (got[:, sl] - want[:, sl]).abs().max().item()
+        scale = want[:, sl].abs().max().item()
+        tol = RAY_RTOL * max(1.0, scale)
+        say(f'rays {name}: max abs err {err:.3e} (max |ref| {scale:.3e}, '
+            f'tol {tol:.1e})')
+        if not err <= tol:
+            raise AssertionError(f'ray kernel {name} disagrees with the '
+                                 f'plain version: {err} > {tol}')
+        result['max_abs_err'] = max(result['max_abs_err'], err)
+    depth = got[:, K + 3]
+    if not (torch.isfinite(got).all() and (depth >= bc.d_bound[0]).all()
+            and (depth <= bc.d_bound[1]).all()):
+        raise AssertionError('ray kernel: non-finite output or depth out of '
+                             'bounds')
+    result['ms'] = cuda_ms(lambda: rays.sample_and_composite_rays(*args), 20)
+    result['plain_ms'] = cuda_ms(
+        lambda: R.sample_and_composite_rays_reference(*args), 5)
+    say(f'rays bf16: kernel {result["ms"]:.4f} ms, plain '
+        f'{result["plain_ms"]:.4f} ms per frame [{card}]')
+    return result
+
+
+def kernel_phase(card, bc=None, dev='cuda'):
+    from vampire_tpu_torch.configs import flagship_config
+    bc = bc or flagship_config().backbone
+    return dict(lift=lift_check(card, bc, dev),
+                corner_table=table_check(card, bc, dev),
+                rays=ray_check(card, bc, dev))
+
+
 def calibrate_batchnorm_(server, frame):
     """Set every BatchNorm's running statistics to the batch statistics of
-    one synthetic frame (one train-mode forward, momentum 1).
+    one synthetic frame (one train-mode forward of the graph the server
+    serves, momentum 1).
 
     Seeded random weights leave BN the identity, so activations grow
     through the residual stacks (~3x in variance per bottleneck) until the
@@ -174,16 +347,202 @@ def calibrate_batchnorm_(server, frame):
                                            for k, v in frame.items()})
     server.model.train()
     with torch.no_grad():
-        server.model(imgs, mats, points=points)
+        server.model(imgs, mats, points=points,
+                     camera_renders=server.camera_renders)
     server.model.eval()
     say(f'calibrated {len(bns)} BatchNorm layers on one synthetic frame')
+
+
+def serve_path(card, server, calib, samples, label):
+    """Calibrate, start and warm `server`, then serve `samples` with every
+    launch count set to 0 just before; returns (outputs, launch counts)."""
+    import torch
+    t0 = time.perf_counter()
+    calibrate_batchnorm_(server, calib)
+    t1 = time.perf_counter()
+    server.start()
+    outs, lat = [], []
+    try:
+        server.warmup()
+        say(f'{label}: model built and BN calibrated in {t1 - t0:.1f} s, '
+            f'warmup request {time.perf_counter() - t1:.1f} s')
+        reset_counts()
+        for s in samples:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            a.record()
+            outs.append(server.infer(s))
+            b.record()
+            b.synchronize()
+            lat.append((a.elapsed_time(b), (time.perf_counter() - h0) * 1e3))
+        launched = counts()
+    finally:
+        server.stop()
+    for i, (ev, host) in enumerate(lat):
+        say(f'{label} request {i}: {ev:.2f} ms (CUDA events), {host:.2f} ms '
+            f'(host clock), incl. host NMS [{card}]')
+    say(f'{label}: kernel launches during the {len(samples)} requests: '
+        f'{launched}')
+    return outs, launched
+
+
+def check_launches(label, launched, per_request):
+    want = {k: n * N_REQUESTS for k, n in per_request.items()}
+    if launched != want:
+        raise AssertionError(f'{label}: kernel launches {launched}, want '
+                             f'{want} for {N_REQUESTS} requests')
+
+
+def check_outputs(label, outs, want, cfg):
+    import numpy as np
+    hc = cfg.head
+    lo, hi = cfg.backbone.d_bound[:2]
+    for i, o in enumerate(outs):
+        if set(o) != set(want) | {'det'}:
+            raise AssertionError(f'{label} request {i}: outputs {sorted(o)}')
+        for k, shape in want.items():
+            if o[k].shape != shape or not np.isfinite(o[k]).all():
+                raise AssertionError(f'{label} request {i}: {k} {o[k].shape} '
+                                     f'finite={np.isfinite(o[k]).all()}')
+        if 'depth_preds' in o:
+            d = o['depth_preds']
+            if not ((d >= lo).all() and (d <= hi).all()):
+                raise AssertionError(f'{label} request {i}: depth '
+                                     f'{d.min()}..{d.max()} outside '
+                                     f'[{lo}, {hi}]')
+        boxes, scores, labels = o['det']
+        if len(boxes) == 0:
+            raise AssertionError(f'{label} request {i}: no boxes after NMS')
+        if (boxes.ndim != 2 or boxes.shape[1] != 9
+                or not np.isfinite(boxes).all()
+                or scores.shape != (len(boxes),)
+                or labels.shape != (len(boxes),)
+                or len(boxes) > hc.nms_post_max_size * len(hc.tasks)
+                or not (scores > hc.score_threshold).all()):
+            raise AssertionError(
+                f'{label} request {i}: det {boxes.shape} {scores.shape} '
+                f'{labels.shape}; non-finite per column '
+                f'{(~np.isfinite(boxes)).sum(0).tolist()}, max |box| per '
+                f'column {np.abs(boxes).max(0).tolist()}, scores '
+                f'{scores.min() if len(scores) else None}..'
+                f'{scores.max() if len(scores) else None}')
+        say(f'{label} request {i}: shapes ok, finite, {len(boxes)} boxes '
+            f'after NMS')
+
+
+def partly_opaque_density(server, imgs, mats):
+    """A density head under which the served graph's rays end partly
+    opaque. The random-init bias (sdf_bias - 10) saturates every ray at its
+    first sample, and the sdf varies along a ray by several times the
+    density's width beta, so a comparison of rendered outputs would test
+    the first sample only. From the sdf field of one forward, sampled along
+    every ray of the frame: the head's weight is scaled so that the sdf's
+    spread over the in-range samples is 2 beta, and its bias is found by
+    bisection (opacity falls as the sdf rises) so that the median ray is
+    half opaque. Returns (weight scale, bias, share of rays in (0.05, 0.95)
+    predicted from the sampled field)."""
+    import torch
+    from vampire_tpu_torch.core import geometry as G
+    from vampire_tpu_torch.models.field import ray_inputs
+    bb = server.model.backbone
+    bc = bb.cfg
+    got = {}
+    hook = bb.density_conv.register_forward_hook(
+        lambda m, i, o: got.setdefault('sdf', o))
+    try:
+        server.model(imgs, mats, camera_renders=False)
+    finally:
+        hook.remove()
+    geom = G.get_geometry(bb.frustum, mats['sensor2ego'], mats['intrin'],
+                          mats['ida'], mats.get('bda'))
+    coords, valid, delta = (t[0] for t in ray_inputs(geom, bc))
+    bias0 = bb.density_conv.bias.float()
+    u = sdf_along_rays(got['sdf'][0].float() - bias0, coords, valid)
+    beta = bb.density_beta.detach()
+    scale = 2.0 * (beta.abs().item() + 1e-4) / u[valid > 0].std().item()
+    lo, hi = -100.0, 100.0
+    for _ in range(40):
+        mid = 0.5 * (lo + hi)
+        op, _ = ray_opacity((scale * u + mid) * valid, delta, bc, beta)
+        lo, hi = (mid, hi) if op.median().item() > 0.5 else (lo, mid)
+    bias = 0.5 * (lo + hi)
+    partial = ray_opacity((scale * u + bias) * valid, delta, bc, beta)[1]
+    return scale, bias, partial
+
+
+def check_against_plain(label, server, sample, served, keys,
+                        render_keys=()):
+    """Request 0 again through the model: the kernel forward gives the
+    served outputs, and it agrees with the forward through the plain
+    versions of the kernels on the card within SLICE_RTOL of each output's
+    magnitude, for `keys` and `render_keys`. The `render_keys` are then
+    compared once more under a density head that leaves the rays partly
+    opaque (`partly_opaque_density`; at least RAY_PARTIAL_MIN of them),
+    and the head is restored. Under that head the occupancy density sits
+    at the density's knee everywhere, where it is steeper than any served
+    head's, so only the renders are compared there."""
+    import numpy as np
+    import torch
+    batch = {k: v[None] for k, v in sample.items()}
+    every = tuple(keys) + tuple(render_keys)
+
+    def forward(plain, names):
+        fo, _ = server.model(imgs, mats, points=points, lidar_seg=True,
+                             camera_renders=server.camera_renders,
+                             plain=plain)
+        return {k: fo[k][0].float().cpu().numpy() for k in names}
+
+    def compare(kern, plain, what):
+        for k in kern:
+            ref = plain[k]
+            diff = np.abs(kern[k] - ref)
+            tol = SLICE_RTOL * max(1.0, float(np.abs(ref).max()))
+            say(f'{label} request 0, kernels vs plain versions{what}: {k} '
+                f'max abs err {float(diff.max()):.3e} (tol {tol:.3e}, mean '
+                f'abs err {float(diff.mean()):.3e}, max |ref| '
+                f'{float(np.abs(ref).max()):.3e})')
+            if not float(diff.max()) <= tol:
+                raise AssertionError(f'{label} {k}{what}: kernel forward vs '
+                                     f'plain forward {float(diff.max())} > '
+                                     f'{tol}')
+
+    head = server.model.backbone.density_conv
+    saved = [p.detach().clone() for p in (head.weight, head.bias)]
+    with torch.inference_mode():
+        imgs, mats, points = server.to_device(batch)
+        kern = forward(False, every)
+        for k in every:
+            if k in served:
+                err = float(np.abs(served[k] - kern[k]).max())
+                tol = SLICE_RTOL * max(1.0, float(np.abs(kern[k]).max()))
+                if not err <= tol:
+                    raise AssertionError(f'{label} {k}: served vs kernel '
+                                         f'forward {err} > {tol}')
+        compare(kern, forward(True, every), '')
+        if not render_keys:
+            return
+        scale, bias, partial = partly_opaque_density(server, imgs, mats)
+        say(f'{label}: density head weight x{scale:.4g}, bias {bias:+.4f}, '
+            f'under which {partial:.3f} of the rays end in (0.05, 0.95)')
+        if partial < RAY_PARTIAL_MIN:
+            raise AssertionError(f'{label}: only {partial:.3f} of the rays '
+                                 f'end partly opaque')
+        try:
+            head.weight.mul_(scale)
+            head.bias.fill_(bias)
+            compare(forward(False, render_keys),
+                    forward(True, render_keys), ', partly opaque rays')
+        finally:
+            head.weight.copy_(saved[0])
+            head.bias.copy_(saved[1])
 
 
 def slice_phase(card, cfg=None, dev='cuda'):
     import numpy as np
     import torch
     from vampire_tpu_torch.configs import flagship_config, synthetic_batch
-    from vampire_tpu_torch.ops import lift
     from vampire_tpu_torch.serving import InferenceServer
 
     cfg = cfg or flagship_config()
@@ -196,88 +555,42 @@ def slice_phase(card, cfg=None, dev='cuda'):
                        ('imgs', 'sensor2ego', 'intrin', 'ida', 'bda',
                         'points')})
     samples, calib = frames[:N_REQUESTS], frames[N_REQUESTS]
-    t0 = time.perf_counter()
-    server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
-                             outputs='metrics', seed=0)
-    calibrate_batchnorm_(server, calib)
-    t1 = time.perf_counter()
-    server.start()
-    outs, lat = [], []
-    try:
-        server.warmup()
-        say(f'slice: model built and BN calibrated in {t1 - t0:.1f} s, '
-            f'warmup request {time.perf_counter() - t1:.1f} s')
-        lift.LAUNCHES = 0
-        for s in samples:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            h0 = time.perf_counter()
-            a.record()
-            outs.append(server.infer(s))
-            b.record()
-            b.synchronize()
-            lat.append((a.elapsed_time(b), (time.perf_counter() - h0) * 1e3))
-        launches = lift.LAUNCHES
-    finally:
-        server.stop()
-    for i, (ev, host) in enumerate(lat):
-        say(f'request {i}: {ev:.2f} ms (CUDA events), {host:.2f} ms (host '
-            f'clock), incl. host NMS [{card}]')
-    if launches != 6 * N_REQUESTS:
-        raise AssertionError(f'lift kernel launched {launches} times for '
-                             f'{N_REQUESTS} requests, want {6 * N_REQUESTS}')
-    say(f'lift kernel launches during the requests: {launches}')
-
-    bc, hc = cfg.backbone, cfg.head
+    bc = cfg.backbone
     gx, gy, gz = bc.occ_grid
     Kc, P = bc.num_classes, cfg.train.max_points
-    want = dict(occ_logits=(gx, gy, gz, Kc), occ_density=(gx, gy, gz),
-                pts_logits=(P, Kc))
-    for i, o in enumerate(outs):
-        if set(o) != set(want) | {'det'}:
-            raise AssertionError(f'request {i}: outputs {sorted(o)}')
-        for k, shape in want.items():
-            if o[k].shape != shape or not np.isfinite(o[k]).all():
-                raise AssertionError(f'request {i}: {k} {o[k].shape} '
-                                     f'finite={np.isfinite(o[k]).all()}')
-        boxes, scores, labels = o['det']
-        if len(boxes) == 0:
-            raise AssertionError(f'request {i}: no boxes after NMS')
-        if (boxes.ndim != 2 or boxes.shape[1] != 9
-                or not np.isfinite(boxes).all()
-                or scores.shape != (len(boxes),)
-                or labels.shape != (len(boxes),)
-                or len(boxes) > hc.nms_post_max_size * len(hc.tasks)
-                or not (scores > hc.score_threshold).all()):
-            raise AssertionError(
-                f'request {i}: det {boxes.shape} {scores.shape} '
-                f'{labels.shape}; non-finite per column '
-                f'{(~np.isfinite(boxes)).sum(0).tolist()}, max |box| per '
-                f'column {np.abs(boxes).max(0).tolist()}, scores '
-                f'{scores.min() if len(scores) else None}..'
-                f'{scores.max() if len(scores) else None}')
-        say(f'request {i}: shapes ok, finite, {len(boxes)} boxes after NMS')
+    N = samples[0]['imgs'].shape[0]
+    H, W = bc.final_dim
+    _, Yd, Xd = bc.grid_zyx('det')
+    metric = dict(occ_logits=(gx, gy, gz, Kc), occ_density=(gx, gy, gz),
+                  pts_logits=(P, Kc))
+    launched = {}
 
-    # request 0 again, with the plain lift on the card
-    batch = {k: v[None] for k, v in samples[0].items()}
-    with torch.inference_mode():
-        imgs, mats, points = server.to_device(batch)
-        fo, _ = server.model(imgs, mats, points=points, lidar_seg=True,
-                             lift_fn=lift.lift_accumulate_reference)
-    errs = {}
-    for k in want:
-        ref = fo[k][0].float().cpu().numpy()
-        err = float(np.abs(outs[0][k] - ref).max())
-        tol = SLICE_RTOL * max(1.0, float(np.abs(ref).max()))
-        errs[k] = err
-        say(f'request 0 vs plain-lift forward: {k} max abs err {err:.3e} '
-            f'(tol {tol:.3e}, mean abs err '
-            f'{float(np.abs(outs[0][k] - ref).mean()):.3e})')
-        if not err <= tol:
-            raise AssertionError(f'{k}: kernel forward vs plain-lift forward '
-                                 f'{err} > {tol}')
-    return launches
+    # the metrics graph: no corner table, no rays
+    server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
+                             outputs='metrics', seed=0)
+    outs, launched['metrics'] = serve_path(card, server, calib, samples,
+                                           'metrics')
+    check_launches('metrics', launched['metrics'],
+                   dict(lift=N, corner_table=0, rays=0))
+    check_outputs('metrics', outs, metric, cfg)
+    check_against_plain('metrics', server, samples[0], outs[0], metric)
+    del server, outs
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # the full-render graph: one corner table and one ray launch per frame
+    server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
+                             outputs=None, seed=0)
+    outs, launched['full'] = serve_path(card, server, calib, samples,
+                                        'full-render')
+    check_launches('full-render', launched['full'],
+                   dict(lift=N, corner_table=1, rays=1))
+    check_outputs('full-render', outs,
+                  dict(metric, depth_preds=(N, H, W), seg_preds=(N, H, W),
+                       bev_seg=(Yd, Xd)), cfg)
+    check_against_plain('full-render', server, samples[0], outs[0], metric,
+                        ('rgb_preds', 'seg_logits_preds', 'depth_preds'))
+    return launched
 
 
 def main():
@@ -289,22 +602,43 @@ def main():
     card = device_phase()
     build_phase()
     k = kernel_phase(card)
-    launches = slice_phase(card)
+    launched = slice_phase(card)['full']
     leaked = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]
     if leaked:
         raise AssertionError(f'the port imported {leaked}')
+    csrc = 'vampire_tpu_torch/csrc'
     print(json.dumps({'kernels': [{
         'name': 'lift_accumulate',
         'route': 'cuda',
-        'source': 'vampire_tpu_torch/csrc/lift.cu',
+        'source': f'{csrc}/lift.cu',
         'replaces': 'vampire_tpu/ops/pallas_tables.py:289',
         'also_replaces': 'vampire_tpu/ops/pallas_gather.py:68',
-        'launches': launches,
-        'max_abs_err': k['max_abs_err'],
-        'ms': k['bfloat16']['ms'],
-        'plain_ms': k['bfloat16']['plain_ms'],
-        'fp32_ms': k['float32']['ms'],
-        'fp32_plain_ms': k['float32']['plain_ms'],
+        'launches': launched['lift'],
+        'max_abs_err': k['lift']['max_abs_err'],
+        'ms': k['lift']['bfloat16']['ms'],
+        'plain_ms': k['lift']['bfloat16']['plain_ms'],
+        'fp32_ms': k['lift']['float32']['ms'],
+        'fp32_plain_ms': k['lift']['float32']['plain_ms'],
+    }, {
+        'name': 'corner_table',
+        'route': 'cuda',
+        'source': f'{csrc}/corner_table.cu',
+        'replaces': 'vampire_tpu/ops/pallas_tables.py:73',
+        'launches': launched['corner_table'],
+        'max_abs_err': k['corner_table']['max_abs_err'],
+        'ms': k['corner_table']['bfloat16']['ms'],
+        'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
+        'fp32_ms': k['corner_table']['float32']['ms'],
+        'fp32_plain_ms': k['corner_table']['float32']['plain_ms'],
+    }, {
+        'name': 'sample_and_composite_rays',
+        'route': 'cuda',
+        'source': f'{csrc}/rays.cu',
+        'replaces': 'vampire_tpu/core/rendering.py:100',
+        'launches': launched['rays'],
+        'max_abs_err': k['rays']['max_abs_err'],
+        'ms': k['rays']['ms'],
+        'plain_ms': k['rays']['plain_ms'],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

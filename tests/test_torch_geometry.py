@@ -106,3 +106,25 @@ def test_block_major_coords_valid():
     np.testing.assert_array_equal(valid.numpy(), want_valid)
     assert valid.numpy().any()
     assert coords.abs().max() <= 2.0
+
+
+@pytest.mark.parametrize('with_bda', [True, False])
+def test_get_geometry_matches_jax(with_bda):
+    """Frustum -> ego xyz: two inverses and three chained 4x4 products in
+    fp32 on both sides (HIGHEST precision on the JAX side); points reach
+    ~20 m at tiny_config: 1e-5."""
+    c = tiny_config().backbone
+    fr = G.make_frustum(c.final_dim, c.downsample_factor, c.d_bound)
+    m = _mats()
+    bda = m['bda'] if with_bda else None
+    want = np.asarray(JG.get_geometry(
+        jnp.asarray(fr), *(jnp.asarray(m[k]) for k in
+                           ('sensor2ego', 'intrin', 'ida')),
+        None if bda is None else jnp.asarray(bda)))
+    got = G.get_geometry(torch.from_numpy(fr),
+                         *(torch.from_numpy(m[k]) for k in
+                           ('sensor2ego', 'intrin', 'ida')),
+                         None if bda is None else torch.from_numpy(bda))
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape == (2, 6) + fr.shape[:3] + (3,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -28,5 +28,6 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, '-c', _SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    # core/3, models/6, ops/2, serving/1 + packages and top-level modules
-    assert int(proc.stdout.strip()) >= 17, proc.stdout
+    # core/3, models/6, ops/4 (lift, tables, rays, _build), serving/1 +
+    # packages and top-level modules
+    assert int(proc.stdout.strip()) >= 20, proc.stdout

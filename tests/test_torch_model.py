@@ -1,11 +1,13 @@
-"""The PyTorch port's metrics-graph forward against the JAX package.
+"""The PyTorch port's forward against the JAX package.
 
 `Vampire(tiny_config(), float32)` is initialised in JAX; its BatchNorm
 statistics, BN affine parameters and biases are then randomised from numpy
 (fresh statistics are mean 0 / var 1 and would hide a BN mapping bug), the
 weights are carried across with `weights.from_flax`, and every output of
-`apply(..., camera_renders=False)` plus the decoded boxes are compared on
-the same synthetic batch. Both sides run in fp32 on the CPU.
+`apply(..., camera_renders=False)` (the metrics graph) and of
+`apply(..., camera_renders=True)` (the full-render graph, with the corner
+table and the camera rays) plus the decoded boxes are compared on the same
+synthetic batch. Both sides run in fp32 on the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -26,13 +28,15 @@ MATS = ('sensor2ego', 'intrin', 'ida', 'bda')
 # differences. 1e-4 relative/absolute is ~1000 fp32 ulps of O(1) values and
 # far below the error of any layout or mapping mistake (those give O(0.1-1)).
 RTOL = ATOL = 1e-4
-# the point queries sample a bf16-rounded copy of the field on both sides:
-# a last-bit fp32 difference can flip one bf16 rounding, which moves a
-# sample by up to 2^-8 of the field's magnitude
+# the point queries and the camera rays sample a bf16-rounded copy of the
+# field on both sides: a last-bit fp32 difference can flip one bf16
+# rounding, which moves a sample by up to 2^-8 of the field's magnitude
 PTS_KEYS = ('pts_logits', 'pts_sdf')
+RENDER_KEYS = ('rgb_preds', 'seg_logits_preds', 'depth_preds')
 FIELD_KEYS = ('occ_logits', 'occ_density', 'pts_logits', 'pts_sdf',
               'bev_rgb_preds', 'bev_seg_logits_preds', 'bev_height_preds',
               'bev_density', 'bev_feature')
+ALL_KEYS = FIELD_KEYS + RENDER_KEYS
 
 
 def _randomize(variables, seed=0):
@@ -81,9 +85,40 @@ def both():
     with torch.inference_mode():
         tfo, tpreds = tm(torch.from_numpy(batch['imgs']),
                          {k: torch.from_numpy(batch[k]) for k in MATS},
-                         points=torch.from_numpy(batch['points']))
+                         points=torch.from_numpy(batch['points']),
+                         camera_renders=False)
         tdec = decode_preds(tpreds, cfg.head)
     return cfg, variables, sd, tm, jfo, jpreds, jdec, tfo, tpreds, tdec
+
+
+@pytest.fixture(scope='module')
+def full(both):
+    """The full-render graph, camera_renders=True, on the weights of `both`
+    and its batch, except the density bias: the JAX init's sdf_bias - 10
+    saturates every ray at its first sample, which would hide the
+    compositing; a zero bias puts the field's sdf around the density's knee,
+    so rays end anywhere from the near to the far plane."""
+    cfg, variables, _, _, *_ = both
+    variables = jax.tree.map(lambda a: a, variables)
+    variables['params']['backbone']['density_conv']['bias'] = np.zeros(
+        1, np.float32)
+    tm = Vampire(cfg.backbone, cfg.head, dtype=torch.float32)
+    tm.load_state_dict(from_flax(variables, tm), strict=True)
+    tm.eval()
+    batch = synthetic_batch(cfg, batch_size=1, n_points=128, seed=0,
+                            mode='val')
+    jm = JaxVampire(cfg.backbone, cfg.head, dtype=jnp.float32)
+    jfo, jpreds = jax.device_get(jax.jit(lambda v: jm.apply(
+        v, jnp.asarray(batch['imgs']),
+        {k: jnp.asarray(batch[k]) for k in MATS},
+        points=jnp.asarray(batch['points']), train=False,
+        camera_renders=True))(variables))
+    with torch.inference_mode():
+        tfo, tpreds = tm(torch.from_numpy(batch['imgs']),
+                         {k: torch.from_numpy(batch[k]) for k in MATS},
+                         points=torch.from_numpy(batch['points']),
+                         camera_renders=True)
+    return jfo, jpreds, tfo, tpreds
 
 
 def test_bridge_fills_every_parameter(both):
@@ -106,6 +141,30 @@ def test_field_output_matches_jax(both, key):
     assert np.isfinite(got).all()
     atol = ATOL + (2.0 ** -8 * np.abs(want).max() if key in PTS_KEYS else 0)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol, err_msg=key)
+
+
+@pytest.mark.parametrize('key', ALL_KEYS)
+def test_full_render_output_matches_jax(full, key):
+    """All 12 outputs of the full-render graph. The points and the three
+    camera renders are sampled from the bf16 corner table, hence the
+    2^-8 * max|want| allowance on them, as for PTS_KEYS above."""
+    jfo, _, tfo, _ = full
+    want = np.asarray(jfo[key])
+    got = tfo[key].numpy()
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    atol = ATOL
+    if key in PTS_KEYS + RENDER_KEYS:
+        atol += 2.0 ** -8 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol, err_msg=key)
+
+
+def test_full_render_head_preds_match_jax(full):
+    _, jpreds, _, tpreds = full
+    for jp, tp in zip(jpreds, tpreds):
+        for k in jp:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
 
 
 def test_camera_renders_are_none(both):
@@ -187,15 +246,34 @@ def test_unported_configs_raise(kw):
 
 @pytest.mark.parametrize('case', ['camera_renders', 'multi_sweep'])
 def test_unported_inputs_raise(case):
+    """The multi-sweep 6-D input waits for a later slice (ROADMAP.md) and
+    says so. The camera renders are ported: camera_renders=True, the
+    default, returns the three x4-upsampled renders."""
     cfg = tiny_config()
     tm = Vampire(cfg.backbone, cfg.head).eval()
     b = synthetic_batch(cfg, batch_size=1, n_points=8, seed=0, mode='val')
     imgs = torch.from_numpy(b['imgs'])
     mats = {k: torch.from_numpy(b[k]) for k in MATS}
-    kw = {}
-    if case == 'camera_renders':
-        kw['camera_renders'] = True
-    else:
-        imgs = imgs[:, None]
+    if case == 'multi_sweep':
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            tm(imgs[:, None], mats)
+        return
+    with torch.inference_mode():
+        fo, _ = tm(imgs, mats)
+    bc = cfg.backbone
+    N, (H, W), K = imgs.shape[1], bc.final_dim, bc.num_classes
+    assert fo['rgb_preds'].shape == (1, N, H, W, 3)
+    assert fo['seg_logits_preds'].shape == (1, N, H, W, K)
+    assert fo['depth_preds'].shape == (1, N, H, W)
+    for k in RENDER_KEYS:
+        assert torch.isfinite(fo[k]).all()
+    depth = fo['depth_preds']
+    assert (depth >= bc.d_bound[0]).all() and (depth <= bc.d_bound[1]).all()
+
+
+def test_early_term_sampler_raises():
+    """The opt-in early-term ray sampler is not ported and says so."""
+    from vampire_tpu_torch.models.field import FieldBackbone
+    fb = FieldBackbone(_tiny_bc(ray_et_fracs=(1.0,)))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tm(imgs, mats, **kw)
+        fb._render_cameras({}, [])

@@ -95,16 +95,70 @@ def test_stop_fails_queued_requests(server):
         fut.result(timeout=10)
 
 
+# the JAX server's output keys (vampire_tpu/serving/server.py, `fwd`)
+FULL_KEYS = {'occ_logits', 'occ_density', 'pts_logits', 'depth_preds',
+             'seg_preds', 'bev_seg', 'det'}
+RENDER_KEYS = {'occ_logits', 'occ_density', 'depth_preds', 'seg_preds',
+               'rgb_preds'}
+
+
 @pytest.mark.parametrize('outputs,err', [
-    (None, NotImplementedError),
-    (('occ', 'camera_renders'), NotImplementedError),
+    (None, FULL_KEYS),
+    (('occ', 'camera_renders'), RENDER_KEYS),
     (('occ', 'nope'), ValueError),
 ])
-def test_output_selection_rejects(outputs, err):
-    """The JAX default (outputs=None) and 'camera_renders' need the camera-
-    ray branch, which is not ported yet."""
-    with pytest.raises(err):
-        InferenceServer(tiny_config(), device='cpu', outputs=outputs)
+def test_output_selection_rejects(server, outputs, err):
+    """An unknown output group is rejected. The JAX default (outputs=None,
+    the full-render graph) and an explicit 'camera_renders' serve, with the
+    JAX server's keys, shapes and dtypes; the rendered depth lies within the
+    depth bounds."""
+    cfg = server.cfg
+    if err is ValueError:
+        with pytest.raises(ValueError):
+            InferenceServer(cfg, device='cpu', outputs=outputs)
+        return
+    srv = InferenceServer(cfg, device='cpu',
+                          state_dict=server.model.state_dict(),
+                          outputs=outputs).start()
+    try:
+        got = srv.infer(_sample(cfg, 7))
+    finally:
+        srv.stop()
+    assert set(got) == err
+    bc = cfg.backbone
+    N, (H, W), K = 6, bc.final_dim, bc.num_classes
+    assert got['depth_preds'].shape == (N, H, W)
+    assert got['depth_preds'].dtype == np.float32
+    assert got['seg_preds'].shape == (N, H, W)
+    assert got['seg_preds'].dtype == np.int32
+    assert ((got['seg_preds'] >= 0) & (got['seg_preds'] < K)).all()
+    depth = got['depth_preds']
+    assert np.isfinite(depth).all()
+    assert (depth >= bc.d_bound[0]).all() and (depth <= bc.d_bound[1]).all()
+    if 'rgb_preds' in err:
+        assert got['rgb_preds'].shape == (N, H, W, 3)
+        assert got['rgb_preds'].dtype == np.float32
+    if 'bev_seg' in err:
+        _, Y, X = bc.grid_zyx('det')
+        assert got['bev_seg'].shape == (Y, X)
+        assert got['bev_seg'].dtype == np.int32
+        boxes, scores, labels = got['det']
+        assert boxes.ndim == 2 and boxes.shape[1] == 9
+
+
+def test_full_render_matches_metrics_graph(server):
+    """The full-render graph serves the metric outputs of the metrics
+    graph exactly: the corner table serves the camera rays only, and both
+    graphs sample the points with grid_sample on a bf16 copy of the
+    field."""
+    cfg = server.cfg
+    srv = InferenceServer(cfg, device='cpu',
+                          state_dict=server.model.state_dict(),
+                          outputs=None)
+    batch = {k: v[None] for k, v in _sample(cfg, 8).items()}
+    full, metrics = srv.forward(batch), server.forward(batch)
+    for k in ('occ_logits', 'occ_density', 'pts_logits'):
+        np.testing.assert_array_equal(full[k], metrics[k], err_msg=k)
 
 
 def test_same_weights_same_outputs_across_servers(server):

@@ -94,6 +94,32 @@ def make_occ_coords(point_cloud_range=(-40.0, -40.0, -1.0, 40.0, 40.0, 5.4),
 # Projective transforms (fp32)
 # ---------------------------------------------------------------------------
 
+def get_geometry(frustum: torch.Tensor, sensor2ego: torch.Tensor,
+                 intrin: torch.Tensor, ida: torch.Tensor,
+                 bda: Optional[torch.Tensor]) -> torch.Tensor:
+    """Frustum pixel grid -> ego-frame xyz.
+
+    Args:
+      frustum: (D, fH, fW, 4) pixel-space frustum (`make_frustum`).
+      sensor2ego, intrin, ida: (B, N, 4, 4) per-camera matrices.
+      bda: optional (B, 4, 4) BEV augmentation matrix.
+
+    Returns:
+      (B, N, D, fH, fW, 3) fp32 ego xyz.
+    """
+    f32 = torch.float32
+    frustum = frustum.to(f32)
+    sensor2ego, intrin, ida = (m.to(f32) for m in (sensor2ego, intrin, ida))
+    # undo the image-space augmentation, then pixel * depth
+    pts = torch.einsum('bnij,dhwj->bndhwi', torch.linalg.inv(ida), frustum)
+    pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:]], dim=-1)
+    combine = sensor2ego @ torch.linalg.inv(intrin)
+    pts = torch.einsum('bnij,bndhwj->bndhwi', combine, pts)
+    if bda is not None:
+        pts = torch.einsum('bij,bndhwj->bndhwi', bda.to(f32), pts)
+    return pts[..., :3]
+
+
 def get_pixel(voxel_coords: torch.Tensor, sensor2ego: torch.Tensor,
               intrin: torch.Tensor, ida: torch.Tensor,
               bda: Optional[torch.Tensor], eps: float = 1e-6) -> torch.Tensor:

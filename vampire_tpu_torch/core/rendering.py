@@ -1,13 +1,19 @@
 """Volume rendering: VolSDF-style densities and alpha compositing (fp32).
 
-Port of the BEV half of `vampire_tpu/core/rendering.py`. The camera-ray
-samplers wait for the camera-ray slice (ROADMAP.md, Queue 1).
+Port of `vampire_tpu/core/rendering.py`: the densities, the BEV column
+render, the unfused camera-ray oracle `render_camera_rays`, and
+`sample_and_composite_rays_reference`, the dense inference ray sampler and
+the plain version of the CUDA kernel in `ops/rays.py`. The train-mode
+compact sampler and the opt-in early-term sampler are not ported
+(ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from . import sampling as S
 
 
 def laplace_density(sdf: torch.Tensor, beta: torch.Tensor,
@@ -26,6 +32,15 @@ def laplace_density(sdf: torch.Tensor, beta: torch.Tensor,
 def naive_density(x: torch.Tensor) -> torch.Tensor:
     """density_mode='naive': plain sigmoid."""
     return torch.sigmoid(x.to(torch.float32))
+
+
+def density(x: torch.Tensor, mode: str, beta: torch.Tensor,
+            bias: float) -> torch.Tensor:
+    """The field's density of `density_mode`: 'sdf' is `laplace_density`
+    with the learnable `beta`, 'naive' the sigmoid."""
+    if mode == 'naive':
+        return naive_density(x)
+    return laplace_density(x, beta, bias)
 
 
 def transmittance_weights(density: torch.Tensor, delta: torch.Tensor,
@@ -67,3 +82,88 @@ def render_bev_columns(density: torch.Tensor, seg_logits: torch.Tensor,
     mids = bev_mids.to(torch.float32)[None, :, None, None]
     bev_height = composite(w, mids * torch.ones_like(w), axis=1)
     return bev_rgb, bev_seg, bev_height
+
+
+def render_camera_rays(sdf: torch.Tensor, seg_logits: torch.Tensor,
+                       rgb: torch.Tensor, geom_xyz: torch.Tensor,
+                       camera_mids: torch.Tensor, density_fn,
+                       bg_depth: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Composite per-camera rays from already-sampled fields (the unfused
+    oracle of the ray samplers).
+
+    Args:
+      sdf: (B, N, S, h, w) sampled (masked) SDF; seg_logits: (..., K);
+      rgb: (..., 3); geom_xyz: (B, N, S+1, h, w, 3) ego points along the
+      rays (for the deltas); camera_mids: (S,); density_fn: SDF -> density;
+      bg_depth: depth given to the untouched remainder (1 - sum w).
+
+    Returns:
+      (rgb (B, N, h, w, 3), seg (B, N, h, w, K), depth (B, N, h, w)) fp32.
+    """
+    dens = density_fn(sdf)
+    delta = torch.linalg.norm(geom_xyz[:, :, 1:].to(torch.float32)
+                              - geom_xyz[:, :, :-1].to(torch.float32), dim=-1)
+    w, acc = transmittance_weights(dens, delta, axis=2)
+    rgb_p = composite(w[..., None], rgb, axis=2)
+    seg_p = composite(w[..., None], seg_logits, axis=2)
+    mids = camera_mids.to(torch.float32)[None, None, :, None, None]
+    depth_p = composite(w, mids * torch.ones_like(w), axis=2)
+    return rgb_p, seg_p, depth_p + (1.0 - acc) * bg_depth
+
+
+# the plain sampler gathers (rays, S, 8, Ct) fp32 values per chunk; keep a
+# chunk under ~1 GB
+_CHUNK_BYTES = 1 << 30
+
+
+def sample_and_composite_rays_reference(
+        table: torch.Tensor, vol_shape: Tuple[int, int, int],
+        coords: torch.Tensor, valid: torch.Tensor, deltas: torch.Tensor,
+        camera_mids: torch.Tensor, bg_depth: float, density_mode: str,
+        beta: torch.Tensor, sdf_bias: float,
+        chunk_rays: Optional[int] = None) -> torch.Tensor:
+    """Sample the corner table along whole rays and alpha-composite them.
+
+    The same values as `grid_sample_3d_fused(vol, coords) * valid` (zeros
+    padding, align_corners=True) followed by `render_camera_rays`, chunked
+    over rays so that the gathered samples of a chunk stay under ~1 GB.
+
+    Args:
+      table: the corner table of the fused (C, D, H, W) volume with
+        channels [sdf | seg (K) | rgb (3)], bf16 or fp32, in either layout:
+        `corner_table_reference` or `build_neighborhood_table`.
+      vol_shape: (D, H, W) of that volume.
+      coords: (R, S, 3) normalized sample coords; valid: (R, S) 0/1;
+      deltas: (R, S) path lengths; camera_mids: (S,).
+      bg_depth, density_mode, beta, sdf_bias: see `density`.
+
+    Returns:
+      (R, 3 + K + 1) fp32: [rgb | seg | depth] per ray.
+    """
+    D, H, W = vol_shape
+    flat = table.reshape((D + 1) * (H + 1) * (W + 1), -1)
+    Ct = flat.shape[1] // 8
+    K = Ct - 4
+    R_, S_n = coords.shape[:2]
+    if chunk_rays is None:
+        chunk_rays = max(1, _CHUNK_BYTES // (S_n * 8 * Ct * 4))
+    mids = camera_mids.to(torch.float32)
+    outs = []
+    for r0 in range(0, R_, chunk_rays):
+        cc = coords[r0:r0 + chunk_rays]
+        cr = cc.shape[0]
+        rows, w8 = S.corner_rows_weights(cc.reshape(-1, 3), vol_shape, True,
+                                         False)
+        samp = S.gather_corners(flat, rows, w8).reshape(cr, S_n, Ct)
+        samp = samp * valid[r0:r0 + chunk_rays].to(torch.float32)[..., None]
+        sd = (density(samp[..., 0], density_mode, beta, sdf_bias)
+              * deltas[r0:r0 + chunk_rays].to(torch.float32))
+        alpha = 1.0 - torch.exp(-sd)
+        w = alpha * torch.exp(-(torch.cumsum(sd, dim=-1) - sd))   # (cr, S)
+        acc = torch.sum(w, dim=-1)
+        rgb_o = torch.sum(w[..., None] * samp[..., K + 1:K + 4], dim=1)
+        seg_o = torch.sum(w[..., None] * samp[..., 1:K + 1], dim=1)
+        depth_o = torch.sum(w * mids[None, :], dim=1) + (1.0 - acc) * bg_depth
+        outs.append(torch.cat([rgb_o, seg_o, depth_o[:, None]], dim=-1))
+    return torch.cat(outs, dim=0)

@@ -11,6 +11,12 @@ Port of the serving-path half of `vampire_tpu/core/sampling.py`:
   * `make_sample_matrix` / `apply_sample_matrices`: static-grid sampling as
     separable matmuls.
   * `resize_linear`: align_corners=True multi-axis linear resize.
+  * `corner_table_reference` / `build_neighborhood_table`: the corner-block
+    table of a volume (one row per trilinear footprint); the first is the
+    plain version of the CUDA kernel in `ops/tables.py`.
+  * `corner_rows_weights`: the row/weight contract between that table and
+    every sampler that reads it (`grid_sample_3d_fused` here, the ray
+    samplers of `core/rendering.py` and `csrc/rays.cu`).
 
 Conventions follow torch `grid_sample`: coords are (x, y, z) in [-1, 1] with
 x indexing the innermost axis; align_corners=True maps -1/1 to the corner
@@ -19,7 +25,7 @@ voxel centers, align_corners=False to the outer voxel edges.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +114,106 @@ def grid_sample_3d(vol: torch.Tensor, coords: torch.Tensor,
     out = F.grid_sample(vol, grid, mode='bilinear', padding_mode=padding_mode,
                         align_corners=align_corners)       # (B, C, 1, 1, P)
     return out.reshape(B, C, -1).transpose(1, 2).reshape(B, *lead, C)
+
+
+# ---------------------------------------------------------------------------
+# Corner-block table: one row per trilinear footprint, so that a sample reads
+# one contiguous row instead of eight scattered voxels.
+# ---------------------------------------------------------------------------
+
+def corner_table_reference(vol: torch.Tensor) -> torch.Tensor:
+    """Corner-block table of a channels-first volume (plain torch).
+
+    vol (C, D, H, W) -> (D+1, H+1, W+1, 8*C) in vol's dtype. Row (bz, by, bx),
+    channel k*C + c, with k = (dz*2 + dy)*2 + dx, holds
+    `pad(vol)[c, bz+dz, by+dy, bx+dx]`: the 2x2x2 block of the zero-padded
+    volume rooted at original voxel (bz-1, by-1, bx-1).
+    """
+    C, D, H, W = vol.shape
+    p = F.pad(vol.permute(1, 2, 3, 0), (0, 0, 1, 1, 1, 1, 1, 1))
+    parts = [p[dz:dz + D + 1, dy:dy + H + 1, dx:dx + W + 1]
+             for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+    return torch.cat(parts, dim=-1)
+
+
+def build_neighborhood_table(vol: torch.Tensor) -> torch.Tensor:
+    """vol (C, D, H, W) -> ((D+1)*(H+1)*(W+1), 2, 2, 2, C) corner-block table,
+    row layout [c000|c001|...|c111] in (dz, dy, dx)-major corner order: the
+    rows of `corner_table_reference`."""
+    C, D, H, W = vol.shape
+    return corner_table_reference(vol).reshape(
+        (D + 1) * (H + 1) * (W + 1), 2, 2, 2, C)
+
+
+def _axis_window_weights(coord, size, align_corners, border):
+    """Per-point (table base index along one axis, (a0, a1) weights of the
+    table offsets 0 and 1)."""
+    x = _unnormalize(coord, size, align_corners)
+    if border:
+        x = torch.clamp(x, 0.0, float(size - 1))
+    x0f = torch.floor(x)
+    w1 = x - x0f
+    w0 = 1.0 - w1
+    x0 = x0f.to(torch.int64)
+    b = torch.clamp(x0 + 1, 0, size)        # table base (orig rows b-1, b)
+
+    def a(d):
+        r = b - 1 + d                       # orig row of table offset d
+        c0 = (r == x0) & (x0 >= 0) & (x0 <= size - 1)
+        c1 = (r == x0 + 1) & (x0 + 1 >= 0) & (x0 + 1 <= size - 1)
+        return torch.where(c0, w0, 0.0) + torch.where(c1, w1, 0.0)
+    return b, torch.stack([a(0), a(1)], dim=-1)
+
+
+def corner_rows_weights(c: torch.Tensor, vol_shape: Tuple[int, int, int],
+                        align_corners: bool, border: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """c (P, 3) normalized (x, y, z) -> (rows (P,) int64 into the
+    (D+1)(H+1)(W+1)-row corner table, w8 (P, 8) fp32 corner weights in the
+    table's (dz, dy, dx)-major corner order). Zeros padding unless `border`
+    clamps the coordinate first."""
+    D, H, W = vol_shape
+    bx, ax = _axis_window_weights(c[:, 0], W, align_corners, border)
+    by, ay = _axis_window_weights(c[:, 1], H, align_corners, border)
+    bz, az = _axis_window_weights(c[:, 2], D, align_corners, border)
+    rows = (bz * (H + 1) + by) * (W + 1) + bx
+    w8 = (az[:, :, None, None] * ay[:, None, :, None]
+          * ax[:, None, None, :]).reshape(-1, 8)
+    return rows, w8
+
+
+def gather_corners(flat: torch.Tensor, rows: torch.Tensor,
+                   w8: torch.Tensor) -> torch.Tensor:
+    """Weighted sum of the 8 corners of each row: flat (R, 8*Ct) table,
+    rows (P,), w8 (P, 8) -> (P, Ct) fp32."""
+    t = flat.index_select(0, rows).reshape(rows.shape[0], 8, -1)
+    return torch.sum(t.to(torch.float32) * w8[:, :, None], dim=1)
+
+
+def grid_sample_3d_fused(vol: torch.Tensor, coords: torch.Tensor,
+                         align_corners: bool = True,
+                         padding_mode: str = 'zeros',
+                         table: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Trilinear sample through the corner table: one row gather per query.
+
+    Args:
+      vol: (C, D, H, W); only its shape is read when `table` is given.
+      coords: (..., 3) normalized (x, y, z).
+      table: `build_neighborhood_table(vol)` (any dtype), built here if None.
+
+    Returns:
+      (..., C) fp32 samples; the same values as `grid_sample_3d` on the
+      table's dtype, summed in fp32.
+    """
+    C, D, H, W = vol.shape
+    if table is None:
+        table = build_neighborhood_table(vol)
+    lead = coords.shape[:-1]
+    rows, w8 = corner_rows_weights(coords.reshape(-1, 3), (D, H, W),
+                                   align_corners, padding_mode == 'border')
+    out = gather_corners(table.reshape(table.shape[0], -1), rows, w8)
+    return out[:, :C].reshape(*lead, C)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,11 +1,14 @@
-"""The image -> field backbone for the metrics graph; the port of
-`vampire_tpu/models/field.py` (`FieldBackbone`, `camera_renders=False`).
+"""The image -> field backbone; the port of `vampire_tpu/models/field.py`
+(`FieldBackbone`).
 
 Cameras are encoded by ResNet + SECONDFPN, lifted through the depth softmax
 into one ego voxel field by the block-compacted lift (whose inner step is the
 CUDA kernel of `ops/lift.py`), refined by the Unet3D, and queried for the
 Occ3D grid, the LiDAR points, the BEV column renders and the BEV feature of
-the detection head.
+the detection head. With `camera_renders=True` (the default, as in the JAX
+package) the fused field [sdf | seg | rgb] is also turned into one bf16
+corner table per frame (`ops/tables.py`), through which the camera rays are
+rendered (`ops/rays.py`); the ray renders are upsampled x4.
 
 Layouts: inputs and outputs keep the JAX package's layouts (channels-last
 images, (B, Z, Y, X) ordering, occ as (B, X, Y, Z, K)); inside, tensors are
@@ -28,6 +31,8 @@ from ..core import geometry as G
 from ..core import rendering as R
 from ..core import sampling as S
 from ..ops import lift as lift_ops
+from ..ops import rays as ray_ops
+from ..ops import tables as table_ops
 from .resnet import Conv2d, ResNet
 from .second_fpn import SECONDFPN
 from .unet3d import Conv3d, Unet3D
@@ -68,6 +73,29 @@ def coords_valid(pix: torch.Tensor, c: BackboneConfig):
     return torch.clamp(coords, -2.0, 2.0), valid
 
 
+def ray_inputs(geom_xyz: torch.Tensor, c: BackboneConfig):
+    """Camera-frustum points -> the ray sampler's inputs, ray-major.
+
+    geom_xyz: (B, N, D, fh, fw, 3) ego xyz of the D depth planes. The first
+    S = D-1 planes are the samples. Returns coords (B, R, S, 3) normalized
+    to the field grid, valid (B, R, S) fp32 in-range mask and deltas
+    (B, R, S) distances to the next plane, with R = N*fh*fw rays.
+    """
+    geom_xyz = torch.nan_to_num(geom_xyz.to(torch.float32), nan=-1e3)
+    norm = G.normalize_coords(geom_xyz[:, :, :-1], c.x_bound_seg,
+                              c.y_bound_seg, c.z_bound_seg)
+    valid = G.inrange_mask(norm).to(torch.float32)
+    delta = torch.linalg.norm(geom_xyz[:, :, 1:] - geom_xyz[:, :, :-1],
+                              dim=-1)
+    B, N, S, fh, fw = norm.shape[:5]
+
+    def ray_major(x, tail):
+        return torch.movedim(x, 2, 4).reshape((B, N * fh * fw, S) + tail)
+    return (ray_major(norm, (3,)).contiguous(),
+            ray_major(valid, ()).contiguous(),
+            ray_major(delta, ()).contiguous())
+
+
 def _norm1d(centers, bound):
     return (centers - bound[0]) / (bound[1] - bound[0]) * 2.0 - 1.0
 
@@ -99,6 +127,9 @@ class FieldBackbone(nn.Module):
         buf('norm_voxel_coords', G.make_norm_voxel_coords(
             c.x_bound_seg, c.y_bound_seg, c.z_bound_seg).transpose(3, 0, 1, 2))
         buf('bev_mids', G.make_bev_mids(c.z_bound_det))
+        buf('frustum', G.make_frustum(c.final_dim, c.downsample_factor,
+                                      c.d_bound))
+        buf('camera_mids', G.make_camera_mids(c.d_bound))
         # static-grid queries as separable interpolation matrices
         for i, ax in enumerate('zyx'):
             bd = getattr(c, f'{ax}_bound_det')
@@ -144,9 +175,8 @@ class FieldBackbone(nn.Module):
 
     # ------------------------------------------------------------------
     def _density(self, x):
-        if self.cfg.density_mode == 'naive':
-            return R.naive_density(x)
-        return R.laplace_density(x, self.density_beta, self.cfg.sdf_bias)
+        return R.density(x, self.cfg.density_mode, self.density_beta,
+                         self.cfg.sdf_bias)
 
     def lift(self, depth: torch.Tensor, feat: torch.Tensor,
              mats: Dict[str, torch.Tensor],
@@ -191,8 +221,11 @@ class FieldBackbone(nn.Module):
     def _query_points(self, fused, points):
         """Point queries: pts_logits (B, P, K), pts_sdf (B, P).
 
-        Sampled from a bf16-rounded copy of the fused volume with fp32
-        weights and accumulation, like the JAX package's `sample_dtype`.
+        `grid_sample` on a bf16-rounded copy of the fused volume with fp32
+        weights and accumulation, like the JAX package's `sample_dtype`. The
+        JAX full-render graph reads the same values through its corner table
+        (a TPU gather layout); here both graphs take this path, which gives
+        them up to the fp32 summation order and is the faster one on a card.
         """
         c = self.cfg
         K = c.num_classes
@@ -239,31 +272,57 @@ class FieldBackbone(nn.Module):
             c.z_bound_det[2])
         return bev_rgb, bev_seg, bev_height, bev_density, vox_out
 
+    def _render_cameras(self, mats, tables, plain=False):
+        """Camera-ray renders through the frames' corner tables, x4
+        upsampled: rgb (B, N, H, W, 3), seg logits (B, N, H, W, K), depth
+        (B, N, H, W), with (H, W) = feat_hw * upsample_factor."""
+        c = self.cfg
+        K = c.num_classes
+        if c.ray_et_fracs:
+            raise NotImplementedError(
+                f'ray_et_fracs={c.ray_et_fracs}: the early-term ray sampler '
+                f'is not ported, {_TODO}')
+        geom = G.get_geometry(self.frustum, mats['sensor2ego'],
+                              mats['intrin'], mats['ida'], mats.get('bda'))
+        coords, valid, delta = ray_inputs(geom, c)
+        B, N, _, fh, fw = geom.shape[:5]
+        sampler = (R.sample_and_composite_rays_reference if plain
+                   else ray_ops.sample_and_composite_rays)
+        out = torch.stack([
+            sampler(t, c.grid_zyx('seg'), coords[b], valid[b], delta[b],
+                    self.camera_mids, c.d_bound[1], c.density_mode,
+                    self.density_beta, c.sdf_bias)
+            for b, t in enumerate(tables)])                 # (B, R, 3+K+1)
+        out = out.reshape(B, N, fh, fw, K + 4)
+        up = c.upsample_factor
+        size = (fh * up, fw * up)
+        rgb = S.resize_linear(out[..., :3], size, (2, 3))
+        seg = S.resize_linear(out[..., 3:K + 3], size, (2, 3))
+        depth = S.resize_linear(out[..., K + 3:], size, (2, 3))[..., 0]
+        return rgb, seg, depth
+
     # ------------------------------------------------------------------
     def forward(self, imgs: torch.Tensor, mats: Dict[str, torch.Tensor],
                 points: Optional[torch.Tensor] = None,
-                camera_renders: bool = False,
-                lift_fn: Optional[Callable] = None
-                ) -> Dict[str, Optional[torch.Tensor]]:
-        """Metrics-graph forward.
+                camera_renders: bool = True,
+                plain: bool = False) -> Dict[str, Optional[torch.Tensor]]:
+        """Inference forward (BN in the module's mode).
 
         Args:
           imgs: (B, N, H, W, 3) normalized images (channels-last).
           mats: 'sensor2ego'/'intrin'/'ida' (B, N, 4, 4) and 'bda' (B, 4, 4).
           points: optional (B, P, 3) padded ego-frame query points.
-          camera_renders: must be False; the camera-ray branch is not ported.
-          lift_fn: the per-camera lift step; None is
-            `ops.lift.lift_accumulate_` (the CUDA kernel on a card). Only a
-            caller comparing against the plain version passes anything else.
+          camera_renders: also build the frame's corner table and render
+            the camera rays through it, as the JAX package does by default; False is the
+            metrics graph, whose outputs carry None for the camera renders.
+          plain: run the plain PyTorch versions of the kernels (lift, corner
+            table, rays) instead of the kernels. Only a caller comparing the
+            two on a card sets it; on the CPU both are the plain versions.
 
-        Returns the JAX package's output dict, with None for the camera
-        renders.
+        Returns the JAX package's output dict. The camera-ray branch always
+        runs the dense sampler: the train-mode compact sampler is not ported.
         """
         c = self.cfg
-        if camera_renders:
-            raise NotImplementedError(
-                f'camera_renders=True: the camera-ray branch is not ported, '
-                f'{_TODO}')
         if imgs.dim() != 5:
             raise NotImplementedError(
                 f'imgs of shape {tuple(imgs.shape)}: only (B, N, H, W, 3) '
@@ -278,6 +337,7 @@ class FieldBackbone(nn.Module):
         low = self.channel_lower(feats).permute(0, 2, 3, 1)
         low = low.reshape(B, N, h, w, -1)
 
+        lift_fn = lift_ops.lift_accumulate_reference if plain else None
         voxel_feats = self.lift(depth, low, mats, lift_fn)        # fp32
         if c.cat_pos:
             pos = self.norm_voxel_coords[None].expand(B, -1, -1, -1, -1)
@@ -292,6 +352,16 @@ class FieldBackbone(nn.Module):
         if points is not None:
             pts_logits, pts_sdf = self._query_points(fused, points)
         occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol)
+        rgb_p = seg_p = depth_p = None
+        if camera_renders:
+            # one bf16 corner table per frame serves the camera rays (the JAX
+            # package's table_pad_channels only pads rows to TPU lane tiles,
+            # exactly; it is not read here)
+            table_fn = (S.corner_table_reference if plain
+                        else table_ops.corner_table)
+            fused_t = fused.to(torch.bfloat16)
+            tables = [table_fn(fused_t[b]) for b in range(B)]
+            rgb_p, seg_p, depth_p = self._render_cameras(mats, tables, plain)
         (bev_rgb, bev_seg, bev_height, bev_density,
          vox_out) = self._render_bev(fused, base.to(torch.float32))
 
@@ -307,9 +377,9 @@ class FieldBackbone(nn.Module):
 
         return dict(
             bev_feature=bev_feat.permute(0, 2, 3, 1),  # (B, Y', X', C)
-            rgb_preds=None,
-            seg_logits_preds=None,
-            depth_preds=None,
+            rgb_preds=rgb_p,                           # (B, N, H, W, 3)
+            seg_logits_preds=seg_p,                    # (B, N, H, W, K)
+            depth_preds=depth_p,                       # (B, N, H, W)
             bev_rgb_preds=bev_rgb,                     # (B, Y, X, 3)
             bev_seg_logits_preds=bev_seg,              # (B, Y, X, K)
             bev_height_preds=bev_height,               # (B, Y, X)

@@ -4,8 +4,6 @@ mirrors the JAX package's initializers."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
-
 import torch
 import torch.nn as nn
 
@@ -33,12 +31,13 @@ class Vampire(nn.Module):
         self.head = BEVDepthHead(head_cfg, device=device)
 
     def forward(self, imgs, mats, points=None, lidar_seg: bool = False,
-                camera_renders: bool = False,
-                lift_fn: Optional[Callable] = None):
+                camera_renders: bool = True, plain: bool = False):
         """Returns (field outputs dict, per-task head preds or None).
-        `lidar_seg=True` skips the detection head."""
+        `lidar_seg=True` skips the detection head; `camera_renders=False` is
+        the metrics graph; `plain` runs the kernels' plain versions (see
+        `FieldBackbone.forward`)."""
         fo = self.backbone(imgs, mats, points=points,
-                           camera_renders=camera_renders, lift_fn=lift_fn)
+                           camera_renders=camera_renders, plain=plain)
         if lidar_seg:
             return fo, None
         return fo, self.head(fo['bev_feature'])

@@ -1,5 +1,8 @@
 """Build the port's CUDA sources into plain-C shared libraries at first use.
 
+One `.cu` per library: `lift`, `corner_table`, `rays`. `build(names)`
+starts one nvcc per library not built yet, all together.
+
 `nvcc` compiles `vampire_tpu_torch/csrc/<name>.cu` for `sm_90a` into
 `build/vampire_tpu_torch/<name>-<hash>.so` under the repository root; the
 hash covers the sources and the flags, so an edited source rebuilds and an
@@ -54,27 +57,48 @@ def _digest(sources: Sequence[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu. Raises on any failure."""
+def build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build (where needed) and load csrc/<name>.cu for every name. The nvcc
+    processes of the libraries not built yet all start together and run in
+    parallel. Raises on any failure."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = os.path.join(CSRC, f'{name}.cu')
-        path = os.path.join(BUILD_DIR, f'{name}-{_digest([src])}.so')
-        info = dict(path=path, seconds=0.0, log='')
-        if not os.path.exists(path):
+        jobs = {}
+        for name in names:
+            if name in _libs or name in jobs:
+                continue
+            src = os.path.join(CSRC, f'{name}.cu')
+            path = os.path.join(BUILD_DIR, f'{name}-{_digest([src])}.so')
+            BUILD_INFO[name] = dict(path=path, seconds=0.0, log='')
+            if os.path.exists(path):
+                jobs[name] = None
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f'{path}.{os.getpid()}.tmp'
             cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, src]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  check=False)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, src, time.perf_counter())
+        failed = []
+        for name, job in jobs.items():
+            if job is None:
+                continue
+            proc, tmp, src, t0 = job
+            log, _ = proc.communicate()
+            info = BUILD_INFO[name]
             info['seconds'] = time.perf_counter() - t0
-            info['log'] = proc.stdout + proc.stderr
+            info['log'] = log
             if proc.returncode != 0:
-                raise RuntimeError(f'nvcc failed ({proc.returncode}) for '
-                                   f'{src}:\n{info["log"][-4000:]}')
-            os.replace(tmp, path)
-        _libs[name] = ctypes.CDLL(path)
-        BUILD_INFO[name] = info
-        return _libs[name]
+                failed.append(f'nvcc failed ({proc.returncode}) for '
+                              f'{src}:\n{log[-4000:]}')
+            else:
+                os.replace(tmp, info['path'])
+        if failed:
+            raise RuntimeError('\n'.join(failed))
+        for name in jobs:
+            _libs[name] = ctypes.CDLL(BUILD_INFO[name]['path'])
+        return {name: _libs[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu. Raises on any failure."""
+    return build([name])[name]

@@ -96,12 +96,6 @@ def _kernel(dtype):
     return fn
 
 
-def build():
-    """Build and load the kernel library; returns its build info."""
-    _build.load_library('lift')
-    return _build.BUILD_INFO['lift']
-
-
 def lift_accumulate_(depth, feat, ids, coords, valid, numer, denom):
     """One camera's lift into (G, Q, C) fp32 accumulators, in place.
 

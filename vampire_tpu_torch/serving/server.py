@@ -6,10 +6,11 @@ A dispatcher thread drains a request queue into micro-batches of at most
 and the padding rows are dropped on the way out. Detection boxes are
 decoded on the device and circle-NMSed on the host.
 
-Only the metric output groups are ported: `outputs=None` (the JAX default,
-which includes the camera renders) and 'camera_renders' raise until the
-camera-ray slice lands. `ReplicaPool` and the TCP front-end wait too
-(ROADMAP.md).
+`outputs` selects the output groups as in the JAX server, with the same
+keys: None (the default, the full-render graph) or a selection that holds
+'camera_renders' runs the camera-ray branch; the others run the metrics
+graph (`camera_renders=False`), which skips the corner table and the rays.
+`ReplicaPool` and the TCP front-end are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -52,9 +53,12 @@ class InferenceServer:
         cfg.train.compute_dtype.
       max_batch: micro-batch size.
       max_wait_ms: dispatcher linger before running a partial batch.
-      outputs: a subset of ('occ', 'lidarseg', 'det', 'bev_renders'), or
-        'metrics' = ('occ', 'lidarseg', 'det'); 'det' decodes boxes on the
-        device and runs circle NMS on the host.
+      outputs: None, a subset of OUTPUT_GROUPS, or 'metrics' = ('occ',
+        'lidarseg', 'det'). None returns occ_logits, occ_density, pts_logits,
+        depth_preds, seg_preds (argmax), bev_seg (argmax) and det; an explicit
+        'camera_renders' adds rgb_preds, an explicit 'bev_renders' adds
+        bev_height and bev_rgb. 'det' decodes boxes on the device and runs
+        circle NMS on the host.
     """
 
     OUTPUT_GROUPS = ('occ', 'lidarseg', 'det', 'camera_renders',
@@ -63,27 +67,19 @@ class InferenceServer:
     def __init__(self, cfg, device, state_dict=None, dtype=None,
                  max_batch: int = 1, max_wait_ms: float = 5.0,
                  seed: int = 0, outputs=None):
-        if outputs is None:
-            raise NotImplementedError(
-                "outputs=None includes the camera renders, whose camera-ray "
-                "branch is not ported (ROADMAP.md, Queue 1); pass "
-                "outputs='metrics' or a subset of "
-                "('occ', 'lidarseg', 'det', 'bev_renders')")
         if outputs == 'metrics':
             outputs = ('occ', 'lidarseg', 'det')
-        outputs = tuple(outputs)
-        bad = set(outputs) - set(self.OUTPUT_GROUPS)
-        if bad:
-            raise ValueError(f'unknown output groups {sorted(bad)}; '
-                             f'valid: {self.OUTPUT_GROUPS}')
-        if 'camera_renders' in outputs:
-            raise NotImplementedError(
-                "'camera_renders': the camera-ray branch is not ported "
-                "(ROADMAP.md, Queue 1)")
+        if outputs is not None:
+            outputs = tuple(outputs)
+            bad = set(outputs) - set(self.OUTPUT_GROUPS)
+            if bad:
+                raise ValueError(f'unknown output groups {sorted(bad)}; '
+                                 f'valid: {self.OUTPUT_GROUPS}')
         self.cfg = cfg
         self.device = torch.device(device)
         self.outputs = outputs
-        self.with_det = 'det' in outputs
+        self.with_det = outputs is None or 'det' in outputs
+        self.camera_renders = outputs is None or 'camera_renders' in outputs
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         if dtype is None:
@@ -121,18 +117,28 @@ class InferenceServer:
         per-task decoded boxes under 'det')."""
         imgs, mats, points = self.to_device(batch)
         fo, preds = self.model(imgs, mats, points=points,
-                               lidar_seg=not self.with_det)
+                               lidar_seg=not self.with_det,
+                               camera_renders=self.camera_renders)
         g = self.outputs
+
+        def want(group):
+            return g is None or group in g
         out = {}
-        if 'occ' in g:
+        if want('occ'):
             out['occ_logits'] = fo['occ_logits']
             out['occ_density'] = fo['occ_density']
-        if 'lidarseg' in g:
+        if want('lidarseg'):
             out['pts_logits'] = fo['pts_logits']
-        if 'bev_renders' in g:
-            out['bev_seg'] = torch.argmax(fo['bev_seg_logits_preds'], -1)
-            out['bev_height'] = fo['bev_height_preds']
-            out['bev_rgb'] = fo['bev_rgb_preds']
+        if want('camera_renders'):
+            out['depth_preds'] = fo['depth_preds']
+            out['seg_preds'] = _argmax(fo['seg_logits_preds'])
+            if g is not None:
+                out['rgb_preds'] = fo['rgb_preds']
+        if want('bev_renders'):
+            out['bev_seg'] = _argmax(fo['bev_seg_logits_preds'])
+            if g is not None:
+                out['bev_height'] = fo['bev_height_preds']
+                out['bev_rgb'] = fo['bev_rgb_preds']
         if self.with_det:
             out['det'] = decode_preds(preds, self.cfg.head)
         return _to_numpy(out)
@@ -228,6 +234,11 @@ class InferenceServer:
             if self.with_det:
                 res['det'] = apply_circle_nms(out['det'], self.cfg.head, i)
             fut.set_result(res)
+
+
+def _argmax(logits):
+    """Class labels over the last axis, int32 like the JAX server's."""
+    return torch.argmax(logits, -1).to(torch.int32)
 
 
 def _to_numpy(tree):

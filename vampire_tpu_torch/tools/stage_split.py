@@ -1,0 +1,144 @@
+"""Stage split of one flagship request on each serving path.
+
+    python -m vampire_tpu_torch.tools.stage_split [--iters 10]
+
+Run from the repository root on a CUDA card. For the metrics graph and the
+full-render graph in turn it builds `InferenceServer(flagship_config(),
+dtype=bfloat16)` with seeded random weights, calibrates BatchNorm on one
+synthetic frame (`chip_smoke.calibrate_batchnorm_`), warms up, then times
+`--iters` calls of `InferenceServer.forward` and prints:
+
+  * the forward's host-clock median, min and max;
+  * per stage, the mean CUDA-event span per forward: the encoder, the lift,
+    the Unet3D, the queries, the BEV render, the camera rays and their
+    parts, the det head. A span includes the host's launch gaps inside it,
+    so it is the stage's latency, not its device busy time;
+  * the peak device memory of one forward;
+  * the `torch.profiler` device time per forward of the top entries over
+    three more forwards.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--iters', type=int, default=10)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('stage_split: needs a CUDA card')
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from vampire_tpu_torch.configs import flagship_config, synthetic_batch
+    from vampire_tpu_torch.models import field as F
+    from vampire_tpu_torch.ops import _build, rays, tables
+    from vampire_tpu_torch.serving import InferenceServer
+
+    _build.build(chip_smoke.KERNEL_LIBS)
+    cfg = flagship_config()
+    frames = []
+    for seed in range(2):
+        b = synthetic_batch(cfg, batch_size=1, n_points=cfg.train.max_points,
+                            seed=seed, mode='val')
+        frames.append({k: np.asarray(b[k]) for k in
+                       ('imgs', 'sensor2ego', 'intrin', 'ida', 'bda',
+                        'points')})
+    batch = frames[0]
+    calib = {k: v[0] for k, v in frames[1].items()}
+    spans = {}
+    active = [False]
+
+    def timed(name, fn):
+        def g(*a, **kw):
+            if not active[0]:
+                return fn(*a, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            spans.setdefault(name, []).append((e0, e1))
+            return out
+        return g
+
+    fb = F.FieldBackbone
+    for meth in ('lift', '_query_points', '_query_occ', '_render_bev',
+                 '_render_cameras'):
+        setattr(fb, meth, timed(meth, getattr(fb, meth)))
+    tables.corner_table = timed('corner_table kernel', tables.corner_table)
+    rays.sample_and_composite_rays = timed('rays kernel',
+                                           rays.sample_and_composite_rays)
+    F.G.get_geometry = timed('get_geometry', F.G.get_geometry)
+    F.ray_inputs = timed('ray_inputs', F.ray_inputs)
+    F.S.resize_linear = timed('resize_linear (x4 up, x0.5 bev)',
+                              F.S.resize_linear)
+
+    n = args.iters
+    for outputs in ('metrics', None):
+        label = 'metrics' if outputs else 'full-render'
+        srv = InferenceServer(cfg, device='cuda', dtype=torch.bfloat16,
+                              outputs=outputs, seed=0)
+        chip_smoke.calibrate_batchnorm_(srv, calib)
+        m = srv.model
+        for mod in ('img_backbone', 'img_neck', 'base_conv', 'voxel_output'):
+            sub = getattr(m.backbone, mod)
+            sub.forward = timed(mod, sub.forward)
+        m.head.forward = timed('det head', m.head.forward)
+        for _ in range(3):
+            srv.forward(batch)
+        torch.cuda.synchronize()
+        spans.clear()
+        active[0] = True
+        host = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.forward(batch)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        active[0] = False
+        print(f'== {label}: forward() host clock median '
+              f'{statistics.median(host):.2f} ms, min {min(host):.2f}, max '
+              f'{max(host):.2f} ({n} forwards)', flush=True)
+        for name, ev in spans.items():
+            per = [a.elapsed_time(b) for a, b in ev]
+            print(f'  {name:34s} {sum(per) / n:8.3f} ms per forward '
+                  f'({len(per) // n} calls)')
+        torch.cuda.reset_peak_memory_stats()
+        srv.forward(batch)
+        torch.cuda.synchronize()
+        print(f'  peak device memory '
+              f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                srv.forward(batch)
+            torch.cuda.synchronize()
+
+        def dev(e):
+            return getattr(e, 'self_device_time_total',
+                           getattr(e, 'self_cuda_time_total', 0))
+        ka = prof.key_averages()
+        print(f'  profiler: device self time '
+              f'{sum(dev(e) for e in ka) / 3e3:.2f} ms per forward')
+        for e in sorted(ka, key=dev, reverse=True)[:14]:
+            print(f'    {dev(e) / 3e3:8.3f} ms  {e.count // 3:4d}x  '
+                  f'{e.key[:90]}', flush=True)
+        del srv, m
+        torch.cuda.empty_cache()
+
+
+if __name__ == '__main__':
+    main()
