@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,11 @@ nonzero without printing a result:
                table of a (22, 20, 256, 256) field in fp32 and bf16, which
                must be byte-identical; the ray sampler over 67,584 rays x 85
                samples of camera_rig geometry through a bf16 table of a
-               synthetic field whose rays end partly opaque.
+               synthetic field whose rays end partly opaque. Then the three
+               backward kernels: the lift's per camera in fp32 and bf16, the
+               corner table's from an fp32 and a bf16 (21, 257, 257, 176)
+               cotangent (byte-identical), and the rays' over the same
+               67,584 rays (d table and d beta).
   4. slice   - InferenceServer(flagship_config(), device='cuda') in bf16 with
                seeded random weights (BN calibrated on one frame) serves 3
                full-width requests (6x256x704 images, 36,864 points) on each
@@ -28,15 +33,30 @@ nonzero without printing a result:
                request 0 matches the same forward with the plain versions
                of the kernels on the card; the renders also under a
                density head that leaves the rays partly opaque.
+  5. train   - Trainer(flagship_config(), device='cuda') in bf16 with seeded
+               random weights. Under a density head that leaves the rays
+               partly opaque, step 0's gradients through the kernels
+               against the same step with plain=True in fp32 compute, and
+               through the backward kernels against their plain versions
+               in bf16 compute; then
+               `fit` over a list loader of 3 full-width training batches
+               for one epoch. Checks the launch counts per step (lift 6
+               forward and 6 backward, corner table and rays 1 and 1 each),
+               finite loss terms and grad_norm, every parameter with a
+               gradient moved, the frozen stem bit-unchanged; then times
+               more steps and reads the peak memory.
 
 The last three lines are a JSON object of the kernels run, the card's name
 and power limit, and `{"ok": true, "device": {...}}`.
 """
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -55,6 +75,28 @@ RAY_PARTIAL_MIN = 0.10
 # fp32 bits, which can flip the bf16 rounding of a voxel feature (2^-8
 # relative) entering the bf16 Unet3D; allow 5% of each output's magnitude
 SLICE_RTOL = 5e-2
+# backward kernels vs plain: fp32 atomics add in another order than the plain
+# index_add (and the ray kernel takes each ray's total from the saved
+# outputs where the plain version sums the tail): 1e-4 of each gradient's
+# magnitude; d beta sums ~5.7 M terms of either sign: 1e-3 relative
+BWD_RTOL = 1e-4
+BETA_RTOL = 1e-3
+N_TRAIN_BATCHES = 3
+N_TIMED_STEPS = 5
+# step 0's gradients, per parameter tensor, |g - g_ref| / |g_ref| in the L2
+# norm. In fp32 compute, kernels vs plain versions in both directions: the
+# two lifts differ in the last fp32 bits, which flip the bf16 rounding of
+# the sample_dtype copy of the field that the point queries and the rays
+# read (median 1.3e-3, max 3.1e-3 measured on an H100); allow 1e-2.
+TRAIN_GRAD_RTOL = 1e-2
+# In bf16 compute, the backward kernels vs their plain versions behind the
+# same kernel forward: only the order of the fp32 atomics differs, which
+# flips bf16 roundings of the gradients downstream (two kernel runs differ
+# as much: max 2.5e-2 measured on an H100); allow 0.1. Kernels vs plain in
+# both directions is no test in bf16: the forwards' last-bit differences
+# flip bf16 roundings throughout the network and the gradients differ by a
+# median of 22% (measured), as two forwards in another order would.
+TRAIN_BWD_RTOL = 0.1
 
 
 def say(msg):
@@ -91,15 +133,18 @@ def build_phase():
 
 
 def counts():
-    """The launch counts of the three kernel wrappers."""
+    """The launch counts of the six kernel wrappers."""
     from vampire_tpu_torch.ops import lift, rays, tables
     return dict(lift=lift.LAUNCHES, corner_table=tables.LAUNCHES,
-                rays=rays.LAUNCHES)
+                rays=rays.LAUNCHES, lift_bwd=lift.BWD_LAUNCHES,
+                corner_table_bwd=tables.BWD_LAUNCHES,
+                rays_bwd=rays.BWD_LAUNCHES)
 
 
 def reset_counts():
     from vampire_tpu_torch.ops import lift, rays, tables
     lift.LAUNCHES = tables.LAUNCHES = rays.LAUNCHES = 0
+    lift.BWD_LAUNCHES = tables.BWD_LAUNCHES = rays.BWD_LAUNCHES = 0
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -119,15 +164,15 @@ def cuda_ms(fn, iters, warmup=3):
     return statistics.median(times)
 
 
-def lift_check(card, bc, dev):
-    """The lift kernel against its plain version, one camera at a time."""
+def lift_cameras(bc, dev):
+    """One flagship frame's lift inputs: softmax depth and features from a
+    seed, and per camera its top-K block ids, coords and validity from the
+    camera_rig geometry."""
     import torch
     from vampire_tpu_torch.configs import camera_rig
     from vampire_tpu_torch.core.geometry import get_pixel
     from vampire_tpu_torch.models.field import block_major_voxels, coords_valid
-    from vampire_tpu_torch.ops import lift
 
-    dev = torch.device(dev)
     D, (h, w), C = bc.depth_channels, bc.feat_hw, bc.mid_channels
     rig = {k: torch.from_numpy(v).to(dev)
            for k, v in camera_rig(1, 6, bc.final_dim, seed=0).items()}
@@ -147,8 +192,19 @@ def lift_check(card, bc, dev):
         ids = torch.topk(counts_[0, n], K).indices
         cams.append((ids, coords[0, n][ids].contiguous(),
                      valid[0, n][ids].contiguous()))
+    return depth, feat, cams, G, Q, C, K, int(valid[0].sum())
+
+
+def lift_check(card, bc, dev):
+    """The lift kernel against its plain version, one camera at a time."""
+    import torch
+    from vampire_tpu_torch.ops import lift
+
+    dev = torch.device(dev)
+    depth, feat, cams, G, Q, C, K, n_valid = lift_cameras(bc, dev)
+    D, h, w = depth.shape[1:]
     say(f'lift: depth ({D},{h},{w}) feat ({h},{w},{C}) K={K} Q={Q} G={G}, '
-        f'6 cameras, {int(valid[0].sum())} valid queries')
+        f'6 cameras, {n_valid} valid queries')
 
     result = dict(max_abs_err=0.0)
     for dt in (torch.float32, torch.bfloat16):
@@ -243,19 +299,17 @@ def ray_opacity(sdf, delta, bc, beta):
     return opacity, partial
 
 
-def ray_check(card, bc, dev):
-    """The ray kernel against its plain version: all rays of one frame
-    (camera_rig geometry through get_geometry) on a bf16 table of a
-    synthetic fused field. The random-init field saturates every ray at its
-    first sample (density bias sdf_bias - 10), so the sdf here is drawn
-    around the density's knee instead, and the rays end partly opaque."""
+def ray_field(bc, dev):
+    """All rays of one frame (camera_rig geometry through get_geometry) and
+    a bf16 table of a synthetic fused field. The random-init field
+    saturates every ray at its first sample (density bias sdf_bias - 10),
+    so the sdf here is drawn around the density's knee instead, and the
+    rays end partly opaque. Returns the sampler's arguments."""
     import torch
     from vampire_tpu_torch.configs import camera_rig
     from vampire_tpu_torch.core import geometry as G
-    from vampire_tpu_torch.core import rendering as R
     from vampire_tpu_torch.core import sampling as S
     from vampire_tpu_torch.models.field import ray_inputs
-    from vampire_tpu_torch.ops import rays
 
     dev = torch.device(dev)
     rig = {k: torch.from_numpy(v).to(dev)
@@ -288,9 +342,17 @@ def ray_check(card, bc, dev):
     if partial < RAY_PARTIAL_MIN:
         raise AssertionError(f'only {partial:.3f} of the rays end partly '
                              f'opaque; the check would be degenerate')
-
-    args = (table, vol_shape, coords, valid, delta, mids, bc.d_bound[1],
+    return (table, vol_shape, coords, valid, delta, mids, bc.d_bound[1],
             bc.density_mode, beta, bc.sdf_bias)
+
+
+def ray_check(card, bc, dev, args):
+    """The ray kernel against its plain version on `ray_field`."""
+    import torch
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.ops import rays
+
+    K = bc.num_classes
     got = rays.sample_and_composite_rays(*args)
     want = R.sample_and_composite_rays_reference(*args)
     torch.cuda.synchronize()
@@ -319,12 +381,136 @@ def ray_check(card, bc, dev):
     return result
 
 
+def check_grad(what, got, want, rtol):
+    """max |got - want| within rtol of max |want|; returns the error."""
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = rtol * scale
+    say(f'{what}: max abs err {err:.3e} (max |ref| {scale:.3e}, tol '
+        f'{tol:.1e})')
+    if not err <= tol:
+        raise AssertionError(f'{what}: kernel disagrees with the plain '
+                             f'version: {err} > {tol}')
+    return err
+
+
+def lift_bwd_check(card, bc, dev):
+    """The lift backward kernel against its plain version, per camera,
+    from a random d numer (G, Q, C) fp32, in fp32 and bf16."""
+    import torch
+    from vampire_tpu_torch.ops import lift
+
+    dev = torch.device(dev)
+    depth, feat, cams, G, Q, C, K, _ = lift_cameras(bc, dev)
+    g = torch.randn(G, Q, C, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    result = dict(max_abs_err=0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        dep, fea = depth.to(dt), feat.to(dt)
+        name = str(dt).replace('torch.', '')
+        for n, (ids, cc, vv) in enumerate(cams):
+            got = lift.lift_backward(dep[n], fea[n], ids, cc, vv, g)
+            want = lift.lift_backward_reference(dep[n], fea[n], ids, cc, vv,
+                                                g)
+            torch.cuda.synchronize()
+            for what, a, b in (('d depth', got[0], want[0]),
+                               ('d feat', got[1], want[1])):
+                err = check_grad(f'lift_bwd {name} camera {n} {what}', a, b,
+                                 BWD_RTOL)
+                result['max_abs_err'] = max(result['max_abs_err'], err)
+        ids, cc, vv = cams[1]
+        ms = cuda_ms(lambda: lift.lift_backward(dep[1], fea[1], ids, cc, vv,
+                                                g), 20)
+        plain = cuda_ms(lambda: lift.lift_backward_reference(
+            dep[1], fea[1], ids, cc, vv, g), 5)
+        say(f'lift_bwd {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
+            f'camera [{card}]')
+        result[name] = dict(ms=ms, plain_ms=plain)
+    return result
+
+
+def table_bwd_check(card, bc, dev):
+    """The corner-table backward kernel against its plain version from a
+    random (21, 257, 257, 176) cotangent in fp32 and bf16: byte-identical
+    (no atomics, the plain version's summation order)."""
+    import torch
+    from vampire_tpu_torch.ops import tables
+
+    shape = (1 + bc.num_classes + 3,) + tuple(bc.grid_zyx('seg'))
+    C, D, H, W = shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g32 = torch.randn((D + 1, H + 1, W + 1, 8 * C), device=dev,
+                      generator=gen)
+    result = dict(max_abs_err=0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        g = g32.to(dt)
+        got = tables.corner_table_backward(g, shape)
+        want = tables.corner_table_backward_reference(g, shape)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        mb = g.numel() * g.element_size() / 1e6
+        del got, want
+        ms = cuda_ms(lambda: tables.corner_table_backward(g, shape), 20)
+        plain = cuda_ms(lambda: tables.corner_table_backward_reference(
+            g, shape), 5)
+        name = str(dt).replace('torch.', '')
+        say(f'corner_table_bwd {name}: {mb:.0f} MB cotangent -> {shape} '
+            f'fp32, byte-identical {same}, max abs err {err:.3e}; kernel '
+            f'{ms:.4f} ms ({mb / ms:.0f} GB/s read), plain {plain:.4f} ms '
+            f'[{card}]')
+        if not same:
+            raise AssertionError(f'corner_table backward kernel {name} is '
+                                 f'not byte-identical to the plain version')
+        result['max_abs_err'] = max(result['max_abs_err'], err)
+        result[name] = dict(ms=ms, plain_ms=plain)
+    del g32
+    return result
+
+
+def ray_bwd_check(card, bc, dev, args):
+    """The ray backward kernel against its plain version on `ray_field`,
+    from a random d out over all rays: d table and d beta."""
+    import torch
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.ops import rays
+
+    out = rays.sample_and_composite_rays(*args)
+    gen = torch.Generator(device=out.device).manual_seed(5)
+    g = torch.randn(out.shape, device=out.device, generator=gen)
+    g[:, -1] *= 0.05               # depth is ~30x the other outputs
+    got = rays.sample_and_composite_rays_backward(*args, out, g)
+    want = R.sample_and_composite_rays_backward_reference(*args, g)
+    torch.cuda.synchronize()
+    err = check_grad('rays_bwd d table', got[0], want[0], BWD_RTOL)
+    b_err = abs(got[1].item() - want[1].item())
+    say(f'rays_bwd d beta: {got[1].item():.6e} vs plain '
+        f'{want[1].item():.6e}, rel err {b_err / abs(want[1].item()):.3e} '
+        f'(tol {BETA_RTOL:.0e})')
+    if not b_err <= BETA_RTOL * abs(want[1].item()):
+        raise AssertionError(f'ray backward kernel d beta disagrees: '
+                             f'{got[1].item()} vs {want[1].item()}')
+    del got, want
+    ms = cuda_ms(lambda: rays.sample_and_composite_rays_backward(
+        *args, out, g), 10)
+    plain = cuda_ms(lambda: R.sample_and_composite_rays_backward_reference(
+        *args, g), 3)
+    say(f'rays_bwd bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms per frame '
+        f'[{card}]')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain)
+
+
 def kernel_phase(card, bc=None, dev='cuda'):
     from vampire_tpu_torch.configs import flagship_config
     bc = bc or flagship_config().backbone
-    return dict(lift=lift_check(card, bc, dev),
-                corner_table=table_check(card, bc, dev),
-                rays=ray_check(card, bc, dev))
+    out = dict(lift=lift_check(card, bc, dev),
+               corner_table=table_check(card, bc, dev))
+    args = ray_field(bc, dev)
+    out['rays'] = ray_check(card, bc, dev, args)
+    out['lift_bwd'] = lift_bwd_check(card, bc, dev)
+    out['corner_table_bwd'] = table_bwd_check(card, bc, dev)
+    out['rays_bwd'] = ray_bwd_check(card, bc, dev, args)
+    return out
 
 
 def calibrate_batchnorm_(server, frame):
@@ -346,6 +532,8 @@ def calibrate_batchnorm_(server, frame):
     imgs, mats, points = server.to_device({k: v[None]
                                            for k, v in frame.items()})
     server.model.train()
+    for m in bns:       # the frozen stem's BN too, which train() leaves out
+        m.train()
     with torch.no_grad():
         server.model(imgs, mats, points=points,
                      camera_renders=server.camera_renders)
@@ -389,7 +577,9 @@ def serve_path(card, server, calib, samples, label):
 
 
 def check_launches(label, launched, per_request):
-    want = {k: n * N_REQUESTS for k, n in per_request.items()}
+    """Every kernel launched as often as per_request says per request (0
+    where it says nothing: serving launches no backward kernel)."""
+    want = {k: per_request.get(k, 0) * N_REQUESTS for k in launched}
     if launched != want:
         raise AssertionError(f'{label}: kernel launches {launched}, want '
                              f'{want} for {N_REQUESTS} requests')
@@ -432,7 +622,7 @@ def check_outputs(label, outs, want, cfg):
             f'after NMS')
 
 
-def partly_opaque_density(server, imgs, mats):
+def partly_opaque_density(model, imgs, mats, points=None):
     """A density head under which the served graph's rays end partly
     opaque. The random-init bias (sdf_bias - 10) saturates every ray at its
     first sample, and the sdf varies along a ray by several times the
@@ -443,22 +633,21 @@ def partly_opaque_density(server, imgs, mats):
     bisection (opacity falls as the sdf rises) so that the median ray is
     half opaque. Returns (weight scale, bias, share of rays in (0.05, 0.95)
     predicted from the sampled field)."""
-    import torch
     from vampire_tpu_torch.core import geometry as G
     from vampire_tpu_torch.models.field import ray_inputs
-    bb = server.model.backbone
+    bb = model.backbone
     bc = bb.cfg
     got = {}
     hook = bb.density_conv.register_forward_hook(
-        lambda m, i, o: got.setdefault('sdf', o))
+        lambda m, i, o: got.setdefault('sdf', o.detach()))
     try:
-        server.model(imgs, mats, camera_renders=False)
+        model(imgs, mats, points=points, camera_renders=False)
     finally:
         hook.remove()
     geom = G.get_geometry(bb.frustum, mats['sensor2ego'], mats['intrin'],
                           mats['ida'], mats.get('bda'))
     coords, valid, delta = (t[0] for t in ray_inputs(geom, bc))
-    bias0 = bb.density_conv.bias.float()
+    bias0 = bb.density_conv.bias.detach().float()
     u = sdf_along_rays(got['sdf'][0].float() - bias0, coords, valid)
     beta = bb.density_beta.detach()
     scale = 2.0 * (beta.abs().item() + 1e-4) / u[valid > 0].std().item()
@@ -523,7 +712,8 @@ def check_against_plain(label, server, sample, served, keys,
         compare(kern, forward(True, every), '')
         if not render_keys:
             return
-        scale, bias, partial = partly_opaque_density(server, imgs, mats)
+        scale, bias, partial = partly_opaque_density(server.model, imgs,
+                                                     mats)
         say(f'{label}: density head weight x{scale:.4g}, bias {bias:+.4f}, '
             f'under which {partial:.3f} of the rays end in (0.05, 0.95)')
         if partial < RAY_PARTIAL_MIN:
@@ -593,6 +783,244 @@ def slice_phase(card, cfg=None, dev='cuda'):
     return launched
 
 
+@contextlib.contextmanager
+def plain_backwards():
+    """The three backward wrappers swapped for their plain versions while
+    the forward kernels stay: the model's `plain` switches both."""
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.ops import lift, rays, tables
+
+    def rays_ref(*args):            # the plain version takes no saved `out`
+        return R.sample_and_composite_rays_backward_reference(*args[:-2],
+                                                              args[-1])
+    swaps = ((lift, 'lift_backward', lift.lift_backward_reference),
+             (tables, 'corner_table_backward',
+              tables.corner_table_backward_reference),
+             (rays, 'sample_and_composite_rays_backward', rays_ref))
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    try:
+        for mod, name, ref in swaps:
+            setattr(mod, name, ref)
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
+
+
+def step_grads(trainer, b, mats, plain=False):
+    """Step 0's loss gradients, {name: fp32 copy} over the trainable
+    parameters that get one; the grads are cleared again."""
+    from vampire_tpu_torch.training.losses import compute_losses
+    model, cfg = trainer.model, trainer.cfg
+    for p in model.parameters():
+        p.grad = None
+    fo, preds = model(b['imgs'], mats, points=b['points'], plain=plain)
+    total, _ = compute_losses(fo, preds, b, cfg.train, cfg.head,
+                              cfg.backbone.sdf_bias, cfg.backbone.density_mode)
+    total.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters()
+             if p.requires_grad and p.grad is not None}
+    for p in model.parameters():
+        p.grad = None
+    return grads
+
+
+def compare_grads(card, label, got, want, again, rtol):
+    """Per tensor |got - want| / |want| (L2) within rtol; `again` is a second
+    run of `got`'s path, whose spread is printed beside. Returns the median
+    and the max."""
+    if set(got) != set(want):
+        raise AssertionError(f'{label}: gradients of {set(got) ^ set(want)} '
+                             f'exist on one side only')
+    rel, spread = {}, {}
+    for n, g in want.items():
+        ref = g.norm().item()
+        if ref == 0.0:
+            if got[n].norm().item() != 0.0:
+                raise AssertionError(f'{label}: {n} has a gradient on one '
+                                     f'side only')
+            continue
+        rel[n] = (got[n] - g).norm().item() / ref
+        spread[n] = (got[n] - again[n]).norm().item() / ref
+    worst = sorted(rel, key=rel.get)[-3:]
+    med = statistics.median(rel.values())
+    beta = 'backbone.density_beta'
+    say(f'{label}, |d|/|g| per tensor over {len(rel)} tensors: median '
+        f'{med:.3e}, max {rel[worst[-1]]:.3e} '
+        f'({", ".join(f"{n} {rel[n]:.2e}" for n in worst)}); run to run '
+        f'max {max(spread.values()):.3e}; tol {rtol}; density_beta '
+        f'{got[beta].item():.6e} vs {want[beta].item():.6e} [{card}]')
+    bad = {n: r for n, r in rel.items() if not r <= rtol}
+    if bad:
+        raise AssertionError(f'{label}: gradients disagree: {bad}')
+    return dict(median=med, max=rel[worst[-1]])
+
+
+def opaque_step_grads(card, trainer, batch, label, runs):
+    """Under `partly_opaque_density` (fitted in train mode), step 0's
+    gradients of each of `runs`, a list of (plain, swap the backwards for
+    their plain versions); the model's weights and buffers are restored
+    afterwards."""
+    import torch
+    from vampire_tpu_torch.training.train_step import split_mats
+    model = trainer.model
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    b = trainer.to_device(batch)
+    mats = split_mats(b)
+    model.train()
+    head = model.backbone.density_conv
+    with torch.no_grad():
+        scale, bias, partial = partly_opaque_density(model, b['imgs'], mats,
+                                                     b['points'])
+        head.weight.mul_(scale)
+        head.bias.fill_(bias)
+    say(f'{label}: density head weight x{scale:.4g}, bias {bias:+.4f}, '
+        f'under which {partial:.3f} of the rays end in (0.05, 0.95)')
+    if partial < RAY_PARTIAL_MIN:
+        raise AssertionError(f'{label}: only {partial:.3f} of the rays end '
+                             f'partly opaque')
+    grads = []
+    for plain, swap in runs:
+        with plain_backwards() if swap else contextlib.nullcontext():
+            grads.append(step_grads(trainer, b, mats, plain))
+    model.load_state_dict(saved)
+    return grads
+
+
+def train_grad_check(card, cfg, trainer, batch, dev):
+    """Step 0's gradients per trainable parameter tensor, under
+    `partly_opaque_density`: (1) in fp32 compute (a second Trainer from the
+    same seed), through the kernels against the same step with plain=True;
+    (2) in `trainer`'s bf16 compute, through the backward kernels against
+    their plain versions behind the same kernel forward. The kernel path
+    runs twice in each, to show the run-to-run spread of its atomics."""
+    from vampire_tpu_torch.training.trainer import Trainer
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype='float32'))
+    with tempfile.TemporaryDirectory() as wd:
+        tr32 = Trainer(cfg32, workdir=wd, device=dev)
+        tr32.init_state(batch, 1)
+        kern, again, plain = opaque_step_grads(
+            card, tr32, batch, 'train fp32',
+            [(False, False), (False, False), (True, False)])
+        del tr32
+    fp32 = compare_grads(card, 'train step 0 gradients, fp32, kernels vs '
+                         'plain versions', kern, plain, again,
+                         TRAIN_GRAD_RTOL)
+    del kern, again, plain
+    kern, again, plain_bwd = opaque_step_grads(
+        card, trainer, batch, 'train bf16',
+        [(False, False), (False, False), (False, True)])
+    bf16 = compare_grads(card, 'train step 0 gradients, bf16, backward '
+                         'kernels vs their plain versions', kern, plain_bwd,
+                         again, TRAIN_BWD_RTOL)
+    return dict(fp32=fp32, bf16_backward=bf16)
+
+
+def train_phase(card, cfg=None, dev='cuda'):
+    """`Trainer.fit` over a list loader of N_TRAIN_BATCHES flagship training
+    batches for one epoch, after the step-0 gradient check; then
+    N_TIMED_STEPS more steps are timed. Returns the launch counts of the
+    fit and the measurements."""
+    import numpy as np
+    import torch
+    from vampire_tpu_torch.configs import flagship_config, synthetic_batch
+    from vampire_tpu_torch.training.train_step import (build_train_step,
+                                                       init_train_confusion)
+    from vampire_tpu_torch.training.trainer import Trainer
+
+    cfg = cfg or flagship_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, max_epochs=1))
+    t0 = time.perf_counter()
+    loader = [synthetic_batch(cfg, batch_size=1,
+                              n_points=cfg.train.max_points, seed=10 + i,
+                              mode='train')
+              for i in range(N_TRAIN_BATCHES)]
+    with tempfile.TemporaryDirectory() as wd:
+        trainer = Trainer(cfg, workdir=wd, device=dev)
+        state = trainer.init_state(loader[0], len(loader))
+        model = trainer.model
+        say(f'train: {cfg.train.compute_dtype} Trainer built, '
+            f'{sum(p.numel() for p in state.trainable())} trainable '
+            f'parameters, {N_TRAIN_BATCHES} batches made, in '
+            f'{time.perf_counter() - t0:.1f} s')
+        grad = train_grad_check(card, cfg, trainer, loader[0], dev)
+        stem = model.backbone.img_backbone.stem
+        stem0 = {k: v.clone() for k, v in stem.state_dict().items()}
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        nonzero = set()
+        hooks = [p.register_hook(lambda g, n=n: nonzero.add(n)
+                                 if bool(g.any()) else None)
+                 for n, p in model.named_parameters() if p.requires_grad]
+        reset_counts()
+        t1 = time.perf_counter()
+        state = trainer.fit(loader, state=state, log_every=1)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t1
+        launched = counts()
+        for h in hooks:
+            h.remove()
+        with open(os.path.join(trainer.workdir, 'scalars.jsonl')) as f:
+            recs = [json.loads(ln) for ln in f]
+        saved = trainer.saved_epochs()
+    say(f'train: fit over {N_TRAIN_BATCHES} steps in {fit_s:.2f} s (host '
+        f'clock, incl. the epoch report and checkpoint); kernel launches '
+        f'{launched}')
+    want = dict(lift=6, corner_table=1, rays=1, lift_bwd=6,
+                corner_table_bwd=1, rays_bwd=1)
+    want = {k: n * N_TRAIN_BATCHES for k, n in want.items()}
+    if launched != want:
+        raise AssertionError(f'train: kernel launches {launched}, want '
+                             f'{want} for {N_TRAIN_BATCHES} steps')
+    steps = [r for r in recs if 'total_loss' in r]
+    if len(steps) != N_TRAIN_BATCHES or saved != [0]:
+        raise AssertionError(f'train: {len(steps)} step logs, checkpoints '
+                             f'{saved}')
+    for r in steps:
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f'train: non-finite log {r}')
+        say(f'train step {r["step"]}: total_loss {r["total_loss"]:.4f}, '
+            f'grad_norm {r["grad_norm"]:.4f}, '
+            + ', '.join(f'{k} {v:.4f}' for k, v in sorted(r.items())
+                        if k.endswith('_loss') and k != 'total_loss'))
+    for k, v in stem.state_dict().items():
+        if not torch.equal(v, stem0[k]):
+            raise AssertionError(f'train: the frozen stem changed ({k})')
+    still = [n for n, p in model.named_parameters()
+             if p.requires_grad and torch.equal(p.detach(), before[n])]
+    unmoved = [n for n in still if n in nonzero]
+    say(f'train: {len(before) - len(still)} parameter tensors moved; '
+        f'unchanged: the frozen stem and {still} (no nonzero gradient in '
+        f'any step)' if not unmoved else f'train: {unmoved} did not move')
+    if unmoved:
+        raise AssertionError(f'train: {unmoved} had gradients but did not '
+                             f'move')
+
+    # more steps, timed: host clock around each step ending in a
+    # synchronize, and the peak memory over them
+    step = build_train_step(cfg)
+    conf = init_train_confusion(cfg, trainer.device)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(N_TIMED_STEPS):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        state, logs, conf = step(state, trainer.to_device(
+            loader[i % len(loader)]), conf)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - h0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(times)
+    say(f'train step (flagship, B=1, {cfg.train.compute_dtype}): median '
+        f'{ms:.2f} ms over {N_TIMED_STEPS} steps '
+        f'({", ".join(f"{t:.1f}" for t in times)}), peak memory '
+        f'{peak:.3f} GB [{card}]')
+    return dict(launched=launched, grad=grad, step_ms=ms, peak_gb=peak)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -603,6 +1031,8 @@ def main():
     build_phase()
     k = kernel_phase(card)
     launched = slice_phase(card)['full']
+    train = train_phase(card)
+    tl = train['launched']
     leaked = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]
     if leaked:
         raise AssertionError(f'the port imported {leaked}')
@@ -614,6 +1044,7 @@ def main():
         'replaces': 'vampire_tpu/ops/pallas_tables.py:289',
         'also_replaces': 'vampire_tpu/ops/pallas_gather.py:68',
         'launches': launched['lift'],
+        'train_launches': tl['lift'],
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -625,6 +1056,7 @@ def main():
         'source': f'{csrc}/corner_table.cu',
         'replaces': 'vampire_tpu/ops/pallas_tables.py:73',
         'launches': launched['corner_table'],
+        'train_launches': tl['corner_table'],
         'max_abs_err': k['corner_table']['max_abs_err'],
         'ms': k['corner_table']['bfloat16']['ms'],
         'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
@@ -636,10 +1068,43 @@ def main():
         'source': f'{csrc}/rays.cu',
         'replaces': 'vampire_tpu/core/rendering.py:100',
         'launches': launched['rays'],
+        'train_launches': tl['rays'],
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
-    }]}), flush=True)
+    }, {
+        'name': 'lift_backward',
+        'route': 'cuda',
+        'source': f'{csrc}/lift.cu',
+        'replaces': 'vampire_tpu/ops/pallas_tables.py:374',
+        'launches': tl['lift_bwd'],
+        'max_abs_err': k['lift_bwd']['max_abs_err'],
+        'ms': k['lift_bwd']['bfloat16']['ms'],
+        'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
+        'fp32_ms': k['lift_bwd']['float32']['ms'],
+        'fp32_plain_ms': k['lift_bwd']['float32']['plain_ms'],
+    }, {
+        'name': 'corner_table_backward',
+        'route': 'cuda',
+        'source': f'{csrc}/corner_table.cu',
+        'replaces': 'vampire_tpu/ops/pallas_tables.py:214',
+        'launches': tl['corner_table_bwd'],
+        'max_abs_err': k['corner_table_bwd']['max_abs_err'],
+        'ms': k['corner_table_bwd']['bfloat16']['ms'],
+        'plain_ms': k['corner_table_bwd']['bfloat16']['plain_ms'],
+        'fp32_ms': k['corner_table_bwd']['float32']['ms'],
+        'fp32_plain_ms': k['corner_table_bwd']['float32']['plain_ms'],
+    }, {
+        'name': 'sample_and_composite_rays_backward',
+        'route': 'cuda',
+        'source': f'{csrc}/rays.cu',
+        'replaces': 'vampire_tpu/core/rendering.py:155',
+        'launches': tl['rays_bwd'],
+        'max_abs_err': k['rays_bwd']['max_abs_err'],
+        'ms': k['rays_bwd']['ms'],
+        'plain_ms': k['rays_bwd']['plain_ms'],
+    }], 'train_step_ms': train['step_ms'],
+        'train_peak_gb': train['peak_gb']}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

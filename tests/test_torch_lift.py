@@ -39,12 +39,11 @@ def _jax_lift(bc, mats, depth, feat):
     return np.asarray(jax.jit(lambda: m.apply(v, *args, method='_lift'))())
 
 
-def _port_lift(bc, mats, depth, feat, lift_fn):
+def _port_lift(bc, mats, depth, feat):
     fb = FieldBackbone(bc)
     out = fb.lift(torch.from_numpy(depth).permute(0, 1, 4, 2, 3),
                   torch.from_numpy(feat),
-                  {k: torch.from_numpy(v) for k, v in mats.items()},
-                  lift_fn=lift_fn)
+                  {k: torch.from_numpy(v) for k, v in mats.items()})
     return out.permute(0, 2, 3, 4, 1).numpy()         # (B, Z, Y, X, C)
 
 
@@ -63,7 +62,7 @@ def test_lift_matches_jax(blk, topk):
     depth, feat = _inputs(bc)
     want = _jax_lift(bc, mats, depth, feat)
     before = lift.LAUNCHES
-    got = _port_lift(bc, mats, depth, feat, lift.lift_accumulate_)
+    got = _port_lift(bc, mats, depth, feat)
     assert lift.LAUNCHES == before      # CPU tensors run the plain version
     assert got.shape == want.shape
     assert np.abs(want).max() > 0.1

@@ -1,11 +1,13 @@
 """Volume rendering: VolSDF-style densities and alpha compositing (fp32).
 
 Port of `vampire_tpu/core/rendering.py`: the densities, the BEV column
-render, the unfused camera-ray oracle `render_camera_rays`, and
-`sample_and_composite_rays_reference`, the dense inference ray sampler and
-the plain version of the CUDA kernel in `ops/rays.py`. The train-mode
-compact sampler and the opt-in early-term sampler are not ported
-(ROADMAP.md).
+render, the unfused camera-ray oracle `render_camera_rays`,
+`sample_and_composite_rays_reference`, the dense ray sampler and the plain
+version of the CUDA kernel in `ops/rays.py`, and its gradient written out,
+`sample_and_composite_rays_backward_reference`. The port trains on the
+dense sampler too: the JAX package's train-mode compact sampler computes
+the same values (it exists because TPU scatters are slow) and, like the
+opt-in early-term sampler, is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -41,6 +43,31 @@ def density(x: torch.Tensor, mode: str, beta: torch.Tensor,
     if mode == 'naive':
         return naive_density(x)
     return laplace_density(x, beta, bias)
+
+
+def density_and_grads(x: torch.Tensor, mode: str, beta: torch.Tensor,
+                      bias: float, beta_min: float = 1e-4
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`density(x, mode, beta, bias)` and its partial derivatives d/dx and
+    d/dbeta, written out (the plain ray backward's; `csrc/rays.cu` computes
+    the same). At s = x - bias = 0 the x-derivative is 0, as autodiff of
+    sign(s) * expm1(-|s|/beta_eff) gives; 'naive' has no beta."""
+    x = x.to(torch.float32)
+    if mode == 'naive':
+        d = torch.sigmoid(x)
+        return d, d * (1.0 - d), torch.zeros_like(d)
+    s = x - bias
+    beta = beta.to(torch.float32)
+    beta_eff = torch.abs(beta) + beta_min
+    alpha = 1.0 / beta_eff
+    sg = torch.sign(s)
+    a = torch.abs(s) / beta_eff
+    d = alpha * (0.5 + 0.5 * sg * torch.expm1(-a))
+    e = torch.exp(-a)
+    dx = -0.5 * alpha * sg * sg * e / beta_eff
+    dbeta = (-d / beta_eff + 0.5 * alpha * sg * e * a / beta_eff) \
+        * torch.sign(beta)
+    return d, dx, dbeta
 
 
 def transmittance_weights(density: torch.Tensor, delta: torch.Tensor,
@@ -167,3 +194,70 @@ def sample_and_composite_rays_reference(
         depth_o = torch.sum(w * mids[None, :], dim=1) + (1.0 - acc) * bg_depth
         outs.append(torch.cat([rgb_o, seg_o, depth_o[:, None]], dim=-1))
     return torch.cat(outs, dim=0)
+
+
+def sample_and_composite_rays_backward_reference(
+        table: torch.Tensor, vol_shape: Tuple[int, int, int],
+        coords: torch.Tensor, valid: torch.Tensor, deltas: torch.Tensor,
+        camera_mids: torch.Tensor, bg_depth: float, density_mode: str,
+        beta: torch.Tensor, sdf_bias: float, g_out: torch.Tensor,
+        chunk_rays: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of `sample_and_composite_rays_reference`, written out.
+
+    Given g_out = d out (R, 3 + K + 1), returns (d table fp32 of the table's
+    (rows, 8*Ct) flat shape, d beta fp32 0-dim). Each chunk of rays
+    is sampled again (as the JAX package's checkpointed chunks are), and with
+    u_i = g_rgb . rgb_i + g_seg . seg_i + g_depth * (mid_i - bg) per sample:
+
+      d seg_i, d rgb_i = w_i * g_seg, w_i * g_rgb
+      d sd_i = T_{i+1} u_i - sum_{j>i} w_j u_j   (a suffix sum here; the
+               kernel takes the total from the saved outputs instead)
+      d sdf_i = d sd_i * delta_i * density'(sdf_i)
+
+    then every sample's d value is scattered into its 8 corner rows with its
+    corner weights times `valid`. This is the CPU path and the version the
+    CUDA kernel (`csrc/rays.cu`) is held to.
+    """
+    D, H, W = vol_shape
+    flat = table.reshape((D + 1) * (H + 1) * (W + 1), -1)
+    Ct = flat.shape[1] // 8
+    K = Ct - 4
+    R_, S_n = coords.shape[:2]
+    if chunk_rays is None:
+        chunk_rays = max(1, _CHUNK_BYTES // (S_n * 8 * Ct * 4))
+    mids = camera_mids.to(torch.float32)
+    d_table = torch.zeros(flat.shape, dtype=torch.float32,
+                          device=flat.device)
+    d_beta = torch.zeros((), dtype=torch.float32, device=flat.device)
+    for r0 in range(0, R_, chunk_rays):
+        cc = coords[r0:r0 + chunk_rays]
+        cr = cc.shape[0]
+        vm = valid[r0:r0 + chunk_rays].to(torch.float32)
+        dl = deltas[r0:r0 + chunk_rays].to(torch.float32)
+        g = g_out[r0:r0 + chunk_rays].to(torch.float32)
+        g_rgb, g_seg, g_d = g[:, :3], g[:, 3:K + 3], g[:, K + 3]
+        rows, w8 = S.corner_rows_weights(cc.reshape(-1, 3), vol_shape, True,
+                                         False)
+        samp = S.gather_corners(flat, rows, w8).reshape(cr, S_n, Ct)
+        samp = samp * vm[..., None]
+        dens, ddx, ddb = density_and_grads(samp[..., 0], density_mode, beta,
+                                           sdf_bias)
+        sd = dens * dl
+        csum = torch.cumsum(sd, dim=-1)
+        w = (1.0 - torch.exp(-sd)) * torch.exp(-(csum - sd))
+        t_next = torch.exp(-csum)
+        u = (torch.einsum('rsk,rk->rs', samp[..., K + 1:K + 4], g_rgb)
+             + torch.einsum('rsk,rk->rs', samp[..., 1:K + 1], g_seg)
+             + g_d[:, None] * (mids[None, :] - bg_depth))
+        wu = w * u
+        after = torch.flip(torch.cumsum(torch.flip(wu, (1,)), 1), (1,)) - wu
+        dsd = t_next * u - after
+        d_beta = d_beta + torch.sum(dsd * dl * ddb)
+        dsamp = torch.cat([(dsd * dl * ddx)[..., None],
+                           w[..., None] * g_seg[:, None, :],
+                           w[..., None] * g_rgb[:, None, :]], dim=-1)
+        dsamp = (dsamp * vm[..., None]).reshape(cr * S_n, 1, Ct)
+        d_table.index_add_(0, rows,
+                           (dsamp * w8[:, :, None]).reshape(-1, 8 * Ct))
+    return d_table, d_beta

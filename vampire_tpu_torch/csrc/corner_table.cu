@@ -28,7 +28,26 @@
 // computed: the table is byte-identical to the plain version. The kernel
 // allocates nothing; the caller owns both buffers, and `out` must be 16-byte
 // aligned.
+//
+// Backward (`corner_table_backward_*`): the table build is linear, and its
+// transpose replaces `_corner_table_bwd_impl`
+// (vampire_tpu/ops/pallas_tables.py:214-226), the VJP of the TPU build:
+//
+//   d vol[c, z, y, x] = sum_k g[z+1-dz, y+1-dy, x+1-dx, k*C + c]
+//
+// over the 8 corners k = (dz*2 + dy)*2 + dx, summed in fp32 in that order
+// (the plain version's order, so the two agree bit for bit), from an fp32 or
+// bf16 cotangent g. Each table value has exactly one reader: no atomics, and
+// the result is deterministic. At the flagship shape it reads the 977 MB
+// fp32 (or 488 MB bf16) cotangent once and writes the 115 MB fp32 d vol, so
+// it is memory-bound. Design: one block per (z, y, run of 32 x positions).
+// Its threads walk the block's (x, c) pairs with c fastest, so each warp
+// reads runs of C consecutive values of neighbouring table rows, sum the 8
+// corners in registers, and stage the sums in shared memory; the block then
+// writes each channel's run of 32 x positions contiguously into the
+// channels-first d vol.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,6 +56,64 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxTx = 64;
 constexpr int kSmemBytes = 48 * 1024;
+constexpr int kBwdTx = 32;  // x positions per backward block
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename G>
+__global__ void corner_table_backward_kernel(const G* __restrict__ g,
+                                             float* __restrict__ dvol, int C,
+                                             int D, int H, int W) {
+  extern __shared__ float s_sum[];  // s_sum[c * kBwdTx + xi]
+  const int x0 = blockIdx.x * kBwdTx;
+  const int y = blockIdx.y;
+  const int z = blockIdx.z;
+  const int nx = min(kBwdTx, W - x0);
+  const int n = nx * C;
+  const int64_t row_len = 8 * static_cast<int64_t>(C);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int xi = i / C;
+    const int c = i - xi * C;
+    const int x = x0 + xi;
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int dz = k >> 2, dy = (k >> 1) & 1, dx = k & 1;
+      const int64_t row =
+          (static_cast<int64_t>(z + 1 - dz) * (H + 1) + (y + 1 - dy)) *
+              (W + 1) + (x + 1 - dx);
+      acc = acc + to_f32(g[row * row_len + k * C + c]);
+    }
+    s_sum[c * kBwdTx + xi] = acc;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int c = i / nx;
+    const int xi = i - c * nx;
+    dvol[((static_cast<int64_t>(c) * D + z) * H + y) * W + x0 + xi] =
+        s_sum[c * kBwdTx + xi];
+  }
+}
+
+template <typename G>
+int launch_backward(const void* g, void* dvol, int C, int D, int H, int W,
+                    void* stream) {
+  if (C <= 0 || D <= 0 || H <= 0 || W <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(C) * kBwdTx * sizeof(float);
+  if (smem > kSmemBytes || H > 65535 || D > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((W + kBwdTx - 1) / kBwdTx, H, D);
+  corner_table_backward_kernel<G><<<grid, kThreads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const G*>(g), static_cast<float*>(dvol), C, D, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // T is the element's bit pattern: uint16_t for bf16, uint32_t for fp32. The
 // table is a copy, so no value is ever converted; 0 bits are +0.0 in both.
@@ -140,4 +217,15 @@ extern "C" int corner_table_f32(const void* vol, void* out, int C, int D,
 extern "C" int corner_table_bf16(const void* vol, void* out, int C, int D,
                                  int H, int W, void* stream) {
   return launch<uint16_t>(vol, out, C, D, H, W, stream);
+}
+
+// d vol (C, D, H, W) fp32 from the table cotangent, fp32 or bf16.
+extern "C" int corner_table_backward_f32(const void* g, void* dvol, int C,
+                                         int D, int H, int W, void* stream) {
+  return launch_backward<float>(g, dvol, C, D, H, W, stream);
+}
+
+extern "C" int corner_table_backward_bf16(const void* g, void* dvol, int C,
+                                          int D, int H, int W, void* stream) {
+  return launch_backward<__nv_bfloat16>(g, dvol, C, D, H, W, stream);
 }

@@ -1,5 +1,5 @@
-"""CenterPoint-style BEV detection head and its decode; the port of
-`vampire_tpu/models/centerpoint_head.py` (the loss waits for training).
+"""CenterPoint-style BEV detection head, its loss and its decode; the port
+of `vampire_tpu/models/centerpoint_head.py`.
 
 fp32 throughout: trunk ResNet-18-ish (no maxpool) with the raw input
 prepended to the pyramid, SECONDFPN neck, a shared 3x3 ConvBN, then one
@@ -81,6 +81,65 @@ class BEVDepthHead(nn.Module):
         return [{k: v.permute(0, 2, 3, 1)
                  for k, v in getattr(self, f'task{t}')(shared).items()}
                 for t in range(len(self.cfg.tasks))]
+
+
+def clip_sigmoid(x: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+    """mmdet3d clip_sigmoid: sigmoid clamped to [eps, 1-eps]."""
+    return torch.clamp(torch.sigmoid(x.to(torch.float32)), eps, 1.0 - eps)
+
+
+def gaussian_focal_loss(pred: torch.Tensor, gt: torch.Tensor,
+                        alpha: float = 2.0, gamma: float = 4.0
+                        ) -> torch.Tensor:
+    """mmdet GaussianFocalLoss (sum; the caller divides by avg_factor)."""
+    eps = 1e-12
+    pos_w = (gt == 1.0).to(torch.float32)
+    neg_w = torch.pow(1.0 - gt, gamma)
+    pos = -torch.log(pred + eps) * torch.pow(1.0 - pred, alpha) * pos_w
+    neg = -torch.log(1.0 - pred + eps) * torch.pow(pred, alpha) * neg_w
+    return torch.sum(pos + neg)
+
+
+def detection_loss(preds: List[Dict[str, torch.Tensor]],
+                   targets: Dict[str, torch.Tensor], cfg: HeadConfig,
+                   num_devices: int = 1) -> torch.Tensor:
+    """Sum over tasks of the heatmap focal loss and the weighted L1 box
+    loss, in fp32.
+
+    `targets` come from `vampire_tpu.ops.target_assign` (the jax-free
+    module `synthetic_batch` uses): heatmap_{t} (B, H, W, ncls_t),
+    anno_box_{t} (B, max_objs, 10), ind_{t} (B, max_objs) int (y*W + x),
+    mask_{t} (B, max_objs). As in the JAX package, the focal loss divides by
+    max(num_pos, num_devices) and the box loss by max(num_boxes,
+    1e-4 * num_devices): the reference's reduce_mean floors written as one
+    global loss.
+    """
+    total = torch.zeros((), dtype=torch.float32,
+                        device=preds[0]['heatmap'].device)
+    code_w = torch.tensor(cfg.code_weights, dtype=torch.float32,
+                          device=total.device)
+    for t, pd in enumerate(preds):
+        hm_pred = clip_sigmoid(pd['heatmap'])
+        hm_gt = targets[f'heatmap_{t}'].to(torch.float32)
+        num_pos = torch.sum((hm_gt == 1.0).to(torch.float32))
+        cls_avg = torch.clamp(num_pos, min=float(num_devices))
+        total = total + gaussian_focal_loss(hm_pred, hm_gt) / cls_avg
+
+        anno = torch.cat([pd['reg'], pd['height'], pd['dim'], pd['rot'],
+                          pd['vel']], dim=-1)
+        B, H, W, C = anno.shape
+        ind = targets[f'ind_{t}'].to(torch.int64)
+        pred_box = torch.gather(anno.reshape(B, H * W, C), 1,
+                                ind[..., None].expand(-1, -1, C))
+        tgt_box = targets[f'anno_box_{t}'].to(torch.float32)
+        mask = targets[f'mask_{t}'].to(torch.float32)
+        w = (mask[..., None] * torch.isfinite(tgt_box).to(torch.float32)
+             * code_w)
+        tgt_box = torch.nan_to_num(tgt_box)
+        num = torch.clamp(torch.sum(mask), min=1e-4 * float(num_devices))
+        l1 = torch.sum(torch.abs(pred_box - tgt_box) * w) / num
+        total = total + cfg.loss_bbox_weight * l1
+    return total
 
 
 def decode_preds(preds: List[Dict[str, torch.Tensor]], cfg: HeadConfig

@@ -8,7 +8,9 @@ Occ3D grid, the LiDAR points, the BEV column renders and the BEV feature of
 the detection head. With `camera_renders=True` (the default, as in the JAX
 package) the fused field [sdf | seg | rgb] is also turned into one bf16
 corner table per frame (`ops/tables.py`), through which the camera rays are
-rendered (`ops/rays.py`); the ray renders are upsampled x4.
+rendered (`ops/rays.py`); the ray renders are upsampled x4. The three
+kernels' ops are `torch.autograd.Function`s with backward kernels, so the
+same forward trains (`training/`).
 
 Layouts: inputs and outputs keep the JAX package's layouts (channels-last
 images, (B, Z, Y, X) ordering, occ as (B, X, Y, Z, K)); inside, tensors are
@@ -20,7 +22,7 @@ outputs, the density, queries and rendering are fp32.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -113,6 +115,10 @@ class FieldBackbone(nn.Module):
                 f'{_TODO}')
         self.cfg = c
         self.dtype = dtype
+        # dtype of the field the point queries and the camera rays sample
+        # (the JAX module's `sample_dtype`; weights and sums stay fp32). A
+        # test sets float32 to compare gradients without bf16 roundings.
+        self.sample_dtype = torch.bfloat16
         K = c.num_classes
         mid = c.mid_channels
         Zs, Ys, Xs = c.grid_zyx('seg')
@@ -150,7 +156,7 @@ class FieldBackbone(nn.Module):
         kw = dict(device=device)
         self.img_backbone = ResNet(depth=c.img_backbone_depth,
                                    out_indices=c.img_backbone_out_indices,
-                                   dtype=dtype, **kw)
+                                   frozen_stem=True, dtype=dtype, **kw)
         self.img_neck = SECONDFPN(c.img_neck_in_channels,
                                   c.img_neck_out_channels,
                                   c.img_neck_upsample_strides, dtype=dtype,
@@ -180,15 +186,15 @@ class FieldBackbone(nn.Module):
 
     def lift(self, depth: torch.Tensor, feat: torch.Tensor,
              mats: Dict[str, torch.Tensor],
-             lift_fn: Optional[Callable] = None) -> torch.Tensor:
+             plain: bool = False) -> torch.Tensor:
         """Block-compacted masked-mean lift.
 
         depth: (B, N, D, h, w) depth distribution; feat: (B, N, h, w, C).
         Each camera selects its top-K (Y, X) blocks by valid-query count and
-        `lift_fn` (default `ops.lift.lift_accumulate_`) adds its samples
-        into block-major (G, Q, C) accumulators. Returns (B, C, Z, Y, X) fp32.
+        `ops.lift.lift_frame` (the lift kernel per camera, `plain`: its plain
+        version; differentiable) adds its samples into block-major (G, Q, C)
+        accumulators. Returns (B, C, Z, Y, X) fp32.
         """
-        lift_fn = lift_fn or lift_ops.lift_accumulate_
         c = self.cfg
         Z, Y, X = c.grid_zyx('seg')
         blk = c.lift_block
@@ -203,17 +209,17 @@ class FieldBackbone(nn.Module):
                           mats['sensor2ego'], mats['intrin'], mats['ida'],
                           mats.get('bda'))[..., 0, :]
         coords, valid = coords_valid(pix, c)
-        counts = valid.sum(-1)
+        ids = torch.topk(valid.sum(-1), topk, dim=-1).indices   # (B, N, K)
+        sel = ids[..., None]
+        coords = torch.gather(coords, 2, sel[..., None].expand(
+            -1, -1, -1, Q, 3))                               # (B, N, K, Q, 3)
+        valid = torch.gather(valid, 2, sel.expand(-1, -1, -1, Q))
         outs = []
         for b in range(B):
-            numer = torch.zeros((Gn, Q, C), dtype=torch.float32,
-                                device=feat.device)
-            denom = torch.zeros_like(numer)
-            for n in range(N):
-                ids = torch.topk(counts[b, n], topk).indices
-                lift_fn(depth[b, n].contiguous(), feat[b, n].contiguous(),
-                        ids.contiguous(), coords[b, n][ids].contiguous(),
-                        valid[b, n][ids].contiguous(), numer, denom)
+            numer, denom = lift_ops.lift_frame(
+                depth[b].contiguous(), feat[b].contiguous(),
+                ids[b].contiguous(), coords[b].contiguous(),
+                valid[b].contiguous(), Gn, plain)
             outs.append(numer / (denom + 1e-6))
         out = torch.stack(outs).reshape(B, GY, GX, Z, blk, blk, C)
         return out.permute(0, 6, 3, 1, 4, 2, 5).reshape(B, C, Z, Y, X)
@@ -221,8 +227,8 @@ class FieldBackbone(nn.Module):
     def _query_points(self, fused, points):
         """Point queries: pts_logits (B, P, K), pts_sdf (B, P).
 
-        `grid_sample` on a bf16-rounded copy of the fused volume with fp32
-        weights and accumulation, like the JAX package's `sample_dtype`. The
+        `grid_sample` on a `sample_dtype`-rounded copy of the fused volume
+        with fp32 weights and accumulation, like the JAX package. The
         JAX full-render graph reads the same values through its corner table
         (a TPU gather layout); here both graphs take this path, which gives
         them up to the fp32 summation order and is the faster one on a card.
@@ -231,7 +237,7 @@ class FieldBackbone(nn.Module):
         K = c.num_classes
         norm = G.normalize_coords(points, c.x_bound_seg, c.y_bound_seg,
                                   c.z_bound_seg)
-        vol = fused.to(torch.bfloat16).to(torch.float32)
+        vol = fused.to(self.sample_dtype).to(torch.float32)
         samp = S.grid_sample_3d(vol, norm, align_corners=True,
                                 padding_mode='border')
         pts_logits = samp[..., 1:K + 1]
@@ -286,12 +292,11 @@ class FieldBackbone(nn.Module):
                               mats['intrin'], mats['ida'], mats.get('bda'))
         coords, valid, delta = ray_inputs(geom, c)
         B, N, _, fh, fw = geom.shape[:5]
-        sampler = (R.sample_and_composite_rays_reference if plain
-                   else ray_ops.sample_and_composite_rays)
         out = torch.stack([
-            sampler(t, c.grid_zyx('seg'), coords[b], valid[b], delta[b],
-                    self.camera_mids, c.d_bound[1], c.density_mode,
-                    self.density_beta, c.sdf_bias)
+            ray_ops.render_rays(t, c.grid_zyx('seg'), coords[b], valid[b],
+                                delta[b], self.camera_mids, c.d_bound[1],
+                                c.density_mode, self.density_beta,
+                                c.sdf_bias, plain)
             for b, t in enumerate(tables)])                 # (B, R, 3+K+1)
         out = out.reshape(B, N, fh, fw, K + 4)
         up = c.upsample_factor
@@ -306,21 +311,28 @@ class FieldBackbone(nn.Module):
                 points: Optional[torch.Tensor] = None,
                 camera_renders: bool = True,
                 plain: bool = False) -> Dict[str, Optional[torch.Tensor]]:
-        """Inference forward (BN in the module's mode).
+        """Forward in the module's mode: `model.train()` is the JAX
+        package's train=True (BN on batch statistics outside the frozen
+        stem), `eval()` its train=False. The forward is differentiable: the
+        three kernels' ops carry their backward kernels.
 
         Args:
           imgs: (B, N, H, W, 3) normalized images (channels-last).
           mats: 'sensor2ego'/'intrin'/'ida' (B, N, 4, 4) and 'bda' (B, 4, 4).
           points: optional (B, P, 3) padded ego-frame query points.
           camera_renders: also build the frame's corner table and render
-            the camera rays through it, as the JAX package does by default; False is the
-            metrics graph, whose outputs carry None for the camera renders.
+            the camera rays through it, as the JAX package does by default
+            and as training needs; False is the metrics graph, whose outputs
+            carry None for the camera renders.
           plain: run the plain PyTorch versions of the kernels (lift, corner
-            table, rays) instead of the kernels. Only a caller comparing the
-            two on a card sets it; on the CPU both are the plain versions.
+            table, rays), forward and backward, instead of the kernels. Only
+            a caller comparing the two on a card sets it; on the CPU both
+            are the plain versions.
 
-        Returns the JAX package's output dict. The camera-ray branch always
-        runs the dense sampler: the train-mode compact sampler is not ported.
+        Returns the JAX package's output dict. The camera-ray branch runs
+        the dense sampler in both modes: the JAX package's train-mode
+        compact sampler gives the same values (fp reassociation aside) and
+        exists because TPU scatters are slow; it is not ported.
         """
         c = self.cfg
         if imgs.dim() != 5:
@@ -337,8 +349,7 @@ class FieldBackbone(nn.Module):
         low = self.channel_lower(feats).permute(0, 2, 3, 1)
         low = low.reshape(B, N, h, w, -1)
 
-        lift_fn = lift_ops.lift_accumulate_reference if plain else None
-        voxel_feats = self.lift(depth, low, mats, lift_fn)        # fp32
+        voxel_feats = self.lift(depth, low, mats, plain)          # fp32
         if c.cat_pos:
             pos = self.norm_voxel_coords[None].expand(B, -1, -1, -1, -1)
             voxel_feats = torch.cat([voxel_feats, pos], dim=1)
@@ -354,13 +365,12 @@ class FieldBackbone(nn.Module):
         occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol)
         rgb_p = seg_p = depth_p = None
         if camera_renders:
-            # one bf16 corner table per frame serves the camera rays (the JAX
-            # package's table_pad_channels only pads rows to TPU lane tiles,
-            # exactly; it is not read here)
-            table_fn = (S.corner_table_reference if plain
-                        else table_ops.corner_table)
-            fused_t = fused.to(torch.bfloat16)
-            tables = [table_fn(fused_t[b]) for b in range(B)]
+            # one corner table per frame, in sample_dtype, serves the camera
+            # rays (the JAX package's table_pad_channels only pads rows to
+            # TPU lane tiles, exactly; it is not read here)
+            fused_t = fused.to(self.sample_dtype)
+            tables = [table_ops.build_corner_table(fused_t[b], plain)
+                      for b in range(B)]
             rgb_p, seg_p, depth_p = self._render_cameras(mats, tables, plain)
         (bev_rgb, bev_seg, bev_height, bev_density,
          vox_out) = self._render_bev(fused, base.to(torch.float32))

@@ -7,7 +7,9 @@ JAX package (`stem`, `layer{i}_{j}`, `conv1`, `downsample`) so that
 
 Precision mirrors the JAX modules: parameters are fp32, each convolution
 runs in the module's compute `dtype` (weights cast per call), BatchNorm runs
-in fp32 with running statistics, and the result is cast back to `dtype`.
+in fp32, and the result is cast back to `dtype`. In train mode BatchNorm
+normalises with the batch statistics and updates its running ones as flax
+does (`BatchNorm2d`).
 """
 from __future__ import annotations
 
@@ -32,6 +34,26 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), b)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train mode follows flax `nn.BatchNorm`: the
+    running variance is updated with the biased batch variance (torch uses
+    the unbiased one), running = (1 - momentum) * running + momentum *
+    batch, with torch's `momentum` = 1 - flax's. Eval mode is torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight       # as flax
+        return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
+                + self.bias[None, :, None, None])
+
+
 class ConvBN(nn.Module):
     """Conv2d(bias=False) + BatchNorm [+ ReLU]."""
 
@@ -41,7 +63,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False,
                            compute_dtype=dtype, device=device)
-        self.bn = nn.BatchNorm2d(cout, eps=bn_eps, device=device)
+        self.bn = BatchNorm2d(cout, eps=bn_eps, device=device)
         self.relu = relu
         self.dtype = dtype
 
@@ -101,23 +123,31 @@ _ARCH = {
 class ResNet(nn.Module):
     """mmdet-compatible ResNet returning the feature pyramid (NCHW).
 
-    `with_maxpool=False` reproduces the BEV trunk's deleted maxpool. The
-    image backbone's frozen stem matters only in training, which is not
-    ported; serving runs every BN on its running statistics.
+    `with_maxpool=False` reproduces the BEV trunk's deleted maxpool.
+    `frozen_stem=True` (the image backbone; mmdet frozen_stages=0) keeps the
+    stem's BN on its running statistics in train mode, detaches the stem's
+    output and gives its parameters requires_grad=False, so the optimizer
+    neither updates nor decays them: the JAX package's stop_gradient
+    (vampire_tpu/models/resnet.py:138-145) and masked set_to_zero
+    (vampire_tpu/training/train_state.py:53).
     """
 
     def __init__(self, depth: int = 50, in_channels: int = 3,
                  num_stages: int = 4, base_channels: int = 64,
                  strides: Sequence[int] = (1, 2, 2, 2),
                  out_indices: Sequence[int] = (0, 1, 2, 3),
-                 with_maxpool: bool = True, dtype=torch.float32,
-                 device=None):
+                 with_maxpool: bool = True, frozen_stem: bool = False,
+                 dtype=torch.float32, device=None):
         super().__init__()
         block_cls, stage_blocks = _ARCH[depth]
         self.out_indices = tuple(out_indices)
         self.with_maxpool = with_maxpool
+        self.frozen_stem = frozen_stem
         self.stem = ConvBN(in_channels, base_channels, 7, 2, relu=True,
                            dtype=dtype, device=device)
+        if frozen_stem:
+            self.stem.requires_grad_(False)
+            self.stem.eval()
         cin = base_channels
         self.stages: List[List[str]] = []
         for i in range(num_stages):
@@ -134,8 +164,16 @@ class ResNet(nn.Module):
                 cin = planes * block_cls.expansion
             self.stages.append(names)
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.frozen_stem:
+            self.stem.eval()
+        return self
+
     def forward(self, x) -> List[torch.Tensor]:
         x = self.stem(x)
+        if self.frozen_stem:
+            x = x.detach()
         if self.with_maxpool:
             x = F.max_pool2d(x, 3, 2, 1)
         outs = []

@@ -3,7 +3,8 @@
 
 Per input scale: ConvTranspose(k=stride, s=stride, bias=False) when the
 upsample stride >= 1, else Conv(k=1/stride, s=1/stride, bias=False); each
-followed by BN(eps=1e-3) + ReLU; outputs are concatenated on channels.
+followed by BN(eps=1e-3, flax momentum 0.99) + ReLU; outputs are
+concatenated on channels.
 
 `weights.from_flax` flips the transposed kernels spatially: flax
 `ConvTranspose` (transpose_kernel=False) applies the kernel as stored, torch
@@ -17,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .resnet import Conv2d
+from .resnet import BatchNorm2d, Conv2d
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -54,8 +55,8 @@ class SECONDFPN(nn.Module):
                               compute_dtype=dtype, device=device)
             self.add_module(f'deblock{i}_conv', conv)
             self.add_module(f'deblock{i}_bn',
-                            nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01,
-                                           device=device))
+                            BatchNorm2d(cout, eps=1e-3, momentum=0.01,
+                                        device=device))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         if len(feats) != self.n:

@@ -17,12 +17,22 @@ corner table (the camera's inputs sit in L2; the table would cost ~144 MB of
 writes and reads per camera). It is bound by the read-modify-write of the
 fp32 accumulators; see the source note in csrc/lift.cu for the design.
 
-On CPU tensors it runs the plain version `lift_accumulate_reference`. A CUDA
-tensor never falls back: the kernel launches or the call raises.
+`lift_backward(depth, feat, ids, coords, valid, g_numer)` is its transpose
+for one camera: given g_numer = d numer (G, Q, C) fp32 it returns
+(d depth, d feat) in fp32, the JAX package's `_lift_table_bwd`
+(vampire_tpu/ops/pallas_tables.py:374-396) composed with the transpose of
+the row gather, computed without a table by the second kernel of
+`csrc/lift.cu`; `lift_backward_reference` is its plain version. `denom`
+counts nonzero samples and takes no gradient, as in the JAX package.
 
-No autograd: this is the serving path. Training needs a
-`torch.autograd.Function` mirroring `_lift_table_bwd`
-(vampire_tpu/ops/pallas_tables.py:374-396); ROADMAP.md lists it.
+`lift_frame(depth, feat, ids, coords, valid, n_blocks)` is the
+differentiable op the model calls: a `torch.autograd.Function` over one
+frame's N cameras whose forward runs `lift_accumulate_` per camera into
+fresh accumulators and whose backward runs `lift_backward` per camera and
+casts to the inputs' dtype, as `_lift_table_bwd` does.
+
+On CPU tensors the wrappers run their plain versions. A CUDA tensor never
+falls back: the kernel launches or the call raises.
 """
 from __future__ import annotations
 
@@ -30,14 +40,18 @@ import ctypes
 
 import torch
 
-from ..core.sampling import sample_outer_product
+from ..core.sampling import _prep_axis, sample_outer_product
 from . import _build
 
-# kernel launches made by lift_accumulate_ (incremented at each launch only)
+# kernel launches made by lift_accumulate_ and by lift_backward
+# (incremented at each launch only)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _SYMBOLS = {torch.float32: 'lift_accumulate_f32',
             torch.bfloat16: 'lift_accumulate_bf16'}
+_BWD_SYMBOLS = {torch.float32: 'lift_backward_f32',
+                torch.bfloat16: 'lift_backward_bf16'}
 
 
 def lift_accumulate_reference(depth, feat, ids, coords, valid, numer, denom):
@@ -87,11 +101,11 @@ def _check(depth, feat, ids, coords, valid, numer, denom):
     return D, H, W, C, K, Q, G
 
 
-def _kernel(dtype):
+def _kernel(symbols, dtype, n_ptr):
     lib = _build.load_library('lift')
-    fn = getattr(lib, _SYMBOLS[dtype])
+    fn = getattr(lib, symbols[dtype])
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     return fn
 
@@ -117,7 +131,7 @@ def lift_accumulate_(depth, feat, ids, coords, valid, numer, denom):
         raise NotImplementedError(f'lift: no kernel for {depth.device}')
     D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid, numer,
                                  denom)
-    fn = _kernel(depth.dtype)
+    fn = _kernel(_SYMBOLS, depth.dtype, 7)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream(depth.device).cuda_stream
         err = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
@@ -127,3 +141,112 @@ def lift_accumulate_(depth, feat, ids, coords, valid, numer, denom):
         raise RuntimeError(f'lift: kernel launch failed with CUDA error {err}')
     LAUNCHES += 1
     return numer, denom
+
+
+def lift_backward_reference(depth, feat, ids, coords, valid, g_numer):
+    """Plain torch transpose of `lift_accumulate_reference`'s numerator for
+    one camera (any device): g_numer (G, Q, C) fp32 -> (d depth (D, h, w),
+    d feat (h, w, C)), both fp32. With gv = valid * g_numer[ids] and the
+    forward's weights, d feat[pix] += wk * gv and d depth[z, pix] +=
+    w2d * wz * (feat[pix] . gv), per (dy, dx) pixel corner."""
+    D, H, W = depth.shape
+    K, Q = valid.shape
+    C = feat.shape[-1]
+    gv = (g_numer.index_select(0, ids) * valid[..., None]).reshape(K * Q, C)
+    c = coords.reshape(K * Q, 3)
+    xi, xw, xm = _prep_axis(c[:, 0], W, False)
+    yi, yw, ym = _prep_axis(c[:, 1], H, False)
+    zi, zw, zm = _prep_axis(c[:, 2], D, False)
+    dflat = depth.reshape(D * H * W).to(torch.float32)
+    fflat = feat.reshape(H * W, C).to(torch.float32)
+    d_depth = torch.zeros(D * H * W, dtype=torch.float32, device=depth.device)
+    d_feat = torch.zeros((H * W, C), dtype=torch.float32, device=depth.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            w2d = torch.where(ym[dy] & xm[dx], yw[dy] * xw[dx], 0.0)
+            pix = yi[dy] * W + xi[dx]
+            wz = [torch.where(zm[dz], zw[dz], 0.0) for dz in (0, 1)]
+            s = torch.zeros_like(w2d)
+            for dz in (0, 1):
+                s = s + wz[dz] * dflat[zi[dz] * H * W + pix]
+            d_feat.index_add_(0, pix, gv * (w2d * s)[:, None])
+            dwk = torch.sum(fflat[pix] * gv, dim=-1)
+            for dz in (0, 1):
+                d_depth.index_add_(0, zi[dz] * H * W + pix, w2d * wz[dz] * dwk)
+    return d_depth.reshape(D, H, W), d_feat.reshape(H, W, C)
+
+
+def lift_backward(depth, feat, ids, coords, valid, g_numer):
+    """One camera's lift backward: (d depth (D, h, w), d feat (h, w, C)),
+    float32, from g_numer = d numer (G, Q, C) float32 and the forward's
+    inputs (see `lift_accumulate_`)."""
+    global BWD_LAUNCHES
+    if depth.device.type == 'cpu':
+        return lift_backward_reference(depth, feat, ids, coords, valid,
+                                       g_numer)
+    if depth.device.type != 'cuda':
+        raise NotImplementedError(f'lift: no kernel for {depth.device}')
+    D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid, g_numer,
+                                 g_numer)
+    d_depth = torch.zeros((D, H, W), dtype=torch.float32, device=depth.device)
+    d_feat = torch.zeros((H, W, C), dtype=torch.float32, device=depth.device)
+    fn = _kernel(_BWD_SYMBOLS, depth.dtype, 8)
+    with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream(depth.device).cuda_stream
+        err = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
+                 coords.data_ptr(), valid.data_ptr(), g_numer.data_ptr(),
+                 d_depth.data_ptr(), d_feat.data_ptr(), D, H, W, C, K, Q, G,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f'lift: backward kernel launch failed with CUDA '
+                           f'error {err}')
+    BWD_LAUNCHES += 1
+    return d_depth, d_feat
+
+
+class LiftFrame(torch.autograd.Function):
+    """One frame's lift over its N cameras, with its backward. Returns
+    (numer, denom), (G, Q, C) fp32; denom takes no gradient. `plain` runs
+    the plain versions of both directions."""
+
+    @staticmethod
+    def forward(ctx, depth, feat, ids, coords, valid, n_blocks, plain):
+        N = depth.shape[0]
+        Q, C = valid.shape[-1], feat.shape[-1]
+        numer = torch.zeros((n_blocks, Q, C), dtype=torch.float32,
+                            device=feat.device)
+        denom = torch.zeros_like(numer)
+        fwd = lift_accumulate_reference if plain else lift_accumulate_
+        for n in range(N):
+            fwd(depth[n], feat[n], ids[n], coords[n], valid[n], numer, denom)
+        ctx.save_for_backward(depth, feat, ids, coords, valid)
+        ctx.plain = plain
+        ctx.mark_non_differentiable(denom)
+        return numer, denom
+
+    @staticmethod
+    def backward(ctx, g_numer, _g_denom):
+        depth, feat, ids, coords, valid = ctx.saved_tensors
+        bwd = lift_backward_reference if ctx.plain else lift_backward
+        g_numer = g_numer.contiguous()
+        grads = [bwd(depth[n], feat[n], ids[n], coords[n], valid[n], g_numer)
+                 for n in range(depth.shape[0])]
+        d_depth = torch.stack([g[0] for g in grads]).to(depth.dtype)
+        d_feat = torch.stack([g[1] for g in grads]).to(feat.dtype)
+        return d_depth, d_feat, None, None, None, None, None
+
+
+def lift_frame(depth, feat, ids, coords, valid, n_blocks, plain=False):
+    """Differentiable lift of one frame's N cameras into fresh block-major
+    accumulators.
+
+    Args:
+      depth: (N, D, h, w), feat: (N, h, w, C), both float32 or bfloat16.
+      ids: (N, K) int64, each row distinct block ids in [0, n_blocks).
+      coords: (N, K, Q, 3), valid: (N, K, Q) float32, per camera as in
+        `lift_accumulate_`.
+      plain: run the plain versions of the forward and the backward.
+
+    Returns (numer, denom), each (n_blocks, Q, C) float32.
+    """
+    return LiftFrame.apply(depth, feat, ids, coords, valid, n_blocks, plain)

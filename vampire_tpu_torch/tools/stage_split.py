@@ -1,4 +1,5 @@
-"""Stage split of one flagship request on each serving path.
+"""Stage split of one flagship request on each serving path, and of one
+flagship train step.
 
     python -m vampire_tpu_torch.tools.stage_split [--iters 10]
 
@@ -6,16 +7,21 @@ Run from the repository root on a CUDA card. For the metrics graph and the
 full-render graph in turn it builds `InferenceServer(flagship_config(),
 dtype=bfloat16)` with seeded random weights, calibrates BatchNorm on one
 synthetic frame (`chip_smoke.calibrate_batchnorm_`), warms up, then times
-`--iters` calls of `InferenceServer.forward` and prints:
+`--iters` calls of `InferenceServer.forward`. Then it builds
+`Trainer(flagship_config())` (bf16, seeded random weights) and times
+`--iters` steps of `build_train_step` on two synthetic training batches.
+For each it prints:
 
-  * the forward's host-clock median, min and max;
-  * per stage, the mean CUDA-event span per forward: the encoder, the lift,
-    the Unet3D, the queries, the BEV render, the camera rays and their
-    parts, the det head. A span includes the host's launch gaps inside it,
-    so it is the stage's latency, not its device busy time;
-  * the peak device memory of one forward;
-  * the `torch.profiler` device time per forward of the top entries over
-    three more forwards.
+  * the forward's (the step's) host-clock median, min and max;
+  * per stage, the mean CUDA-event span per forward (per step): the
+    encoder, the lift, the Unet3D, the queries, the BEV render, the camera
+    rays and their parts, the det head, each kernel; in the step also the
+    losses, the backward, the clipping and the AdamW update. A span
+    includes the host's launch gaps inside it, so it is the stage's
+    latency, not its device busy time;
+  * the peak device memory of one forward (one step);
+  * the `torch.profiler` device time per forward (per step) of the top
+    entries over three more.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import argparse
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -42,8 +49,10 @@ def main(argv=None):
     import chip_smoke
     from vampire_tpu_torch.configs import flagship_config, synthetic_batch
     from vampire_tpu_torch.models import field as F
-    from vampire_tpu_torch.ops import _build, rays, tables
+    from vampire_tpu_torch.ops import _build, lift, rays, tables
     from vampire_tpu_torch.serving import InferenceServer
+    from vampire_tpu_torch.training import train_step as TS
+    from vampire_tpu_torch.training.trainer import Trainer
 
     _build.build(chip_smoke.KERNEL_LIBS)
     cfg = flagship_config()
@@ -76,27 +85,27 @@ def main(argv=None):
     for meth in ('lift', '_query_points', '_query_occ', '_render_bev',
                  '_render_cameras'):
         setattr(fb, meth, timed(meth, getattr(fb, meth)))
-    tables.corner_table = timed('corner_table kernel', tables.corner_table)
-    rays.sample_and_composite_rays = timed('rays kernel',
-                                           rays.sample_and_composite_rays)
+    for mod, name in ((lift, 'lift_accumulate_'), (lift, 'lift_backward'),
+                      (tables, 'corner_table'),
+                      (tables, 'corner_table_backward'),
+                      (rays, 'sample_and_composite_rays'),
+                      (rays, 'sample_and_composite_rays_backward')):
+        setattr(mod, name, timed(f'{name} kernel', getattr(mod, name)))
     F.G.get_geometry = timed('get_geometry', F.G.get_geometry)
     F.ray_inputs = timed('ray_inputs', F.ray_inputs)
     F.S.resize_linear = timed('resize_linear (x4 up, x0.5 bev)',
                               F.S.resize_linear)
 
-    n = args.iters
-    for outputs in ('metrics', None):
-        label = 'metrics' if outputs else 'full-render'
-        srv = InferenceServer(cfg, device='cuda', dtype=torch.bfloat16,
-                              outputs=outputs, seed=0)
-        chip_smoke.calibrate_batchnorm_(srv, calib)
-        m = srv.model
+    def time_stages(model, run, label, unit):
+        """Warm up, then time args.iters calls of run() and print the
+        split, the peak memory and the profiler's top entries."""
         for mod in ('img_backbone', 'img_neck', 'base_conv', 'voxel_output'):
-            sub = getattr(m.backbone, mod)
+            sub = getattr(model.backbone, mod)
             sub.forward = timed(mod, sub.forward)
-        m.head.forward = timed('det head', m.head.forward)
+        model.head.forward = timed('det head', model.head.forward)
+        n = args.iters
         for _ in range(3):
-            srv.forward(batch)
+            run()
         torch.cuda.synchronize()
         spans.clear()
         active[0] = True
@@ -104,19 +113,19 @@ def main(argv=None):
         for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            srv.forward(batch)
+            run()
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
         active[0] = False
-        print(f'== {label}: forward() host clock median '
-              f'{statistics.median(host):.2f} ms, min {min(host):.2f}, max '
-              f'{max(host):.2f} ({n} forwards)', flush=True)
+        print(f'== {label}: host clock median {statistics.median(host):.2f} '
+              f'ms, min {min(host):.2f}, max {max(host):.2f} ({n} {unit}s)',
+              flush=True)
         for name, ev in spans.items():
             per = [a.elapsed_time(b) for a, b in ev]
-            print(f'  {name:34s} {sum(per) / n:8.3f} ms per forward '
+            print(f'  {name:40s} {sum(per) / n:8.3f} ms per {unit} '
                   f'({len(per) // n} calls)')
         torch.cuda.reset_peak_memory_stats()
-        srv.forward(batch)
+        run()
         torch.cuda.synchronize()
         print(f'  peak device memory '
               f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
@@ -124,7 +133,7 @@ def main(argv=None):
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(3):
-                srv.forward(batch)
+                run()
             torch.cuda.synchronize()
 
         def dev(e):
@@ -132,12 +141,46 @@ def main(argv=None):
                            getattr(e, 'self_cuda_time_total', 0))
         ka = prof.key_averages()
         print(f'  profiler: device self time '
-              f'{sum(dev(e) for e in ka) / 3e3:.2f} ms per forward')
+              f'{sum(dev(e) for e in ka) / 3e3:.2f} ms per {unit}')
         for e in sorted(ka, key=dev, reverse=True)[:14]:
             print(f'    {dev(e) / 3e3:8.3f} ms  {e.count // 3:4d}x  '
                   f'{e.key[:90]}', flush=True)
-        del srv, m
+
+    for outputs in ('metrics', None):
+        srv = InferenceServer(cfg, device='cuda', dtype=torch.bfloat16,
+                              outputs=outputs, seed=0)
+        chip_smoke.calibrate_batchnorm_(srv, calib)
+        time_stages(srv.model, lambda: srv.forward(batch),
+                    f'{"metrics" if outputs else "full-render"} forward()',
+                    'forward')
+        del srv
         torch.cuda.empty_cache()
+
+    # the train step: the same stages, plus the losses, the backward, the
+    # clipping and the AdamW update
+    loader = [synthetic_batch(cfg, batch_size=1,
+                              n_points=cfg.train.max_points, seed=10 + i,
+                              mode='train') for i in range(2)]
+    with tempfile.TemporaryDirectory() as wd:
+        trainer = Trainer(cfg, workdir=wd, device='cuda')
+        state = trainer.init_state(loader[0], len(loader))
+        on_card = [trainer.to_device(b) for b in loader]
+        step = TS.build_train_step(cfg)
+        conf = [TS.init_train_confusion(cfg, trainer.device)]
+        TS.compute_losses = timed('losses', TS.compute_losses)
+        TS.clip_by_global_norm_ = timed('clip_by_global_norm_',
+                                        TS.clip_by_global_norm_)
+        torch.autograd.backward = timed('backward (all of it)',
+                                        torch.autograd.backward)
+        state.optimizer.step = timed('AdamW step', state.optimizer.step)
+        it = [0]
+
+        def train_once():
+            nonlocal state
+            state, _, conf[0] = step(state, on_card[it[0] % 2], conf[0])
+            it[0] += 1
+        time_stages(trainer.model, train_once, 'train step (bf16, B=1)',
+                    'step')
 
 
 if __name__ == '__main__':
