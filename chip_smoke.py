@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths and its
+row-gather probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,9 @@ nonzero without printing a result:
 
   1. device  - a CUDA card must be present (no CPU fallback); prints
                `nvidia-smi --query-gpu=name,power.limit`.
-  2. build   - nvcc builds vampire_tpu_torch/csrc/{lift,corner_table,rays}.cu
-               for sm_90a, one process per source, all started together.
+  2. build   - nvcc builds vampire_tpu_torch/csrc/{lift,corner_table,rays,
+               gather_probe}.cu for sm_90a, one process per source, all
+               started together.
   3. kernel  - each kernel against its plain torch version at the flagship
                shapes, with the error and the median time of each:
                the lift (D=86, h=64, w=176, C=16, K=264, Q=1280; camera_rig
@@ -45,6 +46,23 @@ nonzero without printing a result:
                finite loss terms and grad_norm, every parameter with a
                gradient moved, the frozen stem bit-unchanged; then times
                more steps and reads the peak memory.
+  6. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
+               layouts and dma sub-commands and its scale sub-command on
+               the ray stage's 1,387,029-row tables of 256 and 176 bf16
+               (depths 1, 8 and 32, issued 1 and 4 at a time, random and
+               coherent indices, the static and the permuted block copy),
+               through the four kernels of csrc/gather_probe.cu: each held
+               bit for bit to its plain version, the capacity probe run at
+               48 KB and 227 KB of shared memory and refused at one byte
+               more, every kernel launched; each line carries its time,
+               plain time, library time and bound.
+
+Every kernel line carries its bound: the bytes it must move (each input
+read once, each output written once; the rows the indices or rays touch,
+not the whole table) at 3.35 TB/s (`tools/gather_probe.bound_ms`); their
+operations take less time at every shape here. The one-hot gather's
+function needs no arithmetic; its entry also gives `method_ops_ms`, the
+one-hot product's multiply-adds at the tensor cores' peak.
 
 The last three lines are a JSON object of the kernels run, the card's name
 and power limit, and `{"ok": true, "device": {...}}`.
@@ -61,7 +79,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_REQUESTS = 3
-KERNEL_LIBS = ('lift', 'corner_table', 'rays')
+KERNEL_LIBS = ('lift', 'corner_table', 'rays', 'gather_probe')
 # kernel vs plain: same input values, fp32 weights and sums in the same order
 # on both sides; only FMA contraction differs (~1e-7 of |value|)
 KERNEL_RTOL = 1e-5
@@ -83,6 +101,10 @@ BWD_RTOL = 1e-4
 BETA_RTOL = 1e-3
 N_TRAIN_BATCHES = 3
 N_TIMED_STEPS = 5
+# the probe phase's scale pairs (variant, stream) of tools/gather_probe.py
+PROBE_SCALE = [(v, s) for v in ('rows', 'dma1', 'dma8', 'dmau8', 'dma32',
+                                'dmau32') for s in ('random', 'coherent')]
+PROBE_SCALE += [('copy', 'static'), ('copy', 'permuted')]
 # step 0's gradients, per parameter tensor, |g - g_ref| / |g_ref| in the L2
 # norm. In fp32 compute, kernels vs plain versions in both directions: the
 # two lifts differ in the last fp32 bits, which flip the bf16 rounding of
@@ -145,6 +167,15 @@ def reset_counts():
     from vampire_tpu_torch.ops import lift, rays, tables
     lift.LAUNCHES = tables.LAUNCHES = rays.LAUNCHES = 0
     lift.BWD_LAUNCHES = tables.BWD_LAUNCHES = rays.BWD_LAUNCHES = 0
+
+
+def hbm_ms(*tensors_or_bytes):
+    """The least time, ms, to move these bytes (tensors count their whole
+    size) through the card's memory once."""
+    from vampire_tpu_torch.tools.gather_probe import bound_ms
+    n = sum(t if isinstance(t, (int, float)) else t.numel() * t.element_size()
+            for t in tensors_or_bytes)
+    return bound_ms(n)[0]
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -227,10 +258,13 @@ def lift_check(card, bc, dev):
         plain = cuda_ms(lambda: lift.lift_accumulate_reference(
             dep[1], fea[1], ids, cc, vv, *scratch), 10)
         name = str(dt).replace('torch.', '')
+        # the camera's inputs, and numer and denom read and written at its
+        # K blocks
+        bound = hbm_ms(dep[1], fea[1], ids, cc, vv, 4 * K * Q * C * 4)
         say(f'lift {name}: max abs err {err:.3e} (max |ref| {scale:.3e}, '
             f'tol {tol:.1e}); denom mismatches {dmis} of '
             f'{acc_r[1].numel()}; kernel {ms:.4f} ms, plain {plain:.4f} ms '
-            f'per camera [{card}]')
+            f'per camera, bound {bound:.4f} ms [{card}]')
         if not err <= tol:
             raise AssertionError(f'lift kernel {name} disagrees with the '
                                  f'plain version: {err} > {tol}')
@@ -239,7 +273,7 @@ def lift_check(card, bc, dev):
             raise AssertionError(f'lift kernel {name}: {dmis} denominator '
                                  f'counts differ')
         result['max_abs_err'] = max(result['max_abs_err'], err)
-        result[name] = dict(ms=ms, plain_ms=plain)
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     return result
 
 
@@ -262,19 +296,20 @@ def table_check(card, bc, dev):
         same = torch.equal(got, want)
         err = (got.float() - want.float()).abs().max().item()
         mb = got.numel() * got.element_size() / 1e6
+        bound = hbm_ms(v, got)
         del got, want
         ms = cuda_ms(lambda: tables.corner_table(v), 20)
         plain = cuda_ms(lambda: corner_table_reference(v), 5)
         name = str(dt).replace('torch.', '')
         say(f'corner_table {name}: {shape} -> {mb:.0f} MB, byte-identical '
             f'{same}, max abs err {err:.3e}; kernel {ms:.4f} ms '
-            f'({mb / ms:.0f} GB/s written), plain {plain:.4f} ms '
-            f'[{card}]')
+            f'({mb / ms:.0f} GB/s written), plain {plain:.4f} ms, bound '
+            f'{bound:.4f} ms [{card}]')
         if not same:
             raise AssertionError(f'corner_table kernel {name} is not '
                                  f'byte-identical to the plain version')
         result['max_abs_err'] = max(result['max_abs_err'], err)
-        result[name] = dict(ms=ms, plain_ms=plain)
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     return result
 
 
@@ -346,6 +381,21 @@ def ray_field(bc, dev):
             bc.density_mode, beta, bc.sdf_bias)
 
 
+def ray_rows_bytes(args):
+    """The bytes of the distinct table rows that the valid samples of
+    `ray_field`'s rays read (each row once)."""
+    import torch
+    from vampire_tpu_torch.core.sampling import corner_rows_weights
+    table, vol_shape, coords, valid = args[:4]
+    D, H, W = vol_shape
+    row_bytes = (table.numel() // ((D + 1) * (H + 1) * (W + 1))
+                 * table.element_size())
+    rows, _ = corner_rows_weights(coords.reshape(-1, 3), vol_shape, True,
+                                  False)
+    n = torch.unique(rows[valid.reshape(-1) > 0]).numel()
+    return n, n * row_bytes
+
+
 def ray_check(card, bc, dev, args):
     """The ray kernel against its plain version on `ray_field`."""
     import torch
@@ -376,8 +426,13 @@ def ray_check(card, bc, dev, args):
     result['ms'] = cuda_ms(lambda: rays.sample_and_composite_rays(*args), 20)
     result['plain_ms'] = cuda_ms(
         lambda: R.sample_and_composite_rays_reference(*args), 5)
+    # the rows the valid samples read, the ray geometry and the output
+    n_rows, row_bytes = ray_rows_bytes(args)
+    result['bound_ms'] = hbm_ms(row_bytes, *args[2:6], got)
     say(f'rays bf16: kernel {result["ms"]:.4f} ms, plain '
-        f'{result["plain_ms"]:.4f} ms per frame [{card}]')
+        f'{result["plain_ms"]:.4f} ms per frame, bound '
+        f'{result["bound_ms"]:.4f} ms ({n_rows} distinct table rows read) '
+        f'[{card}]')
     return result
 
 
@@ -423,9 +478,12 @@ def lift_bwd_check(card, bc, dev):
                                                 g), 20)
         plain = cuda_ms(lambda: lift.lift_backward_reference(
             dep[1], fea[1], ids, cc, vv, g), 5)
+        # the camera's inputs, d numer at its K blocks, fp32 d depth, d feat
+        bound = hbm_ms(dep[1], fea[1], ids, cc, vv, K * Q * C * 4,
+                       dep[1].numel() * 4, fea[1].numel() * 4)
         say(f'lift_bwd {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
-            f'camera [{card}]')
-        result[name] = dict(ms=ms, plain_ms=plain)
+            f'camera, bound {bound:.4f} ms [{card}]')
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     return result
 
 
@@ -450,6 +508,7 @@ def table_bwd_check(card, bc, dev):
         same = torch.equal(got, want)
         err = (got - want).abs().max().item()
         mb = g.numel() * g.element_size() / 1e6
+        bound = hbm_ms(g, got)
         del got, want
         ms = cuda_ms(lambda: tables.corner_table_backward(g, shape), 20)
         plain = cuda_ms(lambda: tables.corner_table_backward_reference(
@@ -457,13 +516,13 @@ def table_bwd_check(card, bc, dev):
         name = str(dt).replace('torch.', '')
         say(f'corner_table_bwd {name}: {mb:.0f} MB cotangent -> {shape} '
             f'fp32, byte-identical {same}, max abs err {err:.3e}; kernel '
-            f'{ms:.4f} ms ({mb / ms:.0f} GB/s read), plain {plain:.4f} ms '
-            f'[{card}]')
+            f'{ms:.4f} ms ({mb / ms:.0f} GB/s read), plain {plain:.4f} ms, '
+            f'bound {bound:.4f} ms [{card}]')
         if not same:
             raise AssertionError(f'corner_table backward kernel {name} is '
                                  f'not byte-identical to the plain version')
         result['max_abs_err'] = max(result['max_abs_err'], err)
-        result[name] = dict(ms=ms, plain_ms=plain)
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     del g32
     return result
 
@@ -483,6 +542,9 @@ def ray_bwd_check(card, bc, dev, args):
     want = R.sample_and_composite_rays_backward_reference(*args, g)
     torch.cuda.synchronize()
     err = check_grad('rays_bwd d table', got[0], want[0], BWD_RTOL)
+    # the rows the valid samples read, the geometry, out and g_out, and the
+    # whole fp32 d table and d beta written
+    bound = hbm_ms(ray_rows_bytes(args)[1], *args[2:6], out, g, *got)
     b_err = abs(got[1].item() - want[1].item())
     say(f'rays_bwd d beta: {got[1].item():.6e} vs plain '
         f'{want[1].item():.6e}, rel err {b_err / abs(want[1].item()):.3e} '
@@ -495,9 +557,9 @@ def ray_bwd_check(card, bc, dev, args):
         *args, out, g), 10)
     plain = cuda_ms(lambda: R.sample_and_composite_rays_backward_reference(
         *args, g), 3)
-    say(f'rays_bwd bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms per frame '
-        f'[{card}]')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain)
+    say(f'rays_bwd bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms per frame, '
+        f'bound {bound:.4f} ms [{card}]')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound)
 
 
 def kernel_phase(card, bc=None, dev='cuda'):
@@ -1021,6 +1083,85 @@ def train_phase(card, cfg=None, dev='cuda'):
     return dict(launched=launched, grad=grad, step_ms=ms, peak_gb=peak)
 
 
+def probe_phase(card):
+    """The probe slice through its entry point, `tools/gather_probe.py`
+    (`main`): the vmem, layouts and dma sub-commands and the PROBE_SCALE
+    pairs of scale, with the four kernels' launch counts set to 0 just
+    before and read just after. The tool holds every kernel to its plain
+    version bit for bit and raises otherwise; its lines are printed here
+    with the prefix. Checks the capacity probe's refusals and that every
+    kernel launched. Returns (records by sub-command, launch counts)."""
+    import io
+    from vampire_tpu_torch.ops import gather_probe
+    from vampire_tpu_torch.tools import gather_probe as tool
+
+    one = [a for v, st in PROBE_SCALE for a in ('--one', v, st)]
+    runs = [['vmem'], ['layouts'], ['dma'], ['scale'] + one]
+    recs = {}
+    t0 = time.perf_counter()
+    for k in gather_probe.LAUNCHES:
+        gather_probe.LAUNCHES[k] = 0
+    for argv in runs:
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                recs[argv[0]] = tool.main(argv)
+        finally:
+            for ln in buf.getvalue().splitlines():
+                say(f'probe {ln}')
+    launched = dict(gather_probe.LAUNCHES)
+    say(f'probe: {sum(len(r) for r in recs.values())} configurations in '
+        f'{time.perf_counter() - t0:.1f} s; kernel launches {launched}')
+    refused = {r['smem_bytes']: r['refused'] for r in recs['vmem']
+               if r.get('what') == 'capacity'}
+    want = {48 * 1024: False, gather_probe.SMEM_LIMIT: False,
+            gather_probe.SMEM_LIMIT + 1: True}
+    if any(refused.get(k) is not v for k, v in want.items()):
+        raise AssertionError(f'capacity probe: refused {refused}, want '
+                             f'{want}')
+    idle = [k for k, n in launched.items() if n == 0]
+    if idle:
+        raise AssertionError(f'probe: {idle} never launched')
+    return recs, launched
+
+
+def probe_entry(recs, launched, name, sub, **match):
+    """The kernels-line entry of a probe kernel: its launches in the probe
+    phase and the numbers of the configuration that `match` picks."""
+    r = next(r for r in recs[sub] if r.get('kernel') == name
+             and all(r.get(k) == v for k, v in match.items()))
+    entry = dict(name=name, route='cuda',
+                 source='vampire_tpu_torch/csrc/gather_probe.cu',
+                 replaces=REPLACES[name], launches=launched[name],
+                 max_abs_err=r['max_abs_err'], ms=r['ms'],
+                 plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+                 bound_by=r['bound_by'], library_ms=r['library_ms'],
+                 at=' '.join(f'{k}={r[k]}' for k in
+                             ('probe', 'tpu_kernel', 'R', 'W', 'dtype', 'Q',
+                              'stream', 'depth', 'unroll') if k in r))
+    if 'method_ops_ms' in r:
+        entry['method_ops_ms'] = r['method_ops_ms']
+    return entry
+
+
+# the TPU kernels each probe kernel replaces (scripts/, file:line)
+REPLACES = dict(
+    row_gather='scripts/perf_vmem_gather.py:123, '
+               'scripts/perf_r3_gather_layouts.py:74, '
+               'scripts/perf_r3_gather_layouts.py:126, '
+               'scripts/perf_r3_gather_layouts.py:95',
+    onehot_gather_mma='scripts/perf_vmem_gather.py:164',
+    block_copy_tma='scripts/perf_r3_dma_control.py:27, '
+                   'scripts/perf_r3_dma_control.py:56, '
+                   'scripts/perf_vmem_gather.py:64',
+    row_gather_tma='scripts/perf_r3_dma_gather.py:66, '
+                   'scripts/perf_r3_dma_bisect.py:79, '
+                   'scripts/perf_r3_dma_bisect.py:96, '
+                   'scripts/perf_r3_dma_sweep.py:41, '
+                   'scripts/perf_r4_dma_scale.py:49, '
+                   'scripts/perf_r4_dma_scale.py:184')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1033,10 +1174,14 @@ def main():
     launched = slice_phase(card)['full']
     train = train_phase(card)
     tl = train['launched']
-    leaked = [m for m in ('jax', 'flax', 'optax') if m in sys.modules]
+    probes, pl = probe_phase(card)
+    leaked = sorted(m for m in sys.modules if m.split('.')[0] in
+                    ('jax', 'jaxlib', 'flax', 'optax', 'vampire_tpu'))
     if leaked:
         raise AssertionError(f'the port imported {leaked}')
     csrc = 'vampire_tpu_torch/csrc'
+    # library_ms None: no single PyTorch call computes the lift, the corner
+    # table, the rays or their backwards
     print(json.dumps({'kernels': [{
         'name': 'lift_accumulate',
         'route': 'cuda',
@@ -1048,6 +1193,9 @@ def main():
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
+        'bound_ms': k['lift']['bfloat16']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
         'fp32_ms': k['lift']['float32']['ms'],
         'fp32_plain_ms': k['lift']['float32']['plain_ms'],
     }, {
@@ -1060,6 +1208,9 @@ def main():
         'max_abs_err': k['corner_table']['max_abs_err'],
         'ms': k['corner_table']['bfloat16']['ms'],
         'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
+        'bound_ms': k['corner_table']['bfloat16']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
         'fp32_ms': k['corner_table']['float32']['ms'],
         'fp32_plain_ms': k['corner_table']['float32']['plain_ms'],
     }, {
@@ -1072,6 +1223,9 @@ def main():
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
+        'bound_ms': k['rays']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
     }, {
         'name': 'lift_backward',
         'route': 'cuda',
@@ -1081,6 +1235,9 @@ def main():
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
+        'bound_ms': k['lift_bwd']['bfloat16']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
         'fp32_ms': k['lift_bwd']['float32']['ms'],
         'fp32_plain_ms': k['lift_bwd']['float32']['plain_ms'],
     }, {
@@ -1092,6 +1249,9 @@ def main():
         'max_abs_err': k['corner_table_bwd']['max_abs_err'],
         'ms': k['corner_table_bwd']['bfloat16']['ms'],
         'plain_ms': k['corner_table_bwd']['bfloat16']['plain_ms'],
+        'bound_ms': k['corner_table_bwd']['bfloat16']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
         'fp32_ms': k['corner_table_bwd']['float32']['ms'],
         'fp32_plain_ms': k['corner_table_bwd']['float32']['plain_ms'],
     }, {
@@ -1103,7 +1263,18 @@ def main():
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
         'plain_ms': k['rays_bwd']['plain_ms'],
-    }], 'train_step_ms': train['step_ms'],
+        'bound_ms': k['rays_bwd']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
+    },
+        probe_entry(probes, pl, 'row_gather', 'scale', variant='rows',
+                    stream='random', W=176),
+        probe_entry(probes, pl, 'onehot_gather_mma', 'vmem'),
+        probe_entry(probes, pl, 'block_copy_tma', 'scale', variant='copy',
+                    stream='static', W=256),
+        probe_entry(probes, pl, 'row_gather_tma', 'scale', variant='dma8',
+                    stream='random', W=176),
+    ], 'train_step_ms': train['step_ms'],
         'train_peak_gb': train['peak_gb']}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,0 +1,403 @@
+"""The port's row-gather and bulk-copy probes (`ops/gather_probe.py`,
+`tools/gather_probe.py`) against the JAX package's probe scripts on the CPU.
+
+The module-level Pallas gathers of scripts/perf_r4_dma_scale.py
+(`make_dma_gather`, `make_dma_gather_unrolled`) and
+scripts/perf_r3_dma_sweep.py (`make_dma_gather`) run for real, in Pallas's
+TPU interpret mode: the script is loaded as a module, its globals Q and BQ
+are set small, and `pallas_call` is patched to interpret. The probes built
+inside the scripts' `main()` cannot be reached without editing the scripts,
+so the port is held to the scripts' own references, computed by JAX on the
+CPU. Every function here copies bits (the one-hot product of bf16 values
+summed in fp32 is exact), so every comparison is exact equality.
+
+The `gpu` cases hold each kernel to its plain version on the card; the
+module imports JAX only inside the CPU tests, so that they are collected on
+a machine without it.
+"""
+import functools
+import importlib.util
+import io
+import json
+import os
+import sys
+from contextlib import redirect_stdout
+
+import numpy as np
+import pytest
+import torch
+
+from vampire_tpu_torch.ops import gather_probe as gp
+from vampire_tpu_torch.tools import gather_probe as tool
+
+SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'scripts')
+
+
+def _load_script(name):
+    """The script as a module; sys.path is restored after its body ran,
+    which inserts a path of its own."""
+    spec = importlib.util.spec_from_file_location(
+        f'_probe_{name}', os.path.join(SCRIPTS, f'{name}.py'))
+    mod = importlib.util.module_from_spec(spec)
+    saved = list(sys.path)
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.path[:] = saved
+    return mod
+
+
+@pytest.fixture
+def jnp():
+    pytest.importorskip('jax')
+    import jax.numpy
+    return jax.numpy
+
+
+@pytest.fixture
+def interpret(monkeypatch, jnp):
+    """pallas_call in Pallas's TPU interpret mode, for this test only."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    monkeypatch.setattr(pl, 'pallas_call', functools.partial(
+        pl.pallas_call, interpret=pltpu.InterpretParams()))
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view({2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+def _table(jnp, R, W, dtype, seed=0):
+    """(R, W) table of `dtype` ('int32', 'float32' or 'bfloat16') from a
+    seed, as the jax array and the torch tensor of the same bits."""
+    rng = np.random.RandomState(seed)
+    if dtype == 'int32':
+        a = rng.randint(-2 ** 31, 2 ** 31 - 1, (R, W)).astype(np.int32)
+        return jnp.asarray(a), torch.from_numpy(a)
+    a = rng.randn(R, W).astype(np.float32)
+    if dtype == 'float32':
+        return jnp.asarray(a), torch.from_numpy(a)
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return jnp.asarray(a).astype(jnp.bfloat16), t
+
+
+def _script_streams(jnp, R, n, seed=1):
+    """The scripts' index streams of length n over R rows: random (seeded
+    RandomState), sorted, the sweep's coherent (perf_r3_dma_sweep.py:100)
+    and the scale script's ray-coherent (perf_r4_dma_scale.py:113-115),
+    written as the scripts write them in JAX."""
+    rand = np.random.RandomState(seed).randint(0, R, n).astype(np.int32)
+    i = jnp.arange(n, dtype=jnp.int32)
+    out = dict(random=rand, sorted=np.sort(rand),
+               coherent=np.array(i * R // n))
+    if R > 300:
+        out['ray'] = np.array((i * 7) % (R - 300) + i % 300)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the module-level Pallas gathers, run in interpret mode
+
+R4_CASES = [(d, u, s) for d, u in ((1, 1), (4, 1), (8, 1), (4, 2), (8, 2))
+            for s in ('random', 'sorted', 'ray')]
+
+
+@pytest.mark.parametrize('depth,unroll,stream', R4_CASES)
+def test_scale_script_dma_gather_interpret(interpret, jnp, depth, unroll,
+                                           stream):
+    """perf_r4_dma_scale.py's `make_dma_gather` (unroll 1) and
+    `make_dma_gather_unrolled` on its int32 row view (W/2 = 128 lanes), in
+    interpret mode, against the port's row_gather and row_gather_tma."""
+    m = _load_script('perf_r4_dma_scale')
+    m.Q, m.BQ = 64, 32
+    R, w = 640, 128
+    jt, tt = _table(jnp, R, w, 'int32')
+    idx = _script_streams(jnp, R, m.Q)[stream]
+    if unroll == 1:
+        f = m.make_dma_gather(depth, jnp.int32, w)
+    else:
+        f = m.make_dma_gather_unrolled(depth, jnp.int32, w, unroll=unroll)
+    want = np.asarray(f(jnp.asarray(idx), jt))
+    np.testing.assert_array_equal(want, np.asarray(jt)[idx])
+    ti = torch.from_numpy(idx)
+    got = gp.row_gather_tma(tt, ti, depth=depth, unroll=unroll, bq=m.BQ)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(gp.row_gather(tt, ti).numpy(), want)
+
+
+@pytest.mark.parametrize('dtype,w,unroll', [('float32', 128, 1),
+                                            ('float32', 128, 2),
+                                            ('bfloat16', 176, 1),
+                                            ('bfloat16', 176, 2)])
+def test_scale_script_dma_gather_dtypes_interpret(interpret, jnp, dtype, w,
+                                                  unroll):
+    """The same Pallas gathers on f32 rows and on the port's 352 B bf16
+    corner-table rows (W = 176), bit for bit."""
+    m = _load_script('perf_r4_dma_scale')
+    m.Q, m.BQ = 64, 32
+    R = 640
+    jt, tt = _table(jnp, R, w, dtype)
+    idx = _script_streams(jnp, R, m.Q)['random']
+    jdt = jnp.float32 if dtype == 'float32' else jnp.bfloat16
+    f = (m.make_dma_gather(8, jdt, w) if unroll == 1 else
+         m.make_dma_gather_unrolled(8, jdt, w, unroll=unroll))
+    want = _bits(f(jnp.asarray(idx), jt))
+    ti = torch.from_numpy(idx)
+    for got in (gp.row_gather_tma(tt, ti, depth=8, unroll=unroll, bq=m.BQ),
+                gp.row_gather(tt, ti)):
+        np.testing.assert_array_equal(_bits(got.view(torch.int16)
+                                            if dtype == 'bfloat16'
+                                            else got.numpy()), want)
+
+
+@pytest.mark.parametrize('dtype,w', [('float32', 128), ('bfloat16', 176)])
+@pytest.mark.parametrize('stream', ['random', 'sorted', 'coherent'])
+def test_sweep_script_dma_gather_interpret(interpret, jnp, dtype, w,
+                                           stream):
+    """perf_r3_dma_sweep.py's `make_dma_gather(Q, BQ, W, depth, dtype)` at
+    depth 8 on its f32 W128 and bf16 W176 rows, in interpret mode."""
+    m = _load_script('perf_r3_dma_sweep')
+    Q, BQ, R = 64, 32, 256
+    jt, tt = _table(jnp, R, w, dtype)
+    idx = _script_streams(jnp, R, Q)[stream]
+    jdt = jnp.float32 if dtype == 'float32' else jnp.bfloat16
+    want = _bits(m.make_dma_gather(Q, BQ, w, 8, jdt)(jnp.asarray(idx), jt))
+    got = gp.row_gather_tma(tt, torch.from_numpy(idx), depth=8, bq=BQ)
+    got = got.view(torch.int16) if dtype == 'bfloat16' else got.numpy()
+    np.testing.assert_array_equal(_bits(got), want)
+
+
+def test_tool_streams_are_the_scripts(jnp):
+    """tools/gather_probe.py's index streams are the scripts' formulas."""
+    R, Q, K = 640, 96, 8
+    p = tool.Probe('cpu')
+    got = tool._streams(p, R, Q, ('random', 'sorted', 'coherent', 'ray'),
+                        extra=K)
+    want = _script_streams(jnp, R, Q + K)
+    for name in ('random', 'sorted', 'coherent', 'ray'):
+        np.testing.assert_array_equal(got[name].numpy(), want[name],
+                                      err_msg=name)
+
+
+# --------------------------------------------------------------------------
+# the probes inside the scripts' main(), against the scripts' references
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_row_gather_matches_take(jnp, dtype):
+    """`gk_tala`, `gk_col`, `gk_loop2` (row gathers) against the scripts'
+    reference `jnp.take(t, i, axis=0)`."""
+    R, W, Q = 300, 128, 1000
+    jt, tt = _table(jnp, R, W, dtype)
+    idx = _script_streams(jnp, R, Q)['random']
+    want = _bits(jnp.take(jt, jnp.asarray(idx), axis=0))
+    ti = torch.from_numpy(idx)
+    for got in (gp.row_gather(tt, ti), gp.row_gather_tma(tt, ti),
+                gp.row_gather_tma(tt, ti, depth=1, bq=64),
+                gp.row_gather_tma(tt, ti, depth=32, unroll=4, bq=100)):
+        got = got.view(torch.int16) if dtype == 'bfloat16' else got.numpy()
+        np.testing.assert_array_equal(_bits(got), want)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('broadcast', [True, False])
+def test_row_gather_per_lane_matches_take_along_axis(jnp, dtype,
+                                                     broadcast):
+    """`gk_full` (per-lane gather) against `jnp.take_along_axis`, with the
+    script's broadcast (Q, W) indices and with independent ones."""
+    R, W, Q = 200, 128, 512
+    jt, tt = _table(jnp, R, W, dtype)
+    rng = np.random.RandomState(3)
+    idx = (np.broadcast_to(rng.randint(0, R, (Q, 1)), (Q, W)) if broadcast
+           else rng.randint(0, R, (Q, W)))
+    idx = np.ascontiguousarray(idx, np.int32)
+    want = _bits(jnp.take_along_axis(jt, jnp.asarray(idx), axis=0))
+    got = gp.row_gather(tt, torch.from_numpy(idx))
+    got = got.view(torch.int16) if dtype == 'bfloat16' else got.numpy()
+    np.testing.assert_array_equal(_bits(got), want)
+
+
+def test_onehot_gather_matches_chunked_onehot_dot(jnp):
+    """`gk_onehot`: sum over RB-row chunks of jnp.dot(onehot_bf16, tab_bf16,
+    preferred_element_type=f32), as the script's kernel computes it; also
+    f32(bf16(tab))[idx]."""
+    R, W, Q, RB = 2 * gp.ONEHOT_RB, 128, 256, gp.ONEHOT_RB
+    jt, tt = _table(jnp, R, W, 'bfloat16')
+    idx = _script_streams(jnp, R, Q)['random']
+    ids = jnp.asarray(idx)[:, None]
+    want = jnp.zeros((Q, W), jnp.float32)
+    for j in range(R // RB):
+        oh = (jnp.arange(RB, dtype=jnp.int32)[None, :]
+              == ids - j * RB).astype(jnp.bfloat16)
+        want = want + jnp.dot(oh, jt[j * RB:(j + 1) * RB],
+                              preferred_element_type=jnp.float32)
+    want = np.asarray(want)
+    got = gp.onehot_gather_mma(tt, torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(
+        got, np.asarray(jt.astype(jnp.float32))[idx])
+
+
+@pytest.mark.parametrize('permuted', [False, True])
+def test_block_copy_matches_control(jnp, permuted):
+    """`k_static` (out = tab) and `k_dyn` (perf_r3_dma_control.py:77:
+    tab.reshape(R/B, B, W)[perm]) at the script's B = 512 rows."""
+    R, W, B = 4096, 128, 512
+    jt, tt = _table(jnp, R, W, 'float32')
+    perm = np.random.RandomState(1).permutation(R // B).astype(np.int32)
+    want = np.asarray(jt)
+    if permuted:
+        want = want.reshape(R // B, B, W)[perm].reshape(R, W)
+    got = gp.block_copy_tma(tt, B, torch.from_numpy(perm) if permuted
+                            else None)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize('smem_bytes', [48 * 1024, gp.SMEM_LIMIT])
+def test_capacity_probe_stages_row_zero(smem_bytes):
+    """The capacity probe's function: out[0] = x[0]."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(8, 128).astype(
+        np.float32))
+    got = gp.block_copy_tma(x[:1], 1, smem_bytes=smem_bytes)
+    np.testing.assert_array_equal(got[0].numpy(), x[0].numpy())
+
+
+@pytest.mark.parametrize('call,err', [
+    (lambda t, i: gp.row_gather(t, i + 300), IndexError),
+    (lambda t, i: gp.row_gather(t, i - 1000), IndexError),
+    (lambda t, i: gp.row_gather(t, i.long()), TypeError),
+    (lambda t, i: gp.row_gather(t[:, :3].contiguous(), i), ValueError),
+    (lambda t, i: gp.row_gather_tma(t, i, depth=6, unroll=4), ValueError),
+    (lambda t, i: gp.row_gather_tma(t, i[:, None]), ValueError),
+    (lambda t, i: gp.onehot_gather_mma(t, i), TypeError),
+    (lambda t, i: gp.block_copy_tma(t, 7), ValueError),
+    (lambda t, i: gp.block_copy_tma(t, 100, torch.tensor(
+        [0, 1, 3], dtype=torch.int32)), IndexError),
+])
+def test_wrappers_reject_what_the_kernels_do_not_take(call, err):
+    """Every wrapper checks its arguments on the CPU as on the card."""
+    tt = torch.zeros(300, 8)
+    idx = torch.arange(300, dtype=torch.int32)
+    with pytest.raises(err):
+        call(tt, idx)
+
+
+# --------------------------------------------------------------------------
+# the tool, end to end on the CPU
+
+@pytest.mark.parametrize('sub', sorted(tool.SUBCOMMANDS))
+def test_tool_runs_on_cpu(sub):
+    """`python -m vampire_tpu_torch.tools.gather_probe SUB --device cpu` at
+    a tiny size: every line parses, is labelled as the plain versions on
+    the CPU, holds no time and reports equality."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        recs = tool.main([sub, '--device', 'cpu', '--div', '2048'])
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == len(recs) > 0
+    for ln in lines:
+        rec = json.loads(ln)
+        assert rec['device'] == tool.CPU_LABEL
+        assert rec['probe'] == sub
+        assert not {'ms', 'plain_ms', 'library_ms', 'bound_ms',
+                    'method_ops_ms'} & set(rec)
+        assert rec.get('equal') is True or rec.get('refused') is False
+        assert rec['max_abs_err'] == 0.0
+
+
+def test_tool_scale_one_selects_pairs():
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        recs = tool.main(['scale', '--device', 'cpu', '--div', '4096',
+                          '--one', 'dmau8', 'coherent', '--one', 'copy',
+                          'permuted'])
+    got = [(r['variant'], r['stream'], r['W']) for r in recs]
+    assert got == [('dmau8', 'coherent', 256), ('copy', 'permuted', 256),
+                   ('dmau8', 'coherent', 176), ('copy', 'permuted', 176)]
+    assert recs[0]['depth'] == 8 and recs[0]['unroll'] == 4
+    with pytest.raises(SystemExit):
+        tool.main(['scale', '--device', 'cpu', '--one', 'copy', 'random'])
+
+
+def test_tool_bound_and_error():
+    """The bound is the larger of the bytes' time at 3.35 TB/s and the
+    operations' at 989 TFLOP/s; the error is max |a - b| across row chunks."""
+    ms, by = tool.bound_ms(3.35e9)
+    assert (ms, by) == (pytest.approx(1.0), 'bytes')
+    ms, by = tool.bound_ms(3.35e9, 2 * 989e9)
+    assert (ms, by) == (pytest.approx(2.0), 'operations')
+    a = torch.zeros((3 << 20) // 2, 2, dtype=torch.bfloat16)
+    b = a.clone()
+    b[-1, 1] = -0.5
+    assert tool.max_abs_err(a, b) == 0.5
+    assert tool.max_abs_err(a, a) == 0.0
+
+
+# --------------------------------------------------------------------------
+# on the card
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    return torch.device('cuda')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,W', [(torch.float32, 128),
+                                     (torch.bfloat16, 176)])
+def test_row_gathers_match_plain_on_gpu(dtype, W):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    tab = torch.randn((5000, W), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 5000, (20000,), generator=g, device=dev,
+                        dtype=torch.int32)
+    want = gp.row_gather_reference(tab, idx)
+    outs = [gp.row_gather(tab, idx)]
+    for depth, unroll in ((1, 1), (8, 1), (8, 4), (32, 4)):
+        outs.append(gp.row_gather_tma(tab, idx, depth=depth, unroll=unroll,
+                                      bq=1000))
+    torch.cuda.synchronize()
+    for got in outs:
+        assert tool.same_bits(got, want)
+    lanes = torch.randint(0, 5000, (3000, W), generator=g, device=dev,
+                          dtype=torch.int32)
+    assert tool.same_bits(gp.row_gather(tab, lanes),
+                      gp.row_gather_reference(tab, lanes))
+
+
+@pytest.mark.gpu
+def test_onehot_gather_matches_plain_on_gpu():
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    tab = torch.randn((3000, 128), generator=g, device=dev).to(
+        torch.bfloat16)
+    idx = torch.randint(0, 3000, (1000,), generator=g, device=dev,
+                        dtype=torch.int32)
+    got = gp.onehot_gather_mma(tab, idx)
+    torch.cuda.synchronize()
+    assert tool.same_bits(got, gp.onehot_gather_reference(tab, idx))
+    assert tool.same_bits(got, tab.float()[idx.long()])
+
+
+@pytest.mark.gpu
+def test_block_copy_and_capacity_probe_on_gpu():
+    """Static and permuted block copies match their plain version; the
+    capacity probe stages a row at 48 KB and 227 KB of shared memory, and
+    one byte more is refused: the wrapper raises."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    tab = torch.randn((4096, 128), generator=g, device=dev)
+    perm = torch.randperm(8, generator=g, device=dev).to(torch.int32)
+    for pm in (None, perm):
+        got = gp.block_copy_tma(tab, 512, pm, smem_bytes=64 * 1024)
+        torch.cuda.synchronize()
+        assert tool.same_bits(got, gp.block_copy_reference(tab, 512, pm))
+    for smem in (48 * 1024, gp.SMEM_LIMIT):
+        got = gp.block_copy_tma(tab[:1], 1, smem_bytes=smem)
+        torch.cuda.synchronize()
+        assert tool.same_bits(got, tab[:1])
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        gp.block_copy_tma(tab[:1], 1, smem_bytes=gp.SMEM_LIMIT + 1)
+    # the refusal leaves no error behind for the next launch
+    assert tool.same_bits(gp.block_copy_tma(tab[:1], 1), tab[:1])

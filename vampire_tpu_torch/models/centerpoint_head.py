@@ -106,8 +106,8 @@ def detection_loss(preds: List[Dict[str, torch.Tensor]],
     """Sum over tasks of the heatmap focal loss and the weighted L1 box
     loss, in fp32.
 
-    `targets` come from `vampire_tpu.ops.target_assign` (the jax-free
-    module `synthetic_batch` uses): heatmap_{t} (B, H, W, ncls_t),
+    `targets` come from `ops.target_assign` (the module
+    `synthetic_batch` uses): heatmap_{t} (B, H, W, ncls_t),
     anno_box_{t} (B, max_objs, 10), ind_{t} (B, max_objs) int (y*W + x),
     mask_{t} (B, max_objs). As in the JAX package, the focal loss divides by
     max(num_pos, num_devices) and the box loss by max(num_boxes,
@@ -146,7 +146,7 @@ def decode_preds(preds: List[Dict[str, torch.Tensor]], cfg: HeadConfig
                  ) -> List[Dict[str, torch.Tensor]]:
     """Top-k decode per task: per-task dicts of fixed-shape (B, max_num)
     tensors bboxes (., 9), scores, labels, valid. Circle NMS follows on the
-    host (`vampire_tpu.evaluation.det_evaluator.apply_circle_nms`)."""
+    host (`ops.nms.apply_circle_nms`)."""
     out = []
     K = cfg.max_num
     pcr = torch.tensor(cfg.post_center_range, dtype=torch.float32)

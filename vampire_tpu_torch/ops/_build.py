@@ -1,7 +1,9 @@
-"""Build the port's CUDA sources into plain-C shared libraries at first use.
+"""Build the port's native sources into plain-C shared libraries at first use.
 
-One `.cu` per library: `lift`, `corner_table`, `rays`. `build(names)`
-starts one nvcc per library not built yet, all together.
+One `.cu` per CUDA library: `lift`, `corner_table`, `rays`, `gather_probe`.
+`build(names)` starts one nvcc per library not built yet, all together.
+One `.cpp` per host library: `host_nms`, which `load_host_library` builds
+with the host C++ compiler (`c++`) on any machine.
 
 `nvcc` compiles `vampire_tpu_torch/csrc/<name>.cu` for `sm_90a` into
 `build/vampire_tpu_torch/<name>-<hash>.so` under the repository root; the
@@ -29,6 +31,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'vampire_tpu_torch')
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 NVCC_FLAGS = ('-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v') + ARCH_FLAGS
+# no FMA contraction: the host library computes as its numpy plain version
+CXX_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC', '-ffp-contract=off')
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,11 +53,10 @@ def find_nvcc() -> str:
     return found
 
 
-def _digest(sources: Sequence[str]) -> str:
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for s in sources:
-        with open(s, 'rb') as f:
-            h.update(f.read())
+def _digest(source: str, flags: Sequence[str]) -> str:
+    h = hashlib.sha256(' '.join(flags).encode())
+    with open(source, 'rb') as f:
+        h.update(f.read())
     return h.hexdigest()[:16]
 
 
@@ -67,7 +70,8 @@ def build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
             if name in _libs or name in jobs:
                 continue
             src = os.path.join(CSRC, f'{name}.cu')
-            path = os.path.join(BUILD_DIR, f'{name}-{_digest([src])}.so')
+            path = os.path.join(BUILD_DIR,
+                                f'{name}-{_digest(src, NVCC_FLAGS)}.so')
             BUILD_INFO[name] = dict(path=path, seconds=0.0, log='')
             if os.path.exists(path):
                 jobs[name] = None
@@ -102,3 +106,28 @@ def build(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu. Raises on any failure."""
     return build([name])[name]
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) with the host C++ compiler and load
+    csrc/<name>.cpp. Raises on any failure."""
+    with _lock:
+        if name in _libs:
+            return _libs[name]
+        src = os.path.join(CSRC, f'{name}.cpp')
+        path = os.path.join(BUILD_DIR, f'{name}-{_digest(src, CXX_FLAGS)}.so')
+        BUILD_INFO[name] = dict(path=path, seconds=0.0, log='')
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f'{path}.{os.getpid()}.tmp'
+            t0 = time.perf_counter()
+            proc = subprocess.run(['c++', *CXX_FLAGS, '-o', tmp, src],
+                                  capture_output=True, text=True)
+            BUILD_INFO[name].update(seconds=time.perf_counter() - t0,
+                                    log=proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f'c++ failed ({proc.returncode}) for '
+                                   f'{src}:\n{BUILD_INFO[name]["log"][-4000:]}')
+            os.replace(tmp, path)
+        _libs[name] = ctypes.CDLL(path)
+        return _libs[name]

@@ -1,0 +1,350 @@
+"""The row-gather and bulk-copy probes: four CUDA kernels and their plain
+versions.
+
+These replace the Pallas probe kernels of the JAX package's `scripts/`
+(perf_vmem_gather.py, perf_r3_gather_layouts.py, perf_r3_dma_control.py,
+perf_r3_dma_gather.py, perf_r3_dma_bisect.py, perf_r3_dma_sweep.py,
+perf_r4_dma_scale.py), which measured what a gather of table rows costs, the
+access pattern of the ray march. `tools/gather_probe.py` drives them at the
+scripts' shapes. Each kernel copies bits, so each matches its plain version
+bit for bit:
+
+  row_gather(tab, idx)          out[q] = tab[idx[q]], or per lane
+                                out[q, j] = tab[idx[q, j], j]
+  onehot_gather_mma(tab, idx)   sum_j onehot(idx - j*RB) @ tab_j in fp32 on
+                                the tensor cores = f32(bf16(tab))[idx]
+  block_copy_tma(tab, rows, perm, smem_bytes)
+                                block i of `rows` rows = tab block perm[i]
+                                (or i), through shared memory by bulk copies;
+                                with one row and S bytes of shared memory it
+                                is the capacity probe
+  row_gather_tma(tab, idx, depth, unroll, bq)
+                                out[q] = tab[idx[q]] by one bulk copy a row,
+                                `depth` in flight
+
+`csrc/gather_probe.cu` holds the kernels and says which TPU kernel each
+replaces, what bounds it and how it is built. On CPU tensors each wrapper
+checks its arguments and runs the plain version (`*_reference`). On a CUDA
+tensor it launches its kernel or raises, never falls back; `LAUNCHES`
+counts the launches per wrapper. `prepare` checks a wrapper's arguments
+once and returns its launch, for timing loops.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional
+
+import torch
+
+from . import _build
+
+# kernel launches per wrapper (incremented at each launch only)
+LAUNCHES = dict(row_gather=0, onehot_gather_mma=0, block_copy_tma=0,
+                row_gather_tma=0)
+# the dynamic shared memory one block may ask for on an H100 (227 KB)
+SMEM_LIMIT = 232448
+# the RB of scripts/perf_vmem_gather.py's one-hot gather: table rows per
+# one-hot product
+ONEHOT_RB = 2048
+
+_c = ctypes.c_void_p
+_ll = ctypes.c_longlong
+_i = ctypes.c_int
+_ARGTYPES = dict(
+    row_gather_rows=[_c, _c, _c, _ll, _i, _c],
+    row_gather_lanes=[_c, _c, _c, _ll, _i, _i, _c],
+    onehot_gather_mma=[_c, _c, _c, _ll, _i, _i, _c],
+    block_copy_tma=[_c, _c, _c, _ll, _ll, _i, _c],
+    row_gather_tma=[_c, _c, _c, _ll, _i, _i, _i, _i, _c],
+)
+
+
+def _kernel(symbol):
+    fn = getattr(_build.load_library('gather_probe'), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES[symbol]
+    return fn
+
+
+def _run(name, symbol, device, *args):
+    """Launch `symbol` on the current stream of `device`; raise on a CUDA
+    error of the launch; count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(symbol)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
+                           f'{err}')
+    LAUNCHES[name] += 1
+
+
+def _check_index(name: str, idx: torch.Tensor, n: int):
+    """Raise unless idx is int32 and every value lies in [0, n). On the
+    card this waits for one reduction."""
+    if idx.dtype != torch.int32:
+        raise TypeError(f'{name}: indices must be int32, got {idx.dtype}')
+    if idx.numel() == 0:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(idx))
+    if lo < 0 or hi >= n:
+        raise IndexError(f'{name}: indices span [{lo}, {hi}], outside '
+                         f'[0, {n})')
+
+
+def _check_device(name, *tensors):
+    dev = tensors[0].device
+    if dev.type not in ('cpu', 'cuda'):
+        raise NotImplementedError(f'{name}: no kernel for {dev}')
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f'{name}: tensors on {t.device} and {dev}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: every tensor must be contiguous')
+    return dev
+
+
+def _check_rows(name, tab):
+    """tab must be 2-D with rows of a multiple of 16 bytes, 16-byte aligned
+    (the kernels move rows in 16-byte pieces and bulk copies)."""
+    if tab.dim() != 2:
+        raise ValueError(f'{name}: the table must be (R, W), got '
+                         f'{tuple(tab.shape)}')
+    row_bytes = tab.shape[1] * tab.element_size()
+    if row_bytes % 16 != 0 or row_bytes == 0:
+        raise ValueError(f'{name}: rows of {row_bytes} B; the kernel takes '
+                         f'rows of a multiple of 16 B')
+    if tab.device.type == 'cuda' and tab.data_ptr() % 16 != 0:
+        raise ValueError(f'{name}: the table is not 16-byte aligned')
+    return row_bytes
+
+
+# ------------------------------------------------------------ row_gather
+
+def row_gather_reference(tab: torch.Tensor, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain version of `row_gather` (and of `row_gather_tma`): tab[idx]
+    for (Q,) indices, tab[idx[q, j], j] for (Q, W) ones."""
+    if idx.dim() == 1:
+        return tab[idx.long()]
+    cols = torch.arange(tab.shape[1], device=tab.device)
+    return tab[idx.long(), cols]
+
+
+def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of tab (R, W), any dtype, by int32 indices in [0, R).
+
+    idx (Q,): out (Q, W) = tab[idx]; the row must be a multiple of 16 bytes.
+    idx (Q, W): per lane, out[q, j] = tab[idx[q, j], j]; 2- or 4-byte
+    elements.
+    """
+    return _row_gather(tab, idx)()
+
+
+def _row_gather(tab, idx):
+    name = 'row_gather'
+    dev = _check_device(name, tab, idx)
+    if tab.dim() != 2:
+        raise ValueError(f'{name}: the table must be (R, W), got '
+                         f'{tuple(tab.shape)}')
+    R, W = tab.shape
+    lanes = idx.dim() == 2
+    if lanes:
+        if idx.shape[1] != W:
+            raise ValueError(f'{name}: per-lane indices {tuple(idx.shape)} '
+                             f'for a table of width {W}')
+        if tab.element_size() not in (2, 4):
+            raise TypeError(f'{name}: per lane the kernel takes 2- and '
+                            f'4-byte elements, got {tab.dtype}')
+    elif idx.dim() == 1:
+        row_bytes = _check_rows(name, tab)
+    else:
+        raise ValueError(f'{name}: indices must be (Q,) or (Q, W), got '
+                         f'{tuple(idx.shape)}')
+    _check_index(name, idx, R)
+    if dev.type == 'cpu':
+        return lambda: row_gather_reference(tab, idx)
+    Q = idx.shape[0]
+    if Q * W >= 2 ** 31 * 32:
+        raise ValueError(f'{name}: {Q} queries exceed one launch')
+
+    def launch():
+        out = torch.empty((Q, W), dtype=tab.dtype, device=dev)
+        if lanes:
+            _run(name, 'row_gather_lanes', dev, tab.data_ptr(),
+                 idx.data_ptr(), out.data_ptr(), Q, W, tab.element_size())
+        else:
+            _run(name, 'row_gather_rows', dev, tab.data_ptr(),
+                 idx.data_ptr(), out.data_ptr(), Q, row_bytes)
+        return out
+    return launch
+
+
+# ----------------------------------------------------- onehot_gather_mma
+
+def onehot_gather_reference(tab: torch.Tensor, idx: torch.Tensor,
+                            rb: int = ONEHOT_RB,
+                            q_chunk: int = 1 << 16) -> torch.Tensor:
+    """Plain version of `onehot_gather_mma`, written out as
+    scripts/perf_vmem_gather.py's `gk_onehot` computes it: per chunk j of
+    `rb` table rows, onehot(idx - j*rb) in bf16 times the chunk in bf16,
+    summed in fp32 (queries taken `q_chunk` at a time to bound the one-hot
+    block's memory). Each output has one nonzero product, so the result is
+    f32(bf16(tab))[idx] exactly."""
+    R, W = tab.shape
+    t16 = tab.to(torch.bfloat16)
+    out = torch.empty((idx.shape[0], W), dtype=torch.float32,
+                      device=tab.device)
+    for q0 in range(0, idx.shape[0], q_chunk):
+        ids = idx[q0:q0 + q_chunk].long()[:, None]
+        acc = torch.zeros((ids.shape[0], W), dtype=torch.float32,
+                          device=tab.device)
+        for j in range(0, R, rb):
+            n = min(rb, R - j)
+            iota = torch.arange(n, device=tab.device)
+            oh = (ids - j == iota).to(torch.bfloat16)
+            acc += torch.matmul(oh, t16[j:j + n]).float()
+        out[q0:q0 + q_chunk] = acc
+    return out
+
+
+def onehot_gather_mma(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """f32(tab)[idx] of a bf16 table (R, W), W a multiple of 8 up to 128,
+    computed as the one-hot product on the tensor cores: (Q, W) float32."""
+    return _onehot_gather_mma(tab, idx)()
+
+
+def _onehot_gather_mma(tab, idx):
+    name = 'onehot_gather_mma'
+    dev = _check_device(name, tab, idx)
+    if tab.dtype != torch.bfloat16 or tab.dim() != 2:
+        raise TypeError(f'{name}: the table must be (R, W) bfloat16, got '
+                        f'{tuple(tab.shape)} {tab.dtype}')
+    R, W = tab.shape
+    if W % 8 != 0 or not 0 < W <= 128:
+        raise ValueError(f'{name}: width {W}; the kernel takes multiples of '
+                         f'8 up to 128')
+    if idx.dim() != 1:
+        raise ValueError(f'{name}: indices must be (Q,), got '
+                         f'{tuple(idx.shape)}')
+    _check_index(name, idx, R)
+    if dev.type == 'cpu':
+        return lambda: onehot_gather_reference(tab, idx)
+    Q = idx.shape[0]
+    if Q >= 2 ** 31 or R >= 2 ** 31:
+        raise ValueError(f'{name}: {Q} queries or {R} rows exceed a launch')
+
+    def launch():
+        out = torch.empty((Q, W), dtype=torch.float32, device=dev)
+        _run(name, 'onehot_gather_mma', dev, tab.data_ptr(), idx.data_ptr(),
+             out.data_ptr(), Q, R, W)
+        return out
+    return launch
+
+
+# -------------------------------------------------------- block_copy_tma
+
+def block_copy_reference(tab: torch.Tensor, block_rows: int,
+                         perm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Plain version of `block_copy_tma`: tab's blocks of `block_rows` rows,
+    in order or permuted (scripts/perf_r3_dma_control.py:77)."""
+    blocks = tab.reshape(tab.shape[0] // block_rows, block_rows, -1)
+    if perm is not None:
+        blocks = blocks[perm.long()]
+    return blocks.reshape(tab.shape).clone()
+
+
+def block_copy_tma(tab: torch.Tensor, block_rows: int,
+                   perm: Optional[torch.Tensor] = None,
+                   smem_bytes: int = 48 * 1024) -> torch.Tensor:
+    """Copy tab (R, W) in blocks of `block_rows` rows (R a multiple of it),
+    block i from tab block perm[i] when `perm` (int32, a permutation of the
+    R / block_rows blocks) is given. On the card every chunk goes through
+    `smem_bytes` of dynamic shared memory (16 B of it hold the mbarrier);
+    more than `SMEM_LIMIT` is refused by the card and raises."""
+    return _block_copy_tma(tab, block_rows, perm, smem_bytes)()
+
+
+def _block_copy_tma(tab, block_rows, perm=None, smem_bytes=48 * 1024):
+    name = 'block_copy_tma'
+    tensors = (tab,) if perm is None else (tab, perm)
+    dev = _check_device(name, *tensors)
+    row_bytes = _check_rows(name, tab)
+    R = tab.shape[0]
+    if block_rows <= 0 or R % block_rows != 0:
+        raise ValueError(f'{name}: {R} rows are not whole blocks of '
+                         f'{block_rows}')
+    n_blocks = R // block_rows
+    if perm is not None:
+        if perm.shape != (n_blocks,):
+            raise ValueError(f'{name}: perm {tuple(perm.shape)} for '
+                             f'{n_blocks} blocks')
+        _check_index(name, perm, n_blocks)
+    if smem_bytes < 32:
+        raise ValueError(f'{name}: {smem_bytes} B of shared memory hold no '
+                         f'chunk')
+    if dev.type == 'cpu':
+        return lambda: block_copy_reference(tab, block_rows, perm)
+    block_bytes = block_rows * row_bytes
+    chunk = (smem_bytes - 16) & ~15
+    if n_blocks >= 2 ** 31 or -(-block_bytes // chunk) > 65535:
+        raise ValueError(f'{name}: {n_blocks} blocks of {block_bytes} B '
+                         f'exceed one launch')
+
+    def launch():
+        out = torch.empty_like(tab)
+        _run(name, 'block_copy_tma', dev, tab.data_ptr(), out.data_ptr(),
+             None if perm is None else perm.data_ptr(), n_blocks,
+             block_bytes, smem_bytes)
+        return out
+    return launch
+
+
+# -------------------------------------------------------- row_gather_tma
+
+def row_gather_tma(tab: torch.Tensor, idx: torch.Tensor, depth: int = 8,
+                   unroll: int = 1, bq: int = 2048) -> torch.Tensor:
+    """out[q] = tab[idx[q]] for a table (R, W) of any dtype whose rows are a
+    multiple of 16 bytes and int32 indices (Q,) in [0, R), by one bulk copy
+    per row: a block takes `bq` queries and keeps `depth` copies in flight,
+    issued `unroll` at a time (depth a multiple of unroll)."""
+    return _row_gather_tma(tab, idx, depth, unroll, bq)()
+
+
+def _row_gather_tma(tab, idx, depth=8, unroll=1, bq=2048):
+    name = 'row_gather_tma'
+    dev = _check_device(name, tab, idx)
+    row_bytes = _check_rows(name, tab)
+    if idx.dim() != 1:
+        raise ValueError(f'{name}: indices must be (Q,), got '
+                         f'{tuple(idx.shape)}')
+    if depth < 1 or unroll < 1 or depth % unroll != 0 or bq < 1:
+        raise ValueError(f'{name}: depth {depth}, unroll {unroll}, bq {bq}: '
+                         f'depth must be a positive multiple of unroll')
+    _check_index(name, idx, tab.shape[0])
+    if dev.type == 'cpu':
+        return lambda: row_gather_reference(tab, idx)
+    Q = idx.shape[0]
+    if -(-Q // bq) >= 2 ** 31:
+        raise ValueError(f'{name}: {Q} queries exceed one launch')
+
+    def launch():
+        out = torch.empty((Q, tab.shape[1]), dtype=tab.dtype, device=dev)
+        _run(name, 'row_gather_tma', dev, tab.data_ptr(), idx.data_ptr(),
+             out.data_ptr(), Q, row_bytes, depth, unroll, bq)
+        return out
+    return launch
+
+
+_PREPARE = dict(row_gather=_row_gather, onehot_gather_mma=_onehot_gather_mma,
+                block_copy_tma=_block_copy_tma,
+                row_gather_tma=_row_gather_tma)
+
+
+def prepare(name: str, *args, **kwargs) -> Callable[[], torch.Tensor]:
+    """Check the arguments of the wrapper `name` once, as the wrapper does,
+    and return a callable that launches its kernel on them (on CPU tensors:
+    runs the plain version) each time it is called, without checking again.
+    `tools/gather_probe.py` times these calls, so that a time is the
+    kernel's and not the index check's, which waits for the card."""
+    return _PREPARE[name](*args, **kwargs)

@@ -4,7 +4,8 @@ queue; the port of `InferenceServer` in `vampire_tpu/serving/server.py`.
 A dispatcher thread drains a request queue into micro-batches of at most
 `max_batch` frames; partial batches are padded by repeating the last sample
 and the padding rows are dropped on the way out. Detection boxes are
-decoded on the device and circle-NMSed on the host.
+decoded on the device and circle-NMSed on the host by the C++ library of
+`ops/nms.py` (a failed build of it raises).
 
 `outputs` selects the output groups as in the JAX server, with the same
 keys: None (the default, the full-render graph) or a selection that holds
@@ -23,11 +24,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from vampire_tpu.evaluation.det_evaluator import apply_circle_nms
-
 from ..configs import synthetic_batch
 from ..models.centerpoint_head import decode_preds
 from ..models.vampire import Vampire, init_params_
+from ..ops.nms import apply_circle_nms
 
 MATS_KEYS = ('sensor2ego', 'intrin', 'ida', 'bda')
 INPUT_KEYS = ('imgs',) + MATS_KEYS + ('points',)

@@ -7,7 +7,7 @@ Batch layout (channels-last, as the JAX package's data pipeline and
   bev_seg, bev_height, bev_mask (B, Y, X); points (B, P, 3),
   point_labels, point_valid (B, P); occ_semantics, occ_density_labels,
   mask_camera (B, 200, 200, 16); and the detection targets of
-  `vampire_tpu.ops.target_assign`.
+  `ops.target_assign`.
 """
 from __future__ import annotations
 
