@@ -55,7 +55,10 @@ nonzero without printing a result:
                bit for bit to its plain version, the capacity probe run at
                48 KB and 227 KB of shared memory and refused at one byte
                more, every kernel launched; each line carries its time,
-               plain time, library time and bound.
+               plain time, library time and bound. The kernels line shows
+               the two bulk-copy kernels at a second configuration too
+               (`also_at`): the dma sub-command's depth-8 gather of 2^16
+               rows (`k_s2`) and its 2 MB static copy (`k_static`).
 
 Every kernel line carries its bound: the bytes it must move (each input
 read once, each output written once; the rows the indices or rays touch,
@@ -1125,22 +1128,32 @@ def probe_phase(card):
     return recs, launched
 
 
-def probe_entry(recs, launched, name, sub, **match):
-    """The kernels-line entry of a probe kernel: its launches in the probe
-    phase and the numbers of the configuration that `match` picks."""
+def probe_numbers(recs, name, sub, **match):
+    """The measured numbers of the configuration of probe kernel `name`
+    that `match` picks in sub-command `sub`, and where it ran."""
     r = next(r for r in recs[sub] if r.get('kernel') == name
              and all(r.get(k) == v for k, v in match.items()))
+    out = {k: r[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                             'bound_by', 'library_ms', 'method_ops_ms')
+           if k in r}
+    out['at'] = ' '.join(f'{k}={r[k]}' for k in
+                         ('probe', 'tpu_kernel', 'R', 'W', 'dtype', 'Q',
+                          'stream', 'depth', 'unroll', 'blocks', 'tile_rows',
+                          'chunk_bytes') if k in r)
+    return out
+
+
+def probe_entry(recs, launched, name, sub, also=None, **match):
+    """The kernels-line entry of a probe kernel: its launches in the probe
+    phase and the numbers of the configuration that `match` picks; `also`
+    (sub-command, match) adds a second configuration's numbers under
+    `also_at`."""
     entry = dict(name=name, route='cuda',
                  source='vampire_tpu_torch/csrc/gather_probe.cu',
                  replaces=REPLACES[name], launches=launched[name],
-                 max_abs_err=r['max_abs_err'], ms=r['ms'],
-                 plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
-                 bound_by=r['bound_by'], library_ms=r['library_ms'],
-                 at=' '.join(f'{k}={r[k]}' for k in
-                             ('probe', 'tpu_kernel', 'R', 'W', 'dtype', 'Q',
-                              'stream', 'depth', 'unroll') if k in r))
-    if 'method_ops_ms' in r:
-        entry['method_ops_ms'] = r['method_ops_ms']
+                 **probe_numbers(recs, name, sub, **match))
+    if also is not None:
+        entry['also_at'] = probe_numbers(recs, name, also[0], **also[1])
     return entry
 
 
@@ -1271,9 +1284,11 @@ def main():
                     stream='random', W=176),
         probe_entry(probes, pl, 'onehot_gather_mma', 'vmem'),
         probe_entry(probes, pl, 'block_copy_tma', 'scale', variant='copy',
-                    stream='static', W=256),
+                    stream='static', W=256,
+                    also=('dma', dict(tpu_kernel='k_static'))),
         probe_entry(probes, pl, 'row_gather_tma', 'scale', variant='dma8',
-                    stream='random', W=176),
+                    stream='random', W=176,
+                    also=('dma', dict(tpu_kernel='k_s2'))),
     ], 'train_step_ms': train['step_ms'],
         'train_peak_gb': train['peak_gb']}), flush=True)
     print(card, flush=True)

@@ -21,7 +21,7 @@ import io
 import json
 import os
 import sys
-from contextlib import redirect_stdout
+from contextlib import nullcontext, redirect_stdout
 
 import numpy as np
 import pytest
@@ -122,7 +122,7 @@ def test_scale_script_dma_gather_interpret(interpret, jnp, depth, unroll,
     want = np.asarray(f(jnp.asarray(idx), jt))
     np.testing.assert_array_equal(want, np.asarray(jt)[idx])
     ti = torch.from_numpy(idx)
-    got = gp.row_gather_tma(tt, ti, depth=depth, unroll=unroll, bq=m.BQ)
+    got = gp.row_gather_tma(tt, ti, depth=depth, unroll=unroll)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(gp.row_gather(tt, ti).numpy(), want)
 
@@ -145,7 +145,7 @@ def test_scale_script_dma_gather_dtypes_interpret(interpret, jnp, dtype, w,
          m.make_dma_gather_unrolled(8, jdt, w, unroll=unroll))
     want = _bits(f(jnp.asarray(idx), jt))
     ti = torch.from_numpy(idx)
-    for got in (gp.row_gather_tma(tt, ti, depth=8, unroll=unroll, bq=m.BQ),
+    for got in (gp.row_gather_tma(tt, ti, depth=8, unroll=unroll),
                 gp.row_gather(tt, ti)):
         np.testing.assert_array_equal(_bits(got.view(torch.int16)
                                             if dtype == 'bfloat16'
@@ -164,7 +164,7 @@ def test_sweep_script_dma_gather_interpret(interpret, jnp, dtype, w,
     idx = _script_streams(jnp, R, Q)[stream]
     jdt = jnp.float32 if dtype == 'float32' else jnp.bfloat16
     want = _bits(m.make_dma_gather(Q, BQ, w, 8, jdt)(jnp.asarray(idx), jt))
-    got = gp.row_gather_tma(tt, torch.from_numpy(idx), depth=8, bq=BQ)
+    got = gp.row_gather_tma(tt, torch.from_numpy(idx), depth=8)
     got = got.view(torch.int16) if dtype == 'bfloat16' else got.numpy()
     np.testing.assert_array_equal(_bits(got), want)
 
@@ -194,8 +194,8 @@ def test_row_gather_matches_take(jnp, dtype):
     want = _bits(jnp.take(jt, jnp.asarray(idx), axis=0))
     ti = torch.from_numpy(idx)
     for got in (gp.row_gather(tt, ti), gp.row_gather_tma(tt, ti),
-                gp.row_gather_tma(tt, ti, depth=1, bq=64),
-                gp.row_gather_tma(tt, ti, depth=32, unroll=4, bq=100)):
+                gp.row_gather_tma(tt, ti, depth=1),
+                gp.row_gather_tma(tt, ti, depth=32, unroll=4)):
         got = got.view(torch.int16) if dtype == 'bfloat16' else got.numpy()
         np.testing.assert_array_equal(_bits(got), want)
 
@@ -270,6 +270,9 @@ def test_capacity_probe_stages_row_zero(smem_bytes):
     (lambda t, i: gp.row_gather(t[:, :3].contiguous(), i), ValueError),
     (lambda t, i: gp.row_gather_tma(t, i, depth=6, unroll=4), ValueError),
     (lambda t, i: gp.row_gather_tma(t, i[:, None]), ValueError),
+    (lambda t, i: gp.row_gather_tma(torch.zeros(300, 2048), i, depth=128),
+     ValueError),
+    (lambda t, i: gp.block_copy_tma(t, 100, smem_bytes=191), ValueError),
     (lambda t, i: gp.onehot_gather_mma(t, i), TypeError),
     (lambda t, i: gp.block_copy_tma(t, 7), ValueError),
     (lambda t, i: gp.block_copy_tma(t, 100, torch.tensor(
@@ -281,6 +284,114 @@ def test_wrappers_reject_what_the_kernels_do_not_take(call, err):
     idx = torch.arange(300, dtype=torch.int32)
     with pytest.raises(err):
         call(tt, idx)
+
+
+# --------------------------------------------------------------------------
+# the launch plans of the two bulk-copy kernels
+
+def _tma_rows_by_block(Q, plan):
+    """The queries each block of `row_gather_tma` writes, in the order the
+    kernel walks them: tiles b, b + blocks, ... of tile_rows queries."""
+    T, nb = plan['tile_rows'], plan['blocks']
+    return [[q for t in range(b, -(-Q // T), nb)
+             for q in range(t * T, min(Q, (t + 1) * T))] for b in range(nb)]
+
+
+@pytest.mark.parametrize('row_bytes', [16, 352, 512, 4096])
+@pytest.mark.parametrize('Q', [1, 31, 1000, 1 << 16])
+def test_row_gather_tma_plan_covers_every_query_once(row_bytes, Q):
+    for depth in (1, 8, 32):
+        plan = gp.row_gather_tma_plan(Q, row_bytes, depth)
+        rows = [q for b in _tma_rows_by_block(Q, plan) for q in b]
+        assert sorted(rows) == list(range(Q))
+        assert 1 <= plan['blocks'] <= plan['blocks_per_sm'] * gp.H100_SMS
+        assert plan['copies_in_flight'] == plan['blocks'] * depth
+
+
+@pytest.mark.parametrize('row_bytes', [16, 352, 512, 4096])
+@pytest.mark.parametrize('depth', [1, 4, 8, 16, 32])
+def test_row_gather_tma_plan_fits_shared_memory(row_bytes, depth):
+    """The ring holds the rows in flight and the tile being stored; the
+    mbarriers and the ring fit the block's shared memory."""
+    plan = gp.row_gather_tma_plan(1 << 20, row_bytes, depth)
+    T, ring = plan['tile_rows'], plan['ring_tiles']
+    assert T * row_bytes <= gp.TMA_TILE_BYTES or T == 1
+    assert (ring - 1) * T >= depth - 1 and ring >= 2
+    assert -(-8 * depth // 128) * 128 + ring * T * row_bytes \
+        == plan['smem_bytes'] <= gp.SMEM_LIMIT
+    assert plan['blocks_per_sm'] == min(
+        gp.MAX_BLOCKS_PER_SM,
+        gp.SM_SMEM // (plan['smem_bytes'] + gp.SMEM_RESERVED_PER_BLOCK))
+
+
+@pytest.mark.parametrize('row_bytes', [352, 512])
+def test_row_gather_tma_plan_fits_three_blocks_an_sm(row_bytes):
+    """At the corner table's 352 B rows and the scripts' 512 B rows, every
+    depth and unroll the tool runs leaves room for 3 blocks on an SM."""
+    for depth in (1, 4, 8, 16, 32):
+        plan = gp.row_gather_tma_plan(1 << 22, row_bytes, depth)
+        assert plan['blocks_per_sm'] >= 3
+        assert plan['blocks'] == 132 * plan['blocks_per_sm']
+
+
+@pytest.mark.parametrize('smem_bytes', [16 * 1024, 48 * 1024, gp.SMEM_LIMIT])
+@pytest.mark.parametrize('n_blocks,block_bytes', [(1, 512), (8, 262144),
+                                                   (5397, 131584),
+                                                   (7, 12256 * 3 + 16)])
+def test_block_copy_plan_covers_every_byte_once(smem_bytes, n_blocks,
+                                                block_bytes):
+    """The stages fit the shared memory; the chunks of a block cover it
+    once, the last one short; each (block, chunk) pair has one block."""
+    plan = gp.block_copy_plan(n_blocks, block_bytes, smem_bytes)
+    c = plan['chunk_bytes']
+    assert c % 16 == 0 and c >= 16
+    assert gp.COPY_BAR_BYTES + plan['stages'] * c <= smem_bytes
+    assert (plan['chunks'] - 1) * c < block_bytes <= plan['chunks'] * c
+    nb = plan['blocks']
+    pairs = n_blocks * plan['chunks']
+    walked = [p for b in range(nb) for p in range(b, pairs, nb)]
+    assert sorted(walked) == list(range(pairs))
+    assert nb <= plan['blocks_per_sm'] * gp.H100_SMS
+    assert plan['blocks_per_sm'] >= 1
+
+
+def test_shared_memory_is_allowed_once_and_a_refusal_is_not_kept(
+        monkeypatch):
+    """`_allow_smem` asks the card only for more than it allowed before; a
+    refused size raises each time it is asked for."""
+    calls = []
+
+    def allow(n):
+        calls.append(n)
+        return 1 if n > gp.SMEM_LIMIT else 0
+    monkeypatch.setattr(gp, '_kernel', lambda symbol: allow)
+    monkeypatch.setattr(gp, '_SMEM_ALLOWED', {})
+    monkeypatch.setattr(torch.cuda, 'device', lambda d: nullcontext())
+    dev = torch.device('cuda', 0)
+    for n in (64 * 1024, 48 * 1024, 64 * 1024, gp.SMEM_LIMIT):
+        gp._allow_smem('block_copy_tma', dev, 'block_copy_tma', n)
+    assert calls == [64 * 1024, gp.SMEM_LIMIT]
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match='CUDA error 1'):
+            gp._allow_smem('block_copy_tma', dev, 'block_copy_tma',
+                           gp.SMEM_LIMIT + 1)
+    assert calls[2:] == [gp.SMEM_LIMIT + 1] * 2
+    gp._allow_smem('row_gather_tma', dev, 'row_gather_tma', 1024)
+    assert calls[-1] == 1024
+    assert gp._SMEM_ALLOWED == {(0, 'block_copy_tma'): gp.SMEM_LIMIT,
+                                (0, 'row_gather_tma'): 1024}
+
+
+def test_prepared_launch_carries_its_plan():
+    """On CPU tensors the prepared launch runs the plain version and
+    carries the geometry an H100 would run."""
+    tab = torch.zeros(300, 88, dtype=torch.bfloat16)
+    idx = torch.arange(300, dtype=torch.int32)
+    call = gp.prepare('row_gather_tma', tab, idx, depth=8, unroll=4)
+    assert call.plan == gp.row_gather_tma_plan(300, 176, 8)
+    assert torch.equal(call(), tab)
+    call = gp.prepare('block_copy_tma', tab, 100, None, 64 * 1024)
+    assert call.plan == gp.block_copy_plan(3, 100 * 176, 64 * 1024)
 
 
 # --------------------------------------------------------------------------
@@ -345,25 +456,49 @@ def _cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype,W', [(torch.float32, 128),
-                                     (torch.bfloat16, 176)])
+                                     (torch.bfloat16, 176),
+                                     (torch.float32, 4),
+                                     (torch.float32, 1024)])
 def test_row_gathers_match_plain_on_gpu(dtype, W):
+    """Both row gathers, bit for bit, on f32 W128, bf16 W176 and 16 B and
+    4 KB rows; `row_gather_tma` at depths 1, 8 and 32 and unroll 1 and 4,
+    with ragged edges: Q not a multiple of the tile, Q < 32 and one row."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(0)
     tab = torch.randn((5000, W), generator=g, device=dev).to(dtype)
-    idx = torch.randint(0, 5000, (20000,), generator=g, device=dev,
-                        dtype=torch.int32)
-    want = gp.row_gather_reference(tab, idx)
-    outs = [gp.row_gather(tab, idx)]
-    for depth, unroll in ((1, 1), (8, 1), (8, 4), (32, 4)):
-        outs.append(gp.row_gather_tma(tab, idx, depth=depth, unroll=unroll,
-                                      bq=1000))
-    torch.cuda.synchronize()
-    for got in outs:
-        assert tool.same_bits(got, want)
+    # no tile of these widths (32, 46, 1024 or 4 rows) divides 19,993
+    for Q in (20000, 19993, 31, 1):
+        idx = torch.randint(0, 5000, (Q,), generator=g, device=dev,
+                            dtype=torch.int32)
+        want = gp.row_gather_reference(tab, idx)
+        assert tool.same_bits(gp.row_gather(tab, idx), want)
+        for depth, unroll in ((1, 1), (8, 1), (8, 4), (32, 1), (32, 4)):
+            got = gp.row_gather_tma(tab, idx, depth=depth, unroll=unroll)
+            torch.cuda.synchronize()
+            assert tool.same_bits(got, want), (Q, depth, unroll)
     lanes = torch.randint(0, 5000, (3000, W), generator=g, device=dev,
                           dtype=torch.int32)
     assert tool.same_bits(gp.row_gather(tab, lanes),
-                      gp.row_gather_reference(tab, lanes))
+                          gp.row_gather_reference(tab, lanes))
+
+
+@pytest.mark.gpu
+def test_bulk_copy_plans_match_the_cards_occupancy():
+    """The plans' blocks per SM are what the card reports for the same
+    dynamic shared memory, and its SMs are the H100's 132."""
+    dev = _cuda()
+    assert torch.cuda.get_device_properties(dev).multi_processor_count \
+        == gp.H100_SMS
+    flat = torch.zeros(4096 * 1024, device=dev)
+    idx = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+    for row_bytes, depth in ((512, 1), (512, 8), (352, 32), (4096, 32)):
+        t = flat[:4096 * row_bytes // 4].view(4096, row_bytes // 4)
+        got = gp.prepare('row_gather_tma', t, idx, depth=depth).plan
+        assert got == gp.row_gather_tma_plan(1 << 16, row_bytes, depth)
+    tab = flat[:4096 * 128].view(4096, 128)
+    for smem in (16 * 1024, 48 * 1024, gp.SMEM_LIMIT):
+        got = gp.prepare('block_copy_tma', tab, 512, None, smem).plan
+        assert got == gp.block_copy_plan(8, 512 * 512, smem)
 
 
 @pytest.mark.gpu
@@ -382,22 +517,36 @@ def test_onehot_gather_matches_plain_on_gpu():
 
 @pytest.mark.gpu
 def test_block_copy_and_capacity_probe_on_gpu():
-    """Static and permuted block copies match their plain version; the
-    capacity probe stages a row at 48 KB and 227 KB of shared memory, and
-    one byte more is refused: the wrapper raises."""
+    """Static and permuted block copies match their plain version, also
+    where the chunks do not divide a block; the capacity probe stages a row
+    at 48 KB and 227 KB of shared memory, and one byte more is refused: the
+    wrapper raises, and a launch after the refusal still works."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(2)
     tab = torch.randn((4096, 128), generator=g, device=dev)
     perm = torch.randperm(8, generator=g, device=dev).to(torch.int32)
     for pm in (None, perm):
-        got = gp.block_copy_tma(tab, 512, pm, smem_bytes=64 * 1024)
-        torch.cuda.synchronize()
-        assert tool.same_bits(got, gp.block_copy_reference(tab, 512, pm))
+        for smem in (64 * 1024, 48 * 1024 + 16 * 7):
+            # the 256 KB blocks are not whole chunks
+            assert (512 * 512) % gp.block_copy_plan(
+                8, 512 * 512, smem)['chunk_bytes']
+            got = gp.block_copy_tma(tab, 512, pm, smem_bytes=smem)
+            torch.cuda.synchronize()
+            assert tool.same_bits(got, gp.block_copy_reference(tab, 512, pm))
+    odd = tab[:4095 - 4095 % 13]
+    pm13 = torch.randperm(odd.shape[0] // 13, generator=g, device=dev).to(
+        torch.int32)
+    got = gp.block_copy_tma(odd, 13, pm13, smem_bytes=1024)
+    torch.cuda.synchronize()
+    assert tool.same_bits(got, gp.block_copy_reference(odd, 13, pm13))
     for smem in (48 * 1024, gp.SMEM_LIMIT):
         got = gp.block_copy_tma(tab[:1], 1, smem_bytes=smem)
         torch.cuda.synchronize()
         assert tool.same_bits(got, tab[:1])
-    with pytest.raises(RuntimeError, match='CUDA error'):
-        gp.block_copy_tma(tab[:1], 1, smem_bytes=gp.SMEM_LIMIT + 1)
-    # the refusal leaves no error behind for the next launch
-    assert tool.same_bits(gp.block_copy_tma(tab[:1], 1), tab[:1])
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match='CUDA error'):
+            gp.block_copy_tma(tab[:1], 1, smem_bytes=gp.SMEM_LIMIT + 1)
+        # the refusal leaves no error behind for the next launch
+        assert tool.same_bits(gp.block_copy_tma(tab[:1], 1), tab[:1])
+        assert tool.same_bits(
+            gp.block_copy_tma(tab[:1], 1, smem_bytes=gp.SMEM_LIMIT), tab[:1])

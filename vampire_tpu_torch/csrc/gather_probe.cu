@@ -43,38 +43,52 @@
 //    then shared -> global in a bulk group. Replaces
 //    scripts/perf_r3_dma_control.py:27 `k_static`, :56 `k_dyn` and the
 //    capacity probe of scripts/perf_vmem_gather.py:64. Bound: the table
-//    read once and written once. Design: one thread of one block per
-//    (block, chunk); a chunk is what fits the block's dynamic shared memory
-//    (a 512-row block of 512 B rows is 256 KB, more than a block may hold).
-//    The capacity probe is the same kernel asked for S bytes of dynamic
-//    shared memory, through which one row is staged: it runs for every S up
-//    to 232,448 B (227 KB), and above that the launch is refused, which
-//    the wrapper reports by raising.
+//    read once and written once; at 2 MB, and for the probe's one row, the
+//    launch, which the host issues. Design: as many blocks as fit on the
+//    card walk the (block, chunk) pairs; each block asks for `smem_bytes`
+//    of dynamic shared memory, a ring of 4 chunks after its mbarriers, so
+//    that loads run ahead of stores and a chunk is refilled once its store
+//    has read it (`cp.async.bulk.wait_group.read`). The capacity probe is
+//    the same kernel asked for S bytes, through which one row is staged: it
+//    runs for every S up to 232,448 B (227 KB), and above that the card
+//    refuses the shared memory, which the wrapper reports by raising. The
+//    wrapper allows a size once, not at every launch. On an NVIDIA H100
+//    80GB HBM3 at 700 W (tools/gather_probe.py): the 710 MB table in
+//    0.4906 ms static and 0.4942 ms permuted (copy_ 0.4714, index_select
+//    0.4880; one thread a (block, chunk), as before, 0.5133 and 0.5167);
+//    the 2 MB control copy and the one-row probe in 0.010-0.018 ms, which
+//    the host's ~13 us a launch sets.
 //
 // 4. row_gather_tma: out[q] = tab[idx[q]] by one bulk copy per row, with
-//    `depth` copies in flight. Replaces scripts/perf_r3_dma_gather.py:66
-//    `dma_kernel`, scripts/perf_r3_dma_bisect.py:79 `k_s1` (depth 1) and
-//    :96 `k_s2`, scripts/perf_r3_dma_sweep.py:41 and
-//    scripts/perf_r4_dma_scale.py:49 `make_dma_gather`, and :184
-//    `make_dma_gather_unrolled` (unroll > 1). Bound: as row_gather.
-//    Design: one warp per block of BQ queries. Lane 0 issues the copies,
-//    each into one of `depth` shared-memory slots with its own mbarrier
-//    (phase parity = use count & 1); the warp waits for a slot, writes its
-//    row out with 16-byte stores, and lane 0 refills the slot with the row
-//    `depth` queries ahead. The warp reads the indices 32 at a time with
-//    one coalesced load and shuffles each to lane 0, as the TPU kernels
-//    read theirs from SMEM. On an H100 80GB HBM3 at 700 W,
-//    tools/gather_probe.py measures ~0.45 us a row per warp whatever the
-//    depth (1 to 32), so with few blocks (Q = 2^16..2^20 at BQ = 2048 or
-//    4096) it loses to index_select; loading each index in lane 0 from
-//    device memory, as a first version did, cost only ~5 % of that. With unroll u it drains u slots and then
-//    issues u copies, as the unrolled TPU kernel does. Hopper's TMA has no
-//    row-gather mode, so per-row copies issued by one thread are the
-//    counterpart of the TPU's per-row DMAs.
+//    `depth` copies in flight a block. Replaces
+//    scripts/perf_r3_dma_gather.py:66 `dma_kernel`,
+//    scripts/perf_r3_dma_bisect.py:79 `k_s1` (depth 1) and :96 `k_s2`,
+//    scripts/perf_r3_dma_sweep.py:41 and scripts/perf_r4_dma_scale.py:49
+//    `make_dma_gather`, and :184 `make_dma_gather_unrolled` (unroll > 1).
+//    Bound: as row_gather. What bounded the first version, one warp per
+//    BQ queries, was its issuing thread: ~0.45 us of serial instructions a
+//    row (wait, copy out, fence, shuffle, issue), at every depth, with one
+//    such thread on each of 32..256 SMs. Design: the TPU kernels copied each
+//    row into its place in a VMEM output block that the pipeline wrote back;
+//    here each row lands at its place in a tile of 4 KB of consecutive
+//    output rows in shared memory, and one bulk store writes the full tile
+//    out (with an L2 evict-first policy, so that table rows read again
+//    stay in L2), so no thread reads a row and no proxy fence runs. One
+//    thread a block issues, with counters in place of divisions, and the
+//    grid holds as many blocks as fit on the card (9..26 an SM at the
+//    tool's widths): issuers are multiplied, not only copies in flight.
+//    Hopper's TMA has no row-gather mode, so per-row copies issued by one
+//    thread are the counterpart of the TPU's per-row DMAs. On an NVIDIA
+//    H100 80GB HBM3 at 700 W (tools/gather_probe.py): 2^16 rows in
+//    0.019-0.022 ms at depths 1 and 8 (index_select 0.043; the first
+//    design 0.93-0.99), 2^20 rows in 0.22-0.38 ms (0.63; 1.86-1.91), and
+//    the ray stage's 2^22 rows of 352 B in 1.2173 ms at depth 8 (2.5246;
+//    1.2761).
 //
-// These kernels are right and simple; none is tuned. Each entry point
-// returns the CUDA error of its launch (0 when it launched); the caller
-// owns every buffer.
+// The first two kernels are right and simple, not tuned; the last two were
+// redesigned for this card (PERF.md). Each entry point returns the
+// CUDA error of its launch (0 when it launched); the caller owns every
+// buffer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,19 +143,42 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
       : "memory");
 }
 
-// 1-D bulk copy shared -> global in a bulk group, committed and waited for.
-__device__ __forceinline__ void bulk_s2g_wait(void* dst, uint32_t src,
-                                              uint32_t bytes) {
+// 1-D bulk copy shared -> global, committed as one bulk group.
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src,
+                                         uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                ::"l"(dst), "r"(src), "r"(bytes)
                : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// generic-proxy accesses of shared memory before later async-proxy ones
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+// The same with an L2 policy for the lines written (from `createpolicy`).
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src,
+                                         uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0], [%1], %2, %3;\n" ::"l"(dst),
+      "r"(src), "r"(bytes), "l"(policy)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// An L2 policy that evicts the lines it covers first.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// Wait until at most one bulk group, the newest, still reads shared memory.
+__device__ __forceinline__ void bulk_wait_read_all_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+}
+
+// Wait until every bulk group has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ row_gather
@@ -270,93 +307,185 @@ __global__ void onehot_gather_mma_kernel(const uint16_t* __restrict__ tab,
 
 // -------------------------------------------------------- block_copy_tma
 
-// Block (blockIdx.x) of the output, chunk blockIdx.y: a one-thread block
-// stages it through the dynamic shared memory [mbarrier | 8 B pad | chunk].
+constexpr int kCopyStages = 4;    // chunks in flight per block
+constexpr int kBarBytes = 128;    // room for the mbarriers, ahead of the data
+
+// Persistent blocks walk the (block, chunk) pairs p = blockIdx.x,
+// blockIdx.x + gridDim.x, ...: pair p is bytes [c * chunk_bytes, ...) of
+// out block b = p / chunks (c = p % chunks), from tab block perm[b] (or b).
+// One thread keeps a ring of kCopyStages chunks in the dynamic shared memory
+// [mbarriers | stages]: the loads run ahead of the stores, and a stage is
+// refilled once the store that read it has finished reading.
 __global__ void block_copy_tma_kernel(const char* __restrict__ src,
                                       char* __restrict__ dst,
                                       const int* __restrict__ perm,
+                                      int64_t n_pairs, int64_t chunks,
                                       int64_t block_bytes, int chunk_bytes) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int64_t b = blockIdx.x;
-  const int64_t off = static_cast<int64_t>(blockIdx.y) * chunk_bytes;
-  const int64_t sb = perm ? perm[b] : b;
-  const int64_t left = block_bytes - off;
-  const uint32_t n = static_cast<uint32_t>(
-      left < chunk_bytes ? left : static_cast<int64_t>(chunk_bytes));
-  const uint32_t bar = smem_u32(smem);
-  const uint32_t buf = smem_u32(smem + 16);
-  mbar_init(bar, 1);
+  if (threadIdx.x != 0) return;
+  const int64_t first = blockIdx.x;
+  const int64_t step = gridDim.x;
+  if (first >= n_pairs) return;
+  const int64_t m = (n_pairs - 1 - first) / step + 1;  // this block's pairs
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const uint32_t stage0 = smem_u32(smem + kBarBytes);
+  for (int s = 0; s < kCopyStages; ++s) mbar_init(smem_u32(bars + s), 1);
   fence_mbar_init();
-  mbar_expect_tx(bar, n);
-  bulk_g2s(buf, src + sb * block_bytes + off, n, bar);
-  mbar_wait(bar, 0);
-  bulk_s2g_wait(dst + b * block_bytes + off, buf, n);
+
+  // pair k of this block: (out offset, tab offset, bytes)
+  auto pair = [&](int64_t k, int64_t* to, int64_t* from) {
+    const int64_t p = first + k * step;
+    const int64_t b = p / chunks;
+    const int64_t off = (p - b * chunks) * chunk_bytes;
+    *to = b * block_bytes + off;
+    *from = (perm ? static_cast<int64_t>(perm[b]) : b) * block_bytes + off;
+    const int64_t left = block_bytes - off;
+    return static_cast<uint32_t>(left < chunk_bytes ? left : chunk_bytes);
+  };
+  auto load = [&](int64_t k, int s) {
+    int64_t to, from;
+    const uint32_t n = pair(k, &to, &from);
+    const uint32_t bar = smem_u32(bars + s);
+    mbar_expect_tx(bar, n);
+    bulk_g2s(stage0 + s * chunk_bytes, src + from, n, bar);
+  };
+
+  for (int k = 0; k < kCopyStages && k < m; ++k) load(k, k);
+  int s = 0;
+  uint32_t parity = 0;
+  for (int64_t k = 0; k < m; ++k) {
+    mbar_wait(smem_u32(bars + s), parity);
+    int64_t to, from;
+    const uint32_t n = pair(k, &to, &from);
+    bulk_s2g(dst + to, stage0 + s * chunk_bytes, n);
+    // refill the stage of chunk k - 1, whose store has been issued before
+    // this one's
+    if (k >= 1 && k - 1 + kCopyStages < m) {
+      bulk_wait_read_all_but_one();
+      load(k - 1 + kCopyStages, s == 0 ? kCopyStages - 1 : s - 1);
+    }
+    if (++s == kCopyStages) {
+      s = 0;
+      parity ^= 1;
+    }
+  }
+  bulk_wait_all();
 }
 
 // -------------------------------------------------------- row_gather_tma
 
-// One warp per block of bq queries; dynamic shared memory holds `depth`
-// mbarriers (padded to 16 B) and then `depth` row slots.
+// Persistent blocks walk the tiles of tile_rows consecutive queries: tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... One thread issues, for row j of
+// the block (its tiles' rows in order), one bulk copy straight to the row's
+// place in a ring of ring_tiles tiles in the dynamic shared memory
+// [mbarriers | ring]. Rows go in groups of `unroll`: group g completes on
+// barrier g % (depth / unroll), and before issuing group g the thread waits
+// for group g - depth / unroll (drain u rows, then issue u; with unroll 1,
+// row j completes on barrier j % depth and row j - depth is waited for).
+// When the last row of a tile has arrived, one bulk store writes the tile
+// to out, where it is contiguous; a tile's place in the ring is refilled
+// once that store has read it (ring_tiles = 2 + ceil((depth - 1) /
+// tile_rows) makes that store one bulk group older than the newest). No
+// thread reads a row, so no proxy fence runs. The loop keeps counters and
+// divides nothing: the issuing thread's instructions per row bound a block
+// (PERF.md), so the grid fills the card with blocks.
 __global__ void row_gather_tma_kernel(const char* __restrict__ tab,
                                       const int* __restrict__ idx,
-                                      char* __restrict__ out, int64_t Q,
+                                      char* __restrict__ out, int Q,
                                       int row_bytes, int depth, int unroll,
-                                      int bq) {
+                                      int tile_rows, int ring_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
+  if (threadIdx.x != 0) return;
+  const int T = tile_rows;
+  const int n_tiles = (Q + T - 1) / T;
+  const int first = blockIdx.x;
+  if (first >= n_tiles) return;
+  const int my_tiles = (n_tiles - 1 - first) / gridDim.x + 1;
+  const int last_q0 = (first + (my_tiles - 1) * gridDim.x) * T;
+  const int n = (my_tiles - 1) * T + (Q - last_q0 < T ? Q - last_q0 : T);
+  const int64_t tile_step = static_cast<int64_t>(gridDim.x) * T;
+  const int n_bars = depth / unroll;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  unsigned char* slots = smem + ((depth * 8 + 15) & ~15);
-  const int lane = threadIdx.x;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * bq;
-  const int n = static_cast<int>(Q - base < bq ? Q - base : bq);
-  const int pieces = row_bytes / 16;
-  // the indices of the 32 rows from the one next issued (a multiple of 32),
-  // one a lane: read with one coalesced load, handed to lane 0 by a shuffle
-  int window = lane < n ? idx[base + lane] : 0;
+  const uint32_t ring = smem_u32(smem + ((depth * 8 + 127) & ~127));
+  const uint32_t ring_end = ring + ring_tiles * T * row_bytes;
+  for (int b = 0; b < n_bars; ++b) mbar_init(smem_u32(bars + b), 1);
+  fence_mbar_init();
+  // the output is written once and never read here: its lines leave L2
+  // first, so that table rows read again stay (PERF.md)
+  const uint64_t out_policy = l2_evict_first();
 
-  // Issue row j of the block into its slot; called by the whole warp for
-  // j = 0, 1, 2, ... in order (j < n).
-  auto issue = [&](int j) {
-    if (j % 32 == 0 && j > 0) window = j + lane < n ? idx[base + j + lane] : 0;
-    const int64_t row = __shfl_sync(0xffffffffu, window, j % 32);
-    if (lane == 0) {
-      const int s = j % depth;
-      const uint32_t bar = smem_u32(bars + s);
-      mbar_expect_tx(bar, row_bytes);
-      bulk_g2s(smem_u32(slots + static_cast<int64_t>(s) * row_bytes),
-               tab + row * row_bytes, row_bytes, bar);
+  // issue state: barrier, row in tile, tiles begun, address, query
+  int i_bar = 0, i_trow = 0, i_tiles = 0;
+  uint32_t i_dst = ring;
+  int64_t i_q = static_cast<int64_t>(first) * T;
+  // retire state: barrier and parity, rows arrived in the current tile, the
+  // tile's address, first query and rows, rows retired
+  int r_bar = 0, r_trow = 0, retired = 0;
+  uint32_t r_par = 0, r_tile = ring;
+  int64_t r_q0 = i_q;
+  int r_rows = Q - r_q0 < T ? static_cast<int>(Q - r_q0) : T;
+
+  // wait for the oldest group in flight; store the tiles it completes
+  auto retire_group = [&]() {
+    mbar_wait(smem_u32(bars + r_bar), r_par);
+    if (++r_bar == n_bars) {
+      r_bar = 0;
+      r_par ^= 1;
+    }
+    for (int r = 0; r < unroll && retired < n; ++r, ++retired) {
+      if (++r_trow == r_rows) {
+        bulk_s2g(out + r_q0 * row_bytes, r_tile,
+                 static_cast<uint32_t>(r_rows) * row_bytes, out_policy);
+        r_trow = 0;
+        r_tile += T * row_bytes;
+        if (r_tile == ring_end) r_tile = ring;
+        r_q0 += tile_step;
+        r_rows = Q - r_q0 < T ? static_cast<int>(Q - r_q0) : T;
+      }
     }
   };
 
-  if (lane == 0) {
-    for (int s = 0; s < depth; ++s) mbar_init(smem_u32(bars + s), 1);
-    fence_mbar_init();
-  }
-  __syncwarp();
-  for (int j = 0; j < depth && j < n; ++j) issue(j);
   for (int g0 = 0; g0 < n; g0 += unroll) {
-    const int g1 = (g0 + unroll < n) ? g0 + unroll : n;
-    for (int r = g0; r < g1; ++r) {
-      const int s = r % depth;
-      mbar_wait(smem_u32(bars + s), (r / depth) & 1);
-      const uint4* src = reinterpret_cast<const uint4*>(
-          slots + static_cast<int64_t>(s) * row_bytes);
-      uint4* dst = reinterpret_cast<uint4*>(out + (base + r) * row_bytes);
-      for (int c = lane; c < pieces; c += 32) dst[c] = src[c];
+    const int g1 = g0 + unroll < n ? g0 + unroll : n;
+    if (g0 >= depth) retire_group();
+    const uint32_t bar = smem_u32(bars + i_bar);
+    mbar_expect_tx(bar, static_cast<uint32_t>(g1 - g0) * row_bytes);
+    for (int j = g0; j < g1; ++j) {
+      if (i_trow == 0) {
+        if (i_tiles >= ring_tiles) bulk_wait_read_all_but_one();
+        ++i_tiles;
+      }
+      bulk_g2s(i_dst, tab + static_cast<int64_t>(__ldg(idx + i_q)) * row_bytes,
+               row_bytes, bar);
+      i_dst += row_bytes;
+      if (i_dst == ring_end) i_dst = ring;
+      if (++i_trow == T) {
+        i_trow = 0;
+        i_q += tile_step - T + 1;
+      } else {
+        ++i_q;
+      }
     }
-    fence_proxy_async();  // this lane's slot reads before the refills
-    __syncwarp();
-    for (int r = g0; r < g1 && r + depth < n; ++r) issue(r + depth);
+    if (++i_bar == n_bars) i_bar = 0;
   }
+  while (retired < n) retire_group();
+  bulk_wait_all();
 }
 
 int launch_error() { return static_cast<int>(cudaGetLastError()); }
 
-// Allow `bytes` of dynamic shared memory for `kernel`. A refusal is returned
-// and cleared, so that no later launch check of the process sees it.
+// Let `kernel` use `bytes` of dynamic shared memory, the SM's shared memory
+// carved out at its largest. A refusal is returned and cleared, so that no
+// later launch check of the process sees it.
 template <typename K>
 int allow_smem(K kernel, int bytes) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
   if (e != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(e);
@@ -364,8 +493,21 @@ int allow_smem(K kernel, int bytes) {
   return 0;
 }
 
-}  // namespace
+// The blocks of `threads` threads and `bytes` of dynamic shared memory that
+// fit on one SM, or minus the CUDA error of the query.
+template <typename K>
+int blocks_per_sm(K kernel, int threads, int bytes) {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kernel, threads, bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(e);
+  }
+  return n;
+}
 
+}  // namespace
 extern "C" int row_gather_rows(const void* tab, const void* idx, void* out,
                                long long Q, int row_bytes, void* stream) {
   const int pieces = row_bytes / 16;
@@ -412,32 +554,59 @@ extern "C" int onehot_gather_mma(const void* tab, const void* idx, void* out,
   return launch_error();
 }
 
+// The bulk-copy kernels take the dynamic shared memory they are allowed
+// (`*_allow_smem`, once per size, before the first launch) and a grid that
+// fills the card (`*_blocks_per_sm` x SMs); ops/gather_probe.py plans both.
+extern "C" int block_copy_tma_allow_smem(int bytes) {
+  return allow_smem(block_copy_tma_kernel, bytes);
+}
+
+extern "C" int block_copy_tma_blocks_per_sm(int bytes) {
+  return blocks_per_sm(block_copy_tma_kernel, 32, bytes);
+}
+
 extern "C" int block_copy_tma(const void* src, void* dst, const void* perm,
                               long long n_blocks, long long block_bytes,
-                              int smem_bytes, void* stream) {
-  const int chunk = (smem_bytes - 16) & ~15;
-  if (chunk < 16) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = allow_smem(block_copy_tma_kernel, smem_bytes);
-  if (err != 0) return err;
-  const dim3 grid(static_cast<unsigned>(n_blocks),
-                  static_cast<unsigned>((block_bytes + chunk - 1) / chunk));
-  block_copy_tma_kernel<<<grid, 1, smem_bytes,
+                              int chunk_bytes, int smem_bytes, int blocks,
+                              void* stream) {
+  if (chunk_bytes < 16 || chunk_bytes % 16 != 0 || blocks < 1 ||
+      kBarBytes + kCopyStages * chunk_bytes > smem_bytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t chunks = (block_bytes + chunk_bytes - 1) / chunk_bytes;
+  block_copy_tma_kernel<<<static_cast<unsigned>(blocks), 32, smem_bytes,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const char*>(src), static_cast<char*>(dst),
-      static_cast<const int*>(perm), block_bytes, chunk);
+      static_cast<const int*>(perm), n_blocks * chunks, chunks, block_bytes,
+      chunk_bytes);
   return launch_error();
+}
+
+extern "C" int row_gather_tma_allow_smem(int bytes) {
+  return allow_smem(row_gather_tma_kernel, bytes);
+}
+
+extern "C" int row_gather_tma_blocks_per_sm(int bytes) {
+  return blocks_per_sm(row_gather_tma_kernel, 32, bytes);
 }
 
 extern "C" int row_gather_tma(const void* tab, const void* idx, void* out,
                               long long Q, int row_bytes, int depth,
-                              int unroll, int bq, void* stream) {
-  const int smem = ((depth * 8 + 15) & ~15) + depth * row_bytes;
-  const int err = allow_smem(row_gather_tma_kernel, smem);
-  if (err != 0) return err;
-  const unsigned blocks = static_cast<unsigned>((Q + bq - 1) / bq);
-  row_gather_tma_kernel<<<blocks, 32, smem,
+                              int unroll, int tile_rows, int ring_tiles,
+                              int smem_bytes, int blocks, void* stream) {
+  const long long need = ((depth * 8 + 127) & ~127) +
+                         static_cast<long long>(ring_tiles) * tile_rows *
+                             row_bytes;
+  if (Q < 1 || Q >= (1LL << 31) || row_bytes % 16 != 0 || depth < 1 ||
+      unroll < 1 || depth % unroll != 0 || tile_rows < 1 || blocks < 1 ||
+      need > smem_bytes ||
+      static_cast<long long>(ring_tiles - 1) * tile_rows < depth - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  row_gather_tma_kernel<<<static_cast<unsigned>(blocks), 32, smem_bytes,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const char*>(tab), static_cast<const int*>(idx),
-      static_cast<char*>(out), Q, row_bytes, depth, unroll, bq);
+      static_cast<char*>(out), static_cast<int>(Q), row_bytes, depth, unroll,
+      tile_rows, ring_tiles);
   return launch_error();
 }

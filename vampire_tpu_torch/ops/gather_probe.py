@@ -18,16 +18,19 @@ bit for bit:
                                 (or i), through shared memory by bulk copies;
                                 with one row and S bytes of shared memory it
                                 is the capacity probe
-  row_gather_tma(tab, idx, depth, unroll, bq)
-                                out[q] = tab[idx[q]] by one bulk copy a row,
-                                `depth` in flight
+  row_gather_tma(tab, idx, depth, unroll)
+                                out[q] = tab[idx[q]] by one bulk copy a row
+                                into a shared-memory tile that one bulk store
+                                writes out, `depth` copies in flight a block
 
 `csrc/gather_probe.cu` holds the kernels and says which TPU kernel each
 replaces, what bounds it and how it is built. On CPU tensors each wrapper
 checks its arguments and runs the plain version (`*_reference`). On a CUDA
 tensor it launches its kernel or raises, never falls back; `LAUNCHES`
 counts the launches per wrapper. `prepare` checks a wrapper's arguments
-once and returns its launch, for timing loops.
+once and returns its launch, for timing loops. The two bulk-copy kernels
+launch as many blocks as fit on the card at once; `row_gather_tma_plan`
+and `block_copy_plan` compute their tiles, rings and grids.
 """
 from __future__ import annotations
 
@@ -54,28 +57,141 @@ _ARGTYPES = dict(
     row_gather_rows=[_c, _c, _c, _ll, _i, _c],
     row_gather_lanes=[_c, _c, _c, _ll, _i, _i, _c],
     onehot_gather_mma=[_c, _c, _c, _ll, _i, _i, _c],
-    block_copy_tma=[_c, _c, _c, _ll, _ll, _i, _c],
-    row_gather_tma=[_c, _c, _c, _ll, _i, _i, _i, _i, _c],
+    block_copy_tma=[_c, _c, _c, _ll, _ll, _i, _i, _i, _c],
+    block_copy_tma_allow_smem=[_i],
+    block_copy_tma_blocks_per_sm=[_i],
+    row_gather_tma=[_c, _c, _c, _ll, _i, _i, _i, _i, _i, _i, _i, _c],
+    row_gather_tma_allow_smem=[_i],
+    row_gather_tma_blocks_per_sm=[_i],
 )
+# the typed ctypes function of each symbol, made at its first use
+_FNS = {}
 
 
 def _kernel(symbol):
-    fn = getattr(_build.load_library('gather_probe'), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[symbol]
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load_library('gather_probe'), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[symbol]
+        _FNS[symbol] = fn
     return fn
 
 
 def _run(name, symbol, device, *args):
     """Launch `symbol` on the current stream of `device`; raise on a CUDA
-    error of the launch; count it."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    error of the launch; count it. The raw stream handle costs the host
+    0.13 us where `torch.cuda.current_stream` costs 6.6 on an H100's host
+    (PERF.md)."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
         err = _kernel(symbol)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = _kernel(symbol)(*args, stream)
     if err != 0:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{err}')
     LAUNCHES[name] += 1
+
+
+# ------------------------------------------ launch plans of the bulk copies
+
+# H100: shared memory of one SM, the part of it the card keeps per block,
+# resident blocks per SM at most, and SMs
+SM_SMEM = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+MAX_BLOCKS_PER_SM = 32
+H100_SMS = 132
+# row_gather_tma: output bytes a tile of consecutive rows aims at. Small
+# tiles leave room for more blocks, hence more issuing threads, on an SM:
+# 4 KB ran the tool's shapes 1.0-2.3x faster than 16 KB on an H100
+# (PERF.md)
+TMA_TILE_BYTES = 4 * 1024
+# block_copy_tma: chunks in flight per block, and the bytes ahead of them
+# that hold their mbarriers (csrc/gather_probe.cu kCopyStages, kBarBytes)
+COPY_STAGES = 4
+COPY_BAR_BYTES = 128
+
+# (device index, symbol) -> the most dynamic shared memory allowed so far
+_SMEM_ALLOWED = {}
+# (device index, symbol, bytes) -> blocks per SM, as the card reports them
+_PER_SM = {}
+
+
+def blocks_per_sm(smem_bytes: int) -> int:
+    """One-warp blocks with `smem_bytes` of dynamic shared memory that fit
+    on an H100 SM: the SM's 228 KB, less 1 KB per block, bound it."""
+    return min(MAX_BLOCKS_PER_SM,
+               SM_SMEM // (smem_bytes + SMEM_RESERVED_PER_BLOCK))
+
+
+def row_gather_tma_plan(Q: int, row_bytes: int, depth: int,
+                        sms: int = H100_SMS,
+                        per_sm: Optional[int] = None) -> dict:
+    """The launch of `row_gather_tma`: tiles of `tile_rows` consecutive
+    queries (TMA_TILE_BYTES of output, at least one row), a ring of
+    `ring_tiles` tiles per block (2 + ceil((depth - 1) / tile_rows): the
+    `depth` rows in flight and the tile being stored), the block's dynamic
+    shared memory (its `depth` mbarriers in 128 B steps, then the ring) and
+    as many blocks as fit on the card at once (`per_sm`, by default
+    `blocks_per_sm`, on `sms` SMs), no more than there are tiles.
+    `copies_in_flight` is blocks x depth."""
+    T = max(1, TMA_TILE_BYTES // row_bytes)
+    ring = 2 + -(-(depth - 1) // T)
+    smem = -(-8 * depth // 128) * 128 + ring * T * row_bytes
+    per_sm = blocks_per_sm(smem) if per_sm is None else per_sm
+    blocks = min(-(-Q // T), per_sm * sms)
+    return dict(tile_rows=T, ring_tiles=ring, smem_bytes=smem,
+                blocks_per_sm=per_sm, blocks=blocks,
+                copies_in_flight=blocks * depth)
+
+
+def block_copy_plan(n_blocks: int, block_bytes: int, smem_bytes: int,
+                    sms: int = H100_SMS,
+                    per_sm: Optional[int] = None) -> dict:
+    """The launch of `block_copy_tma`: `smem_bytes` of dynamic shared memory
+    hold COPY_STAGES chunks of `chunk_bytes` (a multiple of 16) after the
+    mbarriers; each block of the copy is `chunks` chunks, the last one
+    short; as many blocks as fit on the card at once walk the
+    n_blocks x chunks pairs."""
+    chunk = (smem_bytes - COPY_BAR_BYTES) // COPY_STAGES // 16 * 16
+    chunks = -(-block_bytes // chunk)
+    per_sm = blocks_per_sm(smem_bytes) if per_sm is None else per_sm
+    blocks = min(n_blocks * chunks, per_sm * sms)
+    return dict(stages=COPY_STAGES, chunk_bytes=chunk, chunks=chunks,
+                smem_bytes=smem_bytes, blocks_per_sm=per_sm, blocks=blocks)
+
+
+def _allow_smem(name, device, symbol, smem_bytes):
+    """Let `symbol`'s kernel take `smem_bytes` of dynamic shared memory on
+    `device`: set once, when more than allowed so far is asked; a refusal
+    raises, and is not remembered."""
+    key = (device.index, symbol)
+    if _SMEM_ALLOWED.get(key, 0) >= smem_bytes:
+        return
+    with torch.cuda.device(device):
+        err = _kernel(f'{symbol}_allow_smem')(smem_bytes)
+    if err != 0:
+        raise RuntimeError(f'{name}: {smem_bytes} B of shared memory refused '
+                           f'with CUDA error {err}')
+    _SMEM_ALLOWED[key] = smem_bytes
+
+
+def _card_plan(name, device, symbol, smem_bytes, plan, *args):
+    """`plan(*args, sms=, per_sm=)` with the card's SMs and its occupancy
+    for `smem_bytes`, after allowing that much shared memory."""
+    _allow_smem(name, device, symbol, smem_bytes)
+    key = (device.index, symbol, smem_bytes)
+    if key not in _PER_SM:
+        with torch.cuda.device(device):
+            n = _kernel(f'{symbol}_blocks_per_sm')(smem_bytes)
+        if n <= 0:
+            raise RuntimeError(f'{name}: no block of {smem_bytes} B of shared '
+                               f'memory fits an SM (CUDA error {-n})')
+        _PER_SM[key] = n
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return plan(*args, sms=sms, per_sm=_PER_SM[key])
 
 
 def _check_index(name: str, idx: torch.Tensor, n: int):
@@ -259,9 +375,10 @@ def block_copy_tma(tab: torch.Tensor, block_rows: int,
                    smem_bytes: int = 48 * 1024) -> torch.Tensor:
     """Copy tab (R, W) in blocks of `block_rows` rows (R a multiple of it),
     block i from tab block perm[i] when `perm` (int32, a permutation of the
-    R / block_rows blocks) is given. On the card every chunk goes through
-    `smem_bytes` of dynamic shared memory (16 B of it hold the mbarrier);
-    more than `SMEM_LIMIT` is refused by the card and raises."""
+    R / block_rows blocks) is given. On the card each block of the launch
+    asks for `smem_bytes` of dynamic shared memory and stages the copy
+    through it in COPY_STAGES chunks (`block_copy_plan`); more than
+    `SMEM_LIMIT` is refused by the card and raises."""
     return _block_copy_tma(tab, block_rows, perm, smem_bytes)()
 
 
@@ -280,59 +397,77 @@ def _block_copy_tma(tab, block_rows, perm=None, smem_bytes=48 * 1024):
             raise ValueError(f'{name}: perm {tuple(perm.shape)} for '
                              f'{n_blocks} blocks')
         _check_index(name, perm, n_blocks)
-    if smem_bytes < 32:
+    if smem_bytes < COPY_BAR_BYTES + 16 * COPY_STAGES:
         raise ValueError(f'{name}: {smem_bytes} B of shared memory hold no '
-                         f'chunk')
-    if dev.type == 'cpu':
-        return lambda: block_copy_reference(tab, block_rows, perm)
+                         f'{COPY_STAGES} chunks')
     block_bytes = block_rows * row_bytes
-    chunk = (smem_bytes - 16) & ~15
-    if n_blocks >= 2 ** 31 or -(-block_bytes // chunk) > 65535:
-        raise ValueError(f'{name}: {n_blocks} blocks of {block_bytes} B '
-                         f'exceed one launch')
+    if dev.type == 'cpu':
+        def launch():
+            return block_copy_reference(tab, block_rows, perm)
+        launch.plan = block_copy_plan(n_blocks, block_bytes, smem_bytes)
+        return launch
+    plan = _card_plan(name, dev, name, smem_bytes, block_copy_plan, n_blocks,
+                      block_bytes, smem_bytes)
 
     def launch():
         out = torch.empty_like(tab)
-        _run(name, 'block_copy_tma', dev, tab.data_ptr(), out.data_ptr(),
-             None if perm is None else perm.data_ptr(), n_blocks,
-             block_bytes, smem_bytes)
+        if out.numel():
+            _run(name, name, dev, tab.data_ptr(), out.data_ptr(),
+                 None if perm is None else perm.data_ptr(), n_blocks,
+                 block_bytes, plan['chunk_bytes'], smem_bytes, plan['blocks'])
         return out
+    launch.plan = plan
     return launch
 
 
 # -------------------------------------------------------- row_gather_tma
 
 def row_gather_tma(tab: torch.Tensor, idx: torch.Tensor, depth: int = 8,
-                   unroll: int = 1, bq: int = 2048) -> torch.Tensor:
+                   unroll: int = 1) -> torch.Tensor:
     """out[q] = tab[idx[q]] for a table (R, W) of any dtype whose rows are a
     multiple of 16 bytes and int32 indices (Q,) in [0, R), by one bulk copy
-    per row: a block takes `bq` queries and keeps `depth` copies in flight,
-    issued `unroll` at a time (depth a multiple of unroll)."""
-    return _row_gather_tma(tab, idx, depth, unroll, bq)()
+    per row into a shared-memory tile of consecutive rows that one bulk
+    store writes out (`row_gather_tma_plan`): each block keeps `depth`
+    copies in flight, issued `unroll` at a time (depth a multiple of
+    unroll)."""
+    return _row_gather_tma(tab, idx, depth, unroll)()
 
 
-def _row_gather_tma(tab, idx, depth=8, unroll=1, bq=2048):
+def _row_gather_tma(tab, idx, depth=8, unroll=1):
     name = 'row_gather_tma'
     dev = _check_device(name, tab, idx)
     row_bytes = _check_rows(name, tab)
     if idx.dim() != 1:
         raise ValueError(f'{name}: indices must be (Q,), got '
                          f'{tuple(idx.shape)}')
-    if depth < 1 or unroll < 1 or depth % unroll != 0 or bq < 1:
-        raise ValueError(f'{name}: depth {depth}, unroll {unroll}, bq {bq}: '
-                         f'depth must be a positive multiple of unroll')
+    if depth < 1 or unroll < 1 or depth % unroll != 0:
+        raise ValueError(f'{name}: depth {depth}, unroll {unroll}: depth '
+                         f'must be a positive multiple of unroll')
     _check_index(name, idx, tab.shape[0])
-    if dev.type == 'cpu':
-        return lambda: row_gather_reference(tab, idx)
     Q = idx.shape[0]
-    if -(-Q // bq) >= 2 ** 31:
+    if Q >= 2 ** 31:
         raise ValueError(f'{name}: {Q} queries exceed one launch')
+    plan = row_gather_tma_plan(Q, row_bytes, depth)
+    smem = plan['smem_bytes']
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'{name}: depth {depth} of {row_bytes} B rows needs '
+                         f'{smem} B of shared memory, more than a block has')
+    if dev.type == 'cpu':
+        def launch():
+            return row_gather_reference(tab, idx)
+        launch.plan = plan
+        return launch
+    plan = _card_plan(name, dev, name, smem, row_gather_tma_plan, Q,
+                      row_bytes, depth)
 
     def launch():
         out = torch.empty((Q, tab.shape[1]), dtype=tab.dtype, device=dev)
-        _run(name, 'row_gather_tma', dev, tab.data_ptr(), idx.data_ptr(),
-             out.data_ptr(), Q, row_bytes, depth, unroll, bq)
+        if Q:
+            _run(name, name, dev, tab.data_ptr(), idx.data_ptr(),
+                 out.data_ptr(), Q, row_bytes, depth, unroll,
+                 plan['tile_rows'], plan['ring_tiles'], smem, plan['blocks'])
         return out
+    launch.plan = plan
     return launch
 
 
@@ -346,5 +481,7 @@ def prepare(name: str, *args, **kwargs) -> Callable[[], torch.Tensor]:
     and return a callable that launches its kernel on them (on CPU tensors:
     runs the plain version) each time it is called, without checking again.
     `tools/gather_probe.py` times these calls, so that a time is the
-    kernel's and not the index check's, which waits for the card."""
+    kernel's and not the index check's, which waits for the card. For the
+    two bulk-copy kernels the callable's `plan` is the launch's geometry (on
+    CPU tensors, the one an H100 would run)."""
     return _PREPARE[name](*args, **kwargs)

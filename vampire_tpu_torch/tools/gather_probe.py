@@ -32,6 +32,19 @@ and index streams, through the four kernels of `ops/gather_probe.py`:
            as the script's unrolled kernel) and `copy` (block_copy_tma of
            the whole table in 257-row blocks; its streams are `static` and
            `permuted`). `--one VARIANT STREAM`, repeatable, runs only those.
+  launch   the host's microseconds per launch (`host_us`: n launches in a
+           row on the host clock, ended by a synchronize) of each wrapper at
+           the small shapes where the card may wait for the host, beside the
+           card's (`device_us`: the same launches queued behind a spinning
+           kernel, between CUDA events) and the tool's usual CUDA-event
+           time, which is the host's wherever the host is slower.
+
+The scripts' BQ (queries per TPU grid step) stays in each line as
+`script_bq`; `row_gather_tma` launches as many blocks as fit on the card
+(`ops/gather_probe.row_gather_tma_plan`), and its lines and
+`block_copy_tma`'s carry the geometry that ran: blocks, blocks per SM,
+tile rows, ring tiles and copies in flight (blocks x depth), or stages and
+chunk bytes.
 
 Every configuration prints one JSON line: the shapes, whether the kernel's
 output equals its plain version bit for bit (a mismatch raises), and on the
@@ -59,6 +72,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -82,6 +96,14 @@ GATHER_STREAMS = ('random', 'coherent')
 COPY_STREAMS = ('static', 'permuted')
 CAPACITY_BYTES = (16 * 1024, 48 * 1024, 96 * 1024, 160 * 1024,
                   gp.SMEM_LIMIT, gp.SMEM_LIMIT + 1)
+# the launch geometry each line of the two bulk-copy kernels carries
+GATHER_GEOMETRY = ('blocks', 'blocks_per_sm', 'tile_rows', 'ring_tiles',
+                   'copies_in_flight')
+COPY_GEOMETRY = ('blocks', 'blocks_per_sm', 'stages', 'chunk_bytes')
+LAUNCH_REPS = 200
+# clock cycles the card spins per queued call in `device_us`: 100 us at
+# 2 GHz, several times the host's cost of a launch
+SPIN_CYCLES_PER_CALL = 200_000
 
 
 def card_label() -> str:
@@ -200,15 +222,19 @@ class Probe:
     def gather(self, rec: dict, tab: torch.Tensor, windows, name='row_gather',
                **kw) -> dict:
         """A row gather (`row_gather` or `row_gather_tma` with `kw`) of tab
-        by each index window; bound: output + distinct rows + indices."""
+        by each index window; bound: output + distinct rows + indices.
+        `row_gather_tma`'s line also carries the launch's geometry."""
         row_bytes = tab.shape[1] * tab.element_size()
         Q = windows[0].shape[0]
         distinct = int(torch.unique(windows[0]).numel())
         rec.update(R=tab.shape[0], W=tab.shape[1],
                    dtype=str(tab.dtype).replace('torch.', ''), Q=Q,
                    distinct_rows=distinct, kernel=name, **kw)
+        kernel = [gp.prepare(name, tab, i, **kw) for i in windows]
+        if name == 'row_gather_tma':
+            rec.update({k: kernel[0].plan[k] for k in GATHER_GEOMETRY})
         return self.measure(
-            rec, [gp.prepare(name, tab, i, **kw) for i in windows],
+            rec, kernel,
             [lambda i=i: gp.row_gather_reference(tab, i) for i in windows],
             [lambda i=i: torch.index_select(tab, 0, i) for i in windows],
             (Q + distinct) * row_bytes + Q * 4, rows=Q)
@@ -219,7 +245,7 @@ class Probe:
         nb = tab.shape[0] // block_rows
         rec.update(R=tab.shape[0], W=tab.shape[1],
                    dtype=str(tab.dtype).replace('torch.', ''),
-                   block_rows=block_rows, blocks=nb,
+                   block_rows=block_rows, table_blocks=nb,
                    permuted=perm is not None, kernel='block_copy_tma')
         if perm is None:
             out = torch.empty_like(tab)
@@ -233,9 +259,11 @@ class Probe:
                 return torch.index_select(flat, 0, perm).view(tab.shape)
         n_bytes = 2 * tab.numel() * tab.element_size() + (
             0 if perm is None else perm.numel() * 4)
+        kernel = gp.prepare('block_copy_tma', tab, block_rows, perm,
+                            smem_bytes)
+        rec.update({k: kernel.plan[k] for k in COPY_GEOMETRY})
         return self.measure(
-            rec, [gp.prepare('block_copy_tma', tab, block_rows, perm,
-                             smem_bytes)] * K,
+            rec, [kernel] * K,
             [lambda: gp.block_copy_reference(tab, block_rows, perm)] * K,
             [library] * K, n_bytes)
 
@@ -335,15 +363,15 @@ def run_dma(p: Probe, one=None):
     Q = p.n(1 << 18)
     for stream, idx in _streams(p, R, Q, ('random', 'sorted')).items():
         p.gather(dict(probe='dma', script='scripts/perf_r3_dma_gather.py:66',
-                      tpu_kernel='dma_kernel', stream=stream), tab, [idx] * K,
-                 name='row_gather_tma', depth=8, unroll=1, bq=2048)
+                      tpu_kernel='dma_kernel', stream=stream, script_bq=2048),
+                 tab, [idx] * K, name='row_gather_tma', depth=8, unroll=1)
     Q = p.n(1 << 16)
     idx = _streams(p, R, Q, ('random',))['random']
     for tk, line, depth in (('k_s1', 79, 1), ('k_s2', 96, 8)):
         p.gather(dict(probe='dma', script=f'scripts/perf_r3_dma_bisect.py:'
-                      f'{line}', tpu_kernel=tk, stream='random'), tab,
-                 [idx] * K, name='row_gather_tma', depth=depth, unroll=1,
-                 bq=2048)
+                      f'{line}', tpu_kernel=tk, stream='random',
+                      script_bq=2048), tab, [idx] * K, name='row_gather_tma',
+                 depth=depth, unroll=1)
 
 
 def run_sweep(p: Probe, one=None):
@@ -355,9 +383,10 @@ def run_sweep(p: Probe, one=None):
             for stream, idx in streams.items():
                 p.gather(dict(probe='sweep',
                               script='scripts/perf_r3_dma_sweep.py:41',
-                              tpu_kernel='make_dma_gather', stream=stream),
+                              tpu_kernel='make_dma_gather', stream=stream,
+                              script_bq=4096),
                          tab, [idx] * K, name='row_gather_tma', depth=depth,
-                         unroll=1, bq=4096)
+                         unroll=1)
 
 
 def _largest_divisor(n: int, at_most: int) -> int:
@@ -410,13 +439,86 @@ def run_scale(p: Probe, one=None):
             rec.update(script='scripts/perf_r4_dma_scale.py:'
                        + ('184' if unroll > 1 else '49'),
                        tpu_kernel=('make_dma_gather_unrolled' if unroll > 1
-                                   else 'make_dma_gather'))
+                                   else 'make_dma_gather'),
+                       script_bq=SCALE_BQ)
             p.gather(rec, tab, windows, name='row_gather_tma', depth=depth,
-                     unroll=unroll, bq=SCALE_BQ)
+                     unroll=unroll)
+
+
+def host_us(call: Callable, n: int = LAUNCH_REPS) -> float:
+    """Host microseconds per call of `call` over n calls in a row, from the
+    first call to the synchronize after the last, after one warm-up call:
+    the launch cost that the host pays, or the kernel's time where that is
+    longer."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / n
+
+
+def device_us(call: Callable, n: int = LAUNCH_REPS) -> float:
+    """Device microseconds per call of `call`: the n calls wait in the
+    stream behind a kernel that keeps the card busy for longer than the host
+    takes to issue them (SPIN_CYCLES_PER_CALL each), so that CUDA events
+    around them time the card alone, without the host's gaps."""
+    call()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * n)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        call()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / n
+
+
+def run_launch(p: Probe, one=None):
+    """The host's and the card's cost per launch of each wrapper's prepared
+    launch at the small shapes where the card may wait for the host: the
+    capacity probe's one row, the 2 MB control copy, the bisect's gathers
+    (depths 1 and 8) and the vmem gathers at 2^16 queries; each output is
+    held to its plain version first. Uses only what every version of the
+    wrappers takes, so that it also times an older checkout's."""
+    x = p.table(4096, 128, torch.float32)
+    R = p.n(16384)
+    tab = p.table(R, 128, torch.float32)
+    idx = _streams(p, R, p.n(1 << 16), ('random',))['random']
+    t16 = tab.to(torch.bfloat16)
+    cases = (
+        ('block_copy_tma', 'one row, 48 KB', (x[:1], 1, None, 48 * 1024),
+         lambda: x[:1].clone()),
+        ('block_copy_tma', '2 MB, 512-row blocks', (x, 512, None),
+         lambda: x.clone()),
+        ('row_gather_tma', 'bisect k_s1, depth 1', (tab, idx, 1),
+         lambda: gp.row_gather_reference(tab, idx)),
+        ('row_gather_tma', 'bisect k_s2, depth 8', (tab, idx),
+         lambda: gp.row_gather_reference(tab, idx)),
+        ('row_gather', 'f32 W128', (tab, idx),
+         lambda: gp.row_gather_reference(tab, idx)),
+        ('onehot_gather_mma', 'bf16 W128', (t16, idx),
+         lambda: gp.onehot_gather_reference(t16, idx)))
+    for name, what, args, plain in cases:
+        rec = dict(probe='launch', kernel=name, what=what)
+        call = gp.prepare(name, *args)
+        got, want = call(), plain()
+        if not same_bits(got, want):
+            raise AssertionError(f'{rec}: the kernel disagrees with its plain '
+                                 f'version')
+        rec.update(equal=True, max_abs_err=max_abs_err(got, want))
+        if p.cuda:
+            rec['host_us'] = host_us(call)
+            rec['device_us'] = device_us(call)
+            rec['ms'] = time_ms([call] * K)
+        p.emit(rec)
 
 
 SUBCOMMANDS = dict(vmem=run_vmem, layouts=run_layouts, dma=run_dma,
-                   sweep=run_sweep, scale=run_scale)
+                   sweep=run_sweep, scale=run_scale, launch=run_launch)
 
 
 def main(argv=None) -> List[dict]:
