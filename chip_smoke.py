@@ -17,13 +17,16 @@ nonzero without printing a result:
                the lift (D=86, h=64, w=176, C=16, K=264, Q=1280; camera_rig
                geometry, torch.topk selection) in fp32 and bf16; the corner
                table of a (22, 20, 256, 256) field in fp32 and bf16, which
-               must be byte-identical; the ray sampler over 67,584 rays x 85
-               samples of camera_rig geometry through a bf16 table of a
-               synthetic field whose rays end partly opaque. Then the three
-               backward kernels: the lift's per camera in fp32 and bf16, the
-               corner table's from an fp32 and a bf16 (21, 257, 257, 176)
-               cotangent (byte-identical), and the rays' over the same
-               67,584 rays (d table and d beta).
+               must be byte-identical (the corner-table kernels left the
+               model's path; they are the port of the TPU table kernels and
+               are checked here only); the ray sampler over 67,584 rays x 85
+               samples of camera_rig geometry through the bf16 channels-last
+               field (voxel stride 24) of a synthetic field whose rays end
+               partly opaque. Then the three backward kernels: the lift's
+               per camera in fp32 and bf16, the corner table's from an fp32
+               and a bf16 (21, 257, 257, 176) cotangent (byte-identical),
+               and the rays' over the same 67,584 rays (d field and d
+               beta).
   4. slice   - InferenceServer(flagship_config(), device='cuda') in bf16 with
                seeded random weights (BN calibrated on one frame) serves 3
                full-width requests (6x256x704 images, 36,864 points) on each
@@ -33,7 +36,10 @@ nonzero without printing a result:
                NMS, the kernels' launch counts per request, and that
                request 0 matches the same forward with the plain versions
                of the kernels on the card; the renders also under a
-               density head that leaves the rays partly opaque.
+               density head that leaves the rays partly opaque. Per request
+               the full-render graph launches the lift 6 times and the rays
+               once, the corner table never; the metrics graph the lift
+               only.
   5. train   - Trainer(flagship_config(), device='cuda') in bf16 with seeded
                random weights. Under a density head that leaves the rays
                partly opaque, step 0's gradients through the kernels
@@ -42,7 +48,7 @@ nonzero without printing a result:
                in bf16 compute; then
                `fit` over a list loader of 3 full-width training batches
                for one epoch. Checks the launch counts per step (lift 6
-               forward and 6 backward, corner table and rays 1 and 1 each),
+               forward and 6 backward, rays 1 and 1, corner table 0 and 0),
                finite loss terms and grad_norm, every parameter with a
                gradient moved, the frozen stem bit-unchanged; then times
                more steps and reads the peak memory.
@@ -61,9 +67,12 @@ nonzero without printing a result:
                rows (`k_s2`) and its 2 MB static copy (`k_static`).
 
 Every kernel line carries its bound: the bytes it must move (each input
-read once, each output written once; the rows the indices or rays touch,
-not the whole table) at 3.35 TB/s (`tools/gather_probe.bound_ms`); their
-operations take less time at every shape here. The one-hot gather's
+read once, each output written once; the rows or field voxels the indices
+or rays touch, not the whole table or field) at 3.35 TB/s
+(`tools/gather_probe.bound_ms`); their operations take less time at every
+shape here. The ray kernels' lines also carry the bound of the same
+function read through the corner table (`table_bound_ms`), and their
+launch geometry (`plan`). The one-hot gather's
 function needs no arithmetic; its entry also gives `method_ops_ms`, the
 one-hot product's multiply-adds at the tensor cores' peak.
 
@@ -339,15 +348,16 @@ def ray_opacity(sdf, delta, bc, beta):
 
 def ray_field(bc, dev):
     """All rays of one frame (camera_rig geometry through get_geometry) and
-    a bf16 table of a synthetic fused field. The random-init field
+    the bf16 channels-last field of a synthetic fused field, made as the
+    model makes it (`ops.rays.channels_last_field`). The random-init field
     saturates every ray at its first sample (density bias sdf_bias - 10),
     so the sdf here is drawn around the density's knee instead, and the
     rays end partly opaque. Returns the sampler's arguments."""
     import torch
     from vampire_tpu_torch.configs import camera_rig
     from vampire_tpu_torch.core import geometry as G
-    from vampire_tpu_torch.core import sampling as S
     from vampire_tpu_torch.models.field import ray_inputs
+    from vampire_tpu_torch.ops import rays
 
     dev = torch.device(dev)
     rig = {k: torch.from_numpy(v).to(dev)
@@ -367,36 +377,47 @@ def ray_field(bc, dev):
     seg = torch.randn((K,) + vol_shape, device=dev, generator=g)
     rgb = torch.rand((3,) + vol_shape, device=dev, generator=g)
     vol = torch.cat([sdf, seg, rgb]).to(torch.bfloat16)
-    table = S.build_neighborhood_table(vol)
+    field = rays.channels_last_field(vol)
     beta = torch.tensor(0.1, device=dev)
 
     opacity, partial = ray_opacity(sdf_along_rays(vol[:1], coords, valid),
                                    delta, bc, beta)
     q = torch.quantile(opacity, torch.tensor([0.05, 0.5, 0.95], device=dev))
-    say(f'rays: {Rn} rays x {Sn} samples, table {tuple(table.shape)} bf16; '
-        f'valid samples {valid.mean().item():.3f}; ray opacity p5/p50/p95 '
+    say(f'rays: {Rn} rays x {Sn} samples, field {tuple(field.shape)} bf16 '
+        f'at stride {field.stride(2)}; valid samples '
+        f'{valid.mean().item():.3f}; ray opacity p5/p50/p95 '
         f'{q[0].item():.3f}/{q[1].item():.3f}/{q[2].item():.3f}, '
         f'{partial:.3f} of rays in (0.05, 0.95)')
     if partial < RAY_PARTIAL_MIN:
         raise AssertionError(f'only {partial:.3f} of the rays end partly '
                              f'opaque; the check would be degenerate')
-    return (table, vol_shape, coords, valid, delta, mids, bc.d_bound[1],
+    return (field, coords, valid, delta, mids, bc.d_bound[1],
             bc.density_mode, beta, bc.sdf_bias)
 
 
-def ray_rows_bytes(args):
-    """The bytes of the distinct table rows that the valid samples of
-    `ray_field`'s rays read (each row once)."""
+def ray_read_bytes(args):
+    """What the valid samples of `ray_field`'s rays read, each once: the
+    distinct field voxels of nonzero weight (C channels each) and, for
+    comparison, the distinct rows of the field's corner table (8 C
+    channels each). Returns (voxels, their bytes, rows, their bytes)."""
     import torch
-    from vampire_tpu_torch.core.sampling import corner_rows_weights
-    table, vol_shape, coords, valid = args[:4]
-    D, H, W = vol_shape
-    row_bytes = (table.numel() // ((D + 1) * (H + 1) * (W + 1))
-                 * table.element_size())
-    rows, _ = corner_rows_weights(coords.reshape(-1, 3), vol_shape, True,
-                                  False)
-    n = torch.unique(rows[valid.reshape(-1) > 0]).numel()
-    return n, n * row_bytes
+    from vampire_tpu_torch.core import sampling as S
+    field, coords, valid = args[:3]
+    D, H, W, C = field.shape
+    c = coords.reshape(-1, 3)[valid.reshape(-1) > 0]
+    vox, _, w8 = S.field_corners(c, (D, H, W))
+    n_vox = torch.unique(vox[w8 != 0]).numel()
+    rows, _ = S.corner_rows_weights(c, (D, H, W), True, False)
+    n_rows = torch.unique(rows).numel()
+    size = field.element_size()
+    return n_vox, n_vox * C * size, n_rows, n_rows * 8 * C * size
+
+
+def ray_plan(args, backward):
+    """The ray kernel's launch on `ray_field`'s field (`ops.rays.plan`)."""
+    from vampire_tpu_torch.ops import rays
+    field = args[0]
+    return rays.plan(field.dtype, field.shape[3], backward)
 
 
 def ray_check(card, bc, dev, args):
@@ -407,7 +428,7 @@ def ray_check(card, bc, dev, args):
 
     K = bc.num_classes
     got = rays.sample_and_composite_rays(*args)
-    want = R.sample_and_composite_rays_reference(*args)
+    want = R.sample_and_composite_rays_field_reference(*args)
     torch.cuda.synchronize()
     result = dict(max_abs_err=0.0)
     for name, sl in (('rgb', slice(0, 3)), ('seg', slice(3, K + 3)),
@@ -428,14 +449,18 @@ def ray_check(card, bc, dev, args):
                              'bounds')
     result['ms'] = cuda_ms(lambda: rays.sample_and_composite_rays(*args), 20)
     result['plain_ms'] = cuda_ms(
-        lambda: R.sample_and_composite_rays_reference(*args), 5)
-    # the rows the valid samples read, the ray geometry and the output
-    n_rows, row_bytes = ray_rows_bytes(args)
-    result['bound_ms'] = hbm_ms(row_bytes, *args[2:6], got)
+        lambda: R.sample_and_composite_rays_field_reference(*args), 5)
+    # the voxels the valid samples read, the ray geometry and the output;
+    # beside it the same through the corner table's rows
+    n_vox, vox_bytes, n_rows, row_bytes = ray_read_bytes(args)
+    result['bound_ms'] = hbm_ms(vox_bytes, *args[1:5], got)
+    result['table_bound_ms'] = hbm_ms(row_bytes, *args[1:5], got)
+    result['plan'] = ray_plan(args, False)
     say(f'rays bf16: kernel {result["ms"]:.4f} ms, plain '
         f'{result["plain_ms"]:.4f} ms per frame, bound '
-        f'{result["bound_ms"]:.4f} ms ({n_rows} distinct table rows read) '
-        f'[{card}]')
+        f'{result["bound_ms"]:.4f} ms ({n_vox} distinct field voxels read; '
+        f'through the table {result["table_bound_ms"]:.4f} ms, {n_rows} '
+        f'rows); launch {result["plan"]} [{card}]')
     return result
 
 
@@ -532,7 +557,7 @@ def table_bwd_check(card, bc, dev):
 
 def ray_bwd_check(card, bc, dev, args):
     """The ray backward kernel against its plain version on `ray_field`,
-    from a random d out over all rays: d table and d beta."""
+    from a random d out over all rays: d field and d beta."""
     import torch
     from vampire_tpu_torch.core import rendering as R
     from vampire_tpu_torch.ops import rays
@@ -542,12 +567,18 @@ def ray_bwd_check(card, bc, dev, args):
     g = torch.randn(out.shape, device=out.device, generator=gen)
     g[:, -1] *= 0.05               # depth is ~30x the other outputs
     got = rays.sample_and_composite_rays_backward(*args, out, g)
-    want = R.sample_and_composite_rays_backward_reference(*args, g)
+    want = R.sample_and_composite_rays_field_backward_reference(*args, g)
     torch.cuda.synchronize()
-    err = check_grad('rays_bwd d table', got[0], want[0], BWD_RTOL)
-    # the rows the valid samples read, the geometry, out and g_out, and the
-    # whole fp32 d table and d beta written
-    bound = hbm_ms(ray_rows_bytes(args)[1], *args[2:6], out, g, *got)
+    err = check_grad('rays_bwd d field', got[0], want[0], BWD_RTOL)
+    # the voxels the valid samples read, the geometry, out and g_out, and
+    # the whole fp32 d field (C channels a voxel) and d beta written; beside
+    # it the same through the table: its rows, and the whole fp32 d table
+    field = args[0]
+    D, H, W, C = field.shape
+    _, vox_bytes, _, row_bytes = ray_read_bytes(args)
+    bound = hbm_ms(vox_bytes, *args[1:5], out, g, D * H * W * C * 4, 4)
+    table_bound = hbm_ms(row_bytes, *args[1:5], out, g,
+                         (D + 1) * (H + 1) * (W + 1) * 8 * C * 4, 4)
     b_err = abs(got[1].item() - want[1].item())
     say(f'rays_bwd d beta: {got[1].item():.6e} vs plain '
         f'{want[1].item():.6e}, rel err {b_err / abs(want[1].item()):.3e} '
@@ -558,11 +589,15 @@ def ray_bwd_check(card, bc, dev, args):
     del got, want
     ms = cuda_ms(lambda: rays.sample_and_composite_rays_backward(
         *args, out, g), 10)
-    plain = cuda_ms(lambda: R.sample_and_composite_rays_backward_reference(
-        *args, g), 3)
+    plain = cuda_ms(
+        lambda: R.sample_and_composite_rays_field_backward_reference(
+            *args, g), 3)
+    plan = ray_plan(args, True)
     say(f'rays_bwd bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms per frame, '
-        f'bound {bound:.4f} ms [{card}]')
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound)
+        f'bound {bound:.4f} ms (through the table {table_bound:.4f} ms); '
+        f'launch {plan} [{card}]')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                table_bound_ms=table_bound, plan=plan)
 
 
 def kernel_phase(card, bc=None, dev='cuda'):
@@ -833,13 +868,13 @@ def slice_phase(card, cfg=None, dev='cuda'):
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
 
-    # the full-render graph: one corner table and one ray launch per frame
+    # the full-render graph: one ray launch per frame, no corner table
     server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
                              outputs=None, seed=0)
     outs, launched['full'] = serve_path(card, server, calib, samples,
                                         'full-render')
     check_launches('full-render', launched['full'],
-                   dict(lift=N, corner_table=1, rays=1))
+                   dict(lift=N, corner_table=0, rays=1))
     check_outputs('full-render', outs,
                   dict(metric, depth_preds=(N, H, W), seg_preds=(N, H, W),
                        bev_seg=(Yd, Xd)), cfg)
@@ -850,17 +885,16 @@ def slice_phase(card, cfg=None, dev='cuda'):
 
 @contextlib.contextmanager
 def plain_backwards():
-    """The three backward wrappers swapped for their plain versions while
-    the forward kernels stay: the model's `plain` switches both."""
+    """The two backward wrappers of the model's path swapped for their
+    plain versions while the forward kernels stay: the model's `plain`
+    switches both."""
     from vampire_tpu_torch.core import rendering as R
-    from vampire_tpu_torch.ops import lift, rays, tables
+    from vampire_tpu_torch.ops import lift, rays
 
     def rays_ref(*args):            # the plain version takes no saved `out`
-        return R.sample_and_composite_rays_backward_reference(*args[:-2],
-                                                              args[-1])
+        return R.sample_and_composite_rays_field_backward_reference(
+            *args[:-2], args[-1])
     swaps = ((lift, 'lift_backward', lift.lift_backward_reference),
-             (tables, 'corner_table_backward',
-              tables.corner_table_backward_reference),
              (rays, 'sample_and_composite_rays_backward', rays_ref))
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     try:
@@ -1034,8 +1068,8 @@ def train_phase(card, cfg=None, dev='cuda'):
     say(f'train: fit over {N_TRAIN_BATCHES} steps in {fit_s:.2f} s (host '
         f'clock, incl. the epoch report and checkpoint); kernel launches '
         f'{launched}')
-    want = dict(lift=6, corner_table=1, rays=1, lift_bwd=6,
-                corner_table_bwd=1, rays_bwd=1)
+    want = dict(lift=6, corner_table=0, rays=1, lift_bwd=6,
+                corner_table_bwd=0, rays_bwd=1)
     want = {k: n * N_TRAIN_BATCHES for k, n in want.items()}
     if launched != want:
         raise AssertionError(f'train: kernel launches {launched}, want '
@@ -1194,7 +1228,8 @@ def main():
         raise AssertionError(f'the port imported {leaked}')
     csrc = 'vampire_tpu_torch/csrc'
     # library_ms None: no single PyTorch call computes the lift, the corner
-    # table, the rays or their backwards
+    # table, the rays or their backwards. The corner-table pair is off the
+    # model's path (0 launches there) and checked in the kernel phase only.
     print(json.dumps({'kernels': [{
         'name': 'lift_accumulate',
         'route': 'cuda',
@@ -1239,6 +1274,8 @@ def main():
         'bound_ms': k['rays']['bound_ms'],
         'bound_by': 'bytes',
         'library_ms': None,
+        'table_bound_ms': k['rays']['table_bound_ms'],
+        'plan': k['rays']['plan'],
     }, {
         'name': 'lift_backward',
         'route': 'cuda',
@@ -1279,6 +1316,8 @@ def main():
         'bound_ms': k['rays_bwd']['bound_ms'],
         'bound_by': 'bytes',
         'library_ms': None,
+        'table_bound_ms': k['rays_bwd']['table_bound_ms'],
+        'plan': k['rays_bwd']['plan'],
     },
         probe_entry(probes, pl, 'row_gather', 'scale', variant='rows',
                     stream='random', W=176),

@@ -5,8 +5,9 @@ statistics, BN affine parameters and biases are then randomised from numpy
 (fresh statistics are mean 0 / var 1 and would hide a BN mapping bug), the
 weights are carried across with `weights.from_flax`, and every output of
 `apply(..., camera_renders=False)` (the metrics graph) and of
-`apply(..., camera_renders=True)` (the full-render graph, with the corner
-table and the camera rays) plus the decoded boxes are compared on the same
+`apply(..., camera_renders=True)` (the full-render graph, with the camera
+rays: through the corner table in JAX, through the channels-last field in
+the port) plus the decoded boxes are compared on the same
 synthetic batch. Both sides run in fp32 on the CPU.
 """
 import jax
@@ -146,7 +147,8 @@ def test_field_output_matches_jax(both, key):
 @pytest.mark.parametrize('key', ALL_KEYS)
 def test_full_render_output_matches_jax(full, key):
     """All 12 outputs of the full-render graph. The points and the three
-    camera renders are sampled from the bf16 corner table, hence the
+    camera renders are sampled from a bf16 copy of the field (JAX's corner
+    table, the port's channels-last field: the same values), hence the
     2^-8 * max|want| allowance on them, as for PTS_KEYS above."""
     jfo, _, tfo, _ = full
     want = np.asarray(jfo[key])
@@ -176,6 +178,38 @@ def test_camera_renders_are_none(both):
 def test_head_preds_match_jax(both):
     *_, jpreds, _, _, tpreds, _ = both
     assert len(tpreds) == len(jpreds)
+    for jp, tp in zip(jpreds, tpreds):
+        assert set(jp) == set(tp)
+        for k in jp:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                       rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+def test_lidar_seg_keeps_the_head_in_train_mode(both):
+    """`lidar_seg=True` skips the detection head only in eval mode, as the
+    JAX module skips it only for `lidar_seg and not train`: in train mode
+    the head preds equal the JAX module's `train=True, lidar_seg=True`
+    call (BN on batch statistics on both sides), at the tolerance of
+    test_head_preds_match_jax; in eval mode the call returns None."""
+    cfg, variables, sd, *_ = both
+    batch = synthetic_batch(cfg, batch_size=1, n_points=128, seed=0,
+                            mode='val')
+    jm = JaxVampire(cfg.backbone, cfg.head, dtype=jnp.float32)
+    (_, jpreds), _ = jax.device_get(jax.jit(lambda v: jm.apply(
+        v, jnp.asarray(batch['imgs']),
+        {k: jnp.asarray(batch[k]) for k in MATS},
+        points=jnp.asarray(batch['points']), train=True, lidar_seg=True,
+        camera_renders=False, mutable=['batch_stats']))(variables))
+    tm = Vampire(cfg.backbone, cfg.head, dtype=torch.float32)
+    tm.load_state_dict(sd, strict=True)
+    args = (torch.from_numpy(batch['imgs']),
+            {k: torch.from_numpy(batch[k]) for k in MATS})
+    kw = dict(points=torch.from_numpy(batch['points']), lidar_seg=True,
+              camera_renders=False)
+    with torch.no_grad():
+        _, tpreds = tm.train()(*args, **kw)
+        assert tm.eval()(*args, **kw)[1] is None
+    assert tpreds is not None and len(tpreds) == len(jpreds)
     for jp, tp in zip(jpreds, tpreds):
         assert set(jp) == set(tp)
         for k in jp:

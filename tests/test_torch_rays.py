@@ -1,6 +1,8 @@
-"""The camera-ray sampler: the port's plain version against the JAX
-`sample_and_composite_rays` and against the unfused oracle, and (on a card
-only) both kernels of the camera-ray branch against their plain versions.
+"""The camera-ray sampler: the port's plain versions (on the corner table,
+as the JAX package samples, and on the channels-last field, as the port's
+op samples) against the JAX `sample_and_composite_rays`, against each other
+and against the unfused oracle, and (on a card only) the ray kernel and the
+corner-table kernel against their plain versions.
 
 JAX is imported inside the parity tests only, so that the card-only cases
 run where JAX is not installed:
@@ -12,6 +14,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vampire_tpu_torch.core import rendering as R
 from vampire_tpu_torch.core import sampling as S
@@ -38,41 +41,122 @@ def _case(seed=0, n_rays=60, n_samp=9):
     return vol, coords, valid, deltas, mids
 
 
-@pytest.mark.parametrize('table_dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('mode', ['sdf', 'naive'])
-def test_reference_matches_jax(mode, table_dtype):
-    """The plain sampler against the JAX dense sampler on the same table
-    values, at the JAX package's own tolerances (tests/test_rendering.py):
-    1e-5 for rgb/seg, 1e-4 for depth."""
+def _jax_render(vol, coords, valid, deltas, mids, mode, dtype):
+    """The JAX dense sampler on `build_neighborhood_table` of the field in
+    `dtype`: (rgb, seg, depth) numpy."""
     jax = pytest.importorskip('jax')
     import jax.numpy as jnp
     from vampire_tpu.core import rendering as JR
     from vampire_tpu.core import sampling as JS
-    vol, coords, valid, deltas, mids = _case(seed=1)
-    jvol = jnp.asarray(vol.transpose(1, 2, 3, 0)).astype(table_dtype)
+    jvol = jnp.asarray(vol.transpose(1, 2, 3, 0)).astype(dtype)
     if mode == 'sdf':
         dens = functools.partial(JR.laplace_density, beta=jnp.float32(BETA),
                                  bias=BIAS)
     else:
         dens = JR.naive_density
-    jr, js, jd = jax.device_get(JR.sample_and_composite_rays(
+    return jax.device_get(JR.sample_and_composite_rays(
         JS.build_neighborhood_table(jvol), VOL, K, jnp.asarray(coords),
         jnp.asarray(valid), jnp.asarray(deltas), jnp.asarray(mids), dens, BG,
         chunk_rays=16))
-    before = rays.LAUNCHES
-    table = S.build_neighborhood_table(
-        torch.from_numpy(vol).to(getattr(torch, table_dtype)))
-    got = rays.sample_and_composite_rays(
-        table, VOL, torch.from_numpy(coords), torch.from_numpy(valid),
-        torch.from_numpy(deltas), torch.from_numpy(mids), BG, mode,
-        torch.tensor(BETA), BIAS)
-    assert rays.LAUNCHES == before      # CPU tensors run the plain version
-    assert got.shape == (len(coords), 3 + K + 1)
+
+
+def _assert_render_close(got, want):
+    """The JAX package's own tolerances (tests/test_rendering.py): 1e-5 for
+    rgb/seg, 1e-4 for depth."""
+    jr, js, jd = want
+    assert got.shape == (len(jr), 3 + K + 1)
     np.testing.assert_allclose(got[:, :3].numpy(), jr, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got[:, 3:K + 3].numpy(), js, rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(got[:, K + 3].numpy(), jd, rtol=1e-4,
                                atol=1e-4)
+
+
+def _torch_args(coords, valid, deltas, mids):
+    return [torch.from_numpy(a) for a in (coords, valid, deltas, mids)]
+
+
+def _padded(vol, extra):
+    """The channels-last field of a (C, D, H, W) volume as the channel slice
+    of a copy with `extra` zero channels a voxel."""
+    C = vol.shape[0]
+    return F.pad(vol.permute(1, 2, 3, 0).contiguous(), (0, extra))[..., :C]
+
+
+@pytest.mark.parametrize('table_dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('mode', ['sdf', 'naive'])
+def test_reference_matches_jax(mode, table_dtype):
+    """The port's ray op on a CPU tensor (the field's plain version, on the
+    channels-last field in `table_dtype`) against the JAX dense sampler on
+    the corner table of the same field."""
+    vol, coords, valid, deltas, mids = _case(seed=1)
+    want = _jax_render(vol, coords, valid, deltas, mids, mode, table_dtype)
+    before = rays.LAUNCHES
+    field = rays.channels_last_field(
+        torch.from_numpy(vol).to(getattr(torch, table_dtype)))
+    got = rays.sample_and_composite_rays(
+        field, *_torch_args(coords, valid, deltas, mids), BG, mode,
+        torch.tensor(BETA), BIAS)
+    assert rays.LAUNCHES == before      # CPU tensors run the plain version
+    _assert_render_close(got, want)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('mode', ['sdf', 'naive'])
+def test_table_reference_matches_jax(mode, dtype):
+    """The table's plain sampler (the JAX package's access pattern) against
+    the JAX dense sampler on the same table values."""
+    vol, coords, valid, deltas, mids = _case(seed=1)
+    want = _jax_render(vol, coords, valid, deltas, mids, mode, dtype)
+    table = S.build_neighborhood_table(
+        torch.from_numpy(vol).to(getattr(torch, dtype)))
+    got = R.sample_and_composite_rays_reference(
+        table, VOL, *_torch_args(coords, valid, deltas, mids), BG, mode,
+        torch.tensor(BETA), BIAS)
+    _assert_render_close(got, want)
+
+
+@pytest.mark.parametrize('extra', [0, 8])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('mode', ['sdf', 'naive'])
+def test_field_reference_matches_table_reference(mode, dtype, extra):
+    """The field's plain sampler reads the terms the table's row holds, in
+    the table's corner order, and sums them the same way: the same results
+    bit for bit, also from a channel slice of a padded field."""
+    vol, coords, valid, deltas, mids = _case(seed=7)
+    tv = torch.from_numpy(vol).to(dtype)
+    args = _torch_args(coords, valid, deltas, mids)
+    want = R.sample_and_composite_rays_reference(
+        S.corner_table_reference(tv), VOL, *args, BG, mode,
+        torch.tensor(BETA), BIAS)
+    field = _padded(tv, extra)
+    assert rays.channel_stride(field) == vol.shape[0] + extra
+    got = R.sample_and_composite_rays_field_reference(
+        field, *args, BG, mode, torch.tensor(BETA), BIAS, chunk_rays=7)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('dtype,stride', [(torch.float32, 8),
+                                          (torch.bfloat16, 8),
+                                          (torch.float32, 24)])
+def test_channels_last_field_and_its_gradient(dtype, stride):
+    """The field copy is the channels-last permutation whose voxels start on
+    16 bytes (6 channels padded with zeros to 8; 24 fp32 channels are
+    already 96 bytes) and its backward the inverse permutation."""
+    rng = np.random.RandomState(8)
+    C = 6 if stride == 8 else 24
+    vol = torch.from_numpy(rng.randn(C, 3, 4, 5).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.randn(3, 4, 5, C).astype(np.float32)).to(dtype)
+    v = vol.clone().requires_grad_()
+    f = rays.channels_last_field(v)
+    assert f.shape == (3, 4, 5, C) and f.stride() == (
+        4 * 5 * stride, 5 * stride, stride, 1)
+    assert rays.channel_stride(f) == stride
+    assert torch.equal(f, vol.permute(1, 2, 3, 0))
+    padded = torch.as_strided(f, (3, 4, 5, stride), f.stride())
+    assert not padded[..., C:].any()
+    f.backward(g)
+    assert torch.equal(v.grad, g.permute(3, 0, 1, 2))
 
 
 def test_reference_spans_partial_opacity():
@@ -126,16 +210,15 @@ def test_reference_matches_unfused_oracle(mode):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_sampler_reads_both_table_layouts(dtype):
-    """The (D+1, H+1, W+1, 8C) table of `ops.tables.corner_table` (what the
-    model passes) and the ((D+1)(H+1)(W+1), 2, 2, 2, C) rows of
-    `build_neighborhood_table` hold the same bytes and render the same."""
+    """The (D+1, H+1, W+1, 8C) table of `ops.tables.corner_table` and the
+    ((D+1)(H+1)(W+1), 2, 2, 2, C) rows of `build_neighborhood_table` hold
+    the same bytes and the table's plain sampler renders them the same."""
     vol, coords, valid, deltas, mids = _case(seed=5)
     tv = torch.from_numpy(vol).to(dtype)
-    args = [torch.from_numpy(a) for a in (coords, valid, deltas, mids)]
-    outs = [rays.sample_and_composite_rays(t, VOL, *args, BG, 'sdf',
-                                           torch.tensor(BETA), BIAS)
-            for t in (tables.corner_table(tv),
-                      S.build_neighborhood_table(tv))]
+    args = _torch_args(coords, valid, deltas, mids)
+    outs = [R.sample_and_composite_rays_reference(
+        t, VOL, *args, BG, 'sdf', torch.tensor(BETA), BIAS)
+        for t in (tables.corner_table(tv), S.build_neighborhood_table(tv))]
     assert torch.equal(outs[0], outs[1])
 
 
@@ -169,26 +252,46 @@ def test_render_camera_rays_matches_jax():
     ('valid', lambda t: t.to(torch.float64), TypeError),
     ('deltas', lambda t: t.t(), ValueError),
     ('mids', lambda t: t[:-1], ValueError),
+    ('field', lambda t: t.permute(1, 0, 2, 3), ValueError),
+    ('field', lambda t: t.to(torch.float16), TypeError),
+    ('field', lambda t: t[..., :4], ValueError),
+    ('field', lambda t: F.pad(t, (0, 1)), ValueError),
 ])
 def test_kernel_argument_checks(field, bad, err):
-    """The checks the wrapper makes before any launch."""
+    """The checks the wrapper makes before any launch: the field must be
+    channels-last bf16 or fp32 with 5 to 32 channels, each voxel starting
+    on 16 bytes (9 fp32 channels do not)."""
     vol, coords, valid, deltas, mids = _case(n_rays=8, n_samp=8)
     t = dict(coords=torch.from_numpy(coords), valid=torch.from_numpy(valid),
              deltas=torch.from_numpy(deltas), mids=torch.from_numpy(mids),
-             beta=torch.tensor(BETA))
+             beta=torch.tensor(BETA),
+             field=rays.channels_last_field(torch.from_numpy(vol)))
     t[field] = bad(t[field])
-    flat = S.build_neighborhood_table(torch.from_numpy(vol)).reshape(-1, 64)
     with pytest.raises(err):
-        rays._check(flat, VOL, **t)
+        rays._check(**t)
+
+
+def test_kernel_argument_checks_pass_a_padded_field():
+    """A channel slice of a padded channels-last field is a field, at its
+    padded voxel stride."""
+    vol, coords, valid, deltas, mids = _case(n_rays=8, n_samp=8)
+    field = _padded(torch.from_numpy(vol), 8)
+    got = rays._check(field, *_torch_args(coords, valid, deltas, mids),
+                      torch.tensor(BETA))
+    assert got == (8, 8, 1 + K + 3, 16)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_gpu(dtype):
-    """On the card: the corner-table kernel is byte-identical to its plain
-    version, and the ray kernel agrees with its plain version to
-    1e-4 * max(1, max |ref|) per output (fp32 sums in another order; the
-    plain transmittance is a parallel cumsum). Each launches once."""
+    """On the card: the corner-table kernel (off the model's path, still a
+    port of `_corner_table_pallas`) is byte-identical to its plain version,
+    and the ray kernel agrees with its plain version to 1e-4 * max(1,
+    max |ref|) per output (fp32 sums in another order; the plain
+    transmittance is a sequential cumsum), in both density modes, on the
+    field `channels_last_field` makes and on a padded one (voxel stride
+    16). Each launches once; a field whose voxels do not start on 16 bytes
+    raises."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
     for shape in ((8, 5, 8, 8), (22, 3, 17, 33), (5, 1, 1, 70)):
@@ -202,18 +305,22 @@ def test_kernels_match_plain_on_gpu(dtype):
         vol, coords, valid, deltas, mids = _case(seed=4, n_rays=1000,
                                                  n_samp=85)
         tv = torch.from_numpy(vol).to(dtype).cuda()
-        table = tables.corner_table(tv)         # the model's table layout
-        args = [torch.from_numpy(a).cuda() for a in
-                (coords, valid, deltas, mids)]
+        args = [a.cuda() for a in _torch_args(coords, valid, deltas, mids)]
         beta = torch.tensor(BETA, device='cuda')
-        before = rays.LAUNCHES
-        got = rays.sample_and_composite_rays(table, VOL, *args, BG, mode,
-                                             beta, BIAS)
-        assert rays.LAUNCHES == before + 1
-        ref = R.sample_and_composite_rays_reference(table, VOL, *args, BG,
-                                                    mode, beta, BIAS)
-        torch.cuda.synchronize()
-        for sl in (slice(0, 3), slice(3, K + 3), slice(K + 3, K + 4)):
-            tol = 1e-4 * max(1.0, ref[:, sl].abs().max().item())
-            err = (got[:, sl] - ref[:, sl]).abs().max().item()
-            assert err <= tol, (mode, sl, err, tol)
+        with pytest.raises(ValueError, match='16 bytes'):
+            rays.sample_and_composite_rays(_padded(tv, 1), *args, BG, mode,
+                                           beta, BIAS)
+        for extra in (0, 8):
+            field = (rays.channels_last_field(tv) if extra == 0
+                     else _padded(tv, extra))
+            before = rays.LAUNCHES
+            got = rays.sample_and_composite_rays(field, *args, BG, mode,
+                                                 beta, BIAS)
+            assert rays.LAUNCHES == before + 1
+            ref = R.sample_and_composite_rays_field_reference(
+                field, *args, BG, mode, beta, BIAS)
+            torch.cuda.synchronize()
+            for sl in (slice(0, 3), slice(3, K + 3), slice(K + 3, K + 4)):
+                tol = 1e-4 * max(1.0, ref[:, sl].abs().max().item())
+                err = (got[:, sl] - ref[:, sl]).abs().max().item()
+                assert err <= tol, (mode, extra, sl, err, tol)

@@ -148,9 +148,9 @@ def test_output_selection_rejects(server, outputs, err):
 
 def test_full_render_matches_metrics_graph(server):
     """The full-render graph serves the metric outputs of the metrics
-    graph exactly: the corner table serves the camera rays only, and both
-    graphs sample the points with grid_sample on a bf16 copy of the
-    field."""
+    graph exactly: the channels-last field copy serves the camera rays
+    only, and both graphs sample the points with grid_sample on a bf16 copy
+    of the field."""
     cfg = server.cfg
     srv = InferenceServer(cfg, device='cpu',
                           state_dict=server.model.state_dict(),

@@ -4,10 +4,12 @@ On the CPU each op's plain backward runs (the version its CUDA kernel is
 held to on a card): the lift over one frame's cameras against `jax.vjp` of
 the JAX compacted lift step (`sample_outer_product_fused` and the
 `.at[ids].add` scatter), the corner-table transpose against
-`jax.vjp(corner_table)`, and the ray sampler's d table and d beta against
-`jax.vjp(sample_and_composite_rays)` on an fp32 table (the JAX model's table
-is bf16, whose rounding is not the point here). Inputs are numpy arrays from
-a seed, fp32 on both sides. The `gpu` cases hold each backward kernel to its
+`jax.vjp(corner_table)`, and the ray sampler's d field and d beta against
+`jax.vjp` of `sample_and_composite_rays` on `build_neighborhood_table` of
+the volume, with respect to the volume, in fp32 (the JAX model's table is
+bf16, whose rounding is not the point here); the table's plain ray backward
+is held to the JAX d table too. Inputs are numpy arrays from a seed, fp32
+on both sides. The `gpu` cases hold each backward kernel to its
 plain version on a card; they import no JAX and run with
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_train_ops.py
@@ -169,61 +171,134 @@ def _jax_density(mode):
     return lambda beta: JR.naive_density
 
 
-def _port_ray_grads(table, vol_shape, coords, valid, deltas, mids, g, mode,
-                    **kw):
-    t = table.clone().requires_grad_()
+def _port_ray_grads(vol, coords, valid, deltas, mids, g, mode, **kw):
+    """The port's ray op on the channels-last field of `vol` (C, D, H, W):
+    (out, d vol through the field copy, d beta)."""
+    v = torch.from_numpy(vol).requires_grad_()
     beta = torch.tensor(BETA, requires_grad=True)
-    out = rays.render_rays(t, vol_shape, *(torch.from_numpy(a) for a in
-                                           (coords, valid, deltas, mids)),
+    out = rays.render_rays(rays.channels_last_field(v),
+                           *(torch.from_numpy(a) for a in
+                             (coords, valid, deltas, mids)),
                            BG, mode, beta, BIAS, **kw)
     out.backward(torch.from_numpy(g))
-    return out.detach(), t.grad, beta.grad
+    return out.detach(), v.grad, beta.grad
 
 
-@pytest.mark.parametrize('mode', ['sdf', 'naive'])
-def test_ray_backward_matches_jax_vjp(mode):
-    """d table and d beta of the plain ray backward against jax.vjp of the
-    JAX dense sampler on the same fp32 table. The plain backward sums each
-    ray's tail as a suffix sum where JAX transposes a cumsum: 1e-5 of each
-    gradient's magnitude. d beta sums terms of either sign over every
-    sample, each carrying d density / d beta ~ 1/beta_eff^2 = 100 times
-    its sample's weight, so it cancels: 1e-4 relative."""
+def _jax_ray_vjp(vol, coords, valid, deltas, mids, g, mode, wrt_volume):
+    """jax.vjp of the JAX dense sampler on `build_neighborhood_table` of
+    the fp32 volume, with respect to the volume (channels-first, as the
+    port's) or to the table, and to beta: (outs, d, d beta)."""
     jax = pytest.importorskip('jax')
     import jax.numpy as jnp
     from vampire_tpu.core import rendering as JR
     from vampire_tpu.core import sampling as JS
-    vol, coords, valid, deltas, mids, g = _ray_case(seed=1)
     dens = _jax_density(mode)
-    jtable = JS.build_neighborhood_table(jnp.asarray(vol.transpose(1, 2, 3,
-                                                                   0)))
+    jvol = jnp.asarray(vol.transpose(1, 2, 3, 0))
 
-    def f(table, beta):
+    def render(table, beta):
         return JR.sample_and_composite_rays(
             table, VOL, K_CLS, jnp.asarray(coords), jnp.asarray(valid),
             jnp.asarray(deltas), jnp.asarray(mids), dens(beta), BG,
             chunk_rays=16)
-    outs, vjp = jax.vjp(f, jtable, jnp.float32(BETA))
+    if wrt_volume:
+        outs, vjp = jax.vjp(lambda v, b: render(
+            JS.build_neighborhood_table(v), b), jvol, jnp.float32(BETA))
+    else:
+        outs, vjp = jax.vjp(render, JS.build_neighborhood_table(jvol),
+                            jnp.float32(BETA))
     jg = (jnp.asarray(g[:, :3]), jnp.asarray(g[:, 3:K_CLS + 3]),
           jnp.asarray(g[:, K_CLS + 3]))
-    d_table, d_beta = (np.asarray(a) for a in vjp(jg))
+    d, d_beta = (np.asarray(a) for a in vjp(jg))
+    if wrt_volume:
+        d = d.transpose(3, 0, 1, 2)
+    return outs, d, d_beta
+
+
+def _assert_beta_close(mode, got, want):
+    """d beta sums terms of either sign over every sample, each carrying
+    d density / d beta ~ 1/beta_eff^2 = 100 times its sample's weight, so it
+    cancels: 1e-4 relative."""
+    if mode == 'naive':
+        assert float(got) == 0.0 and float(want) == 0.0
+    else:
+        assert abs(float(want)) > 1e-3
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+
+
+@pytest.mark.parametrize('mode', ['sdf', 'naive'])
+def test_ray_backward_matches_jax_vjp(mode):
+    """d volume and d beta of the port's ray op (the field's plain backward
+    and the field copy's) against jax.vjp of the JAX dense sampler on the
+    corner table of the same fp32 volume, with respect to the volume. The
+    plain backward sums each ray's tail as a suffix sum where JAX transposes
+    a cumsum, and scatters into the field where JAX sums the table's 8
+    slices: 1e-5 of the gradient's magnitude."""
+    vol, coords, valid, deltas, mids, g = _ray_case(seed=1)
+    outs, d_vol, d_beta = _jax_ray_vjp(vol, coords, valid, deltas, mids, g,
+                                       mode, wrt_volume=True)
     before = (rays.LAUNCHES, rays.BWD_LAUNCHES)
-    out, t_grad, b_grad = _port_ray_grads(
-        S.corner_table_reference(torch.from_numpy(vol)), VOL, coords, valid,
-        deltas, mids, g, mode)
+    out, v_grad, b_grad = _port_ray_grads(vol, coords, valid, deltas, mids,
+                                          g, mode)
     assert (rays.LAUNCHES, rays.BWD_LAUNCHES) == before
     np.testing.assert_allclose(out[:, K_CLS + 3].numpy(), np.asarray(outs[2]),
                                rtol=1e-4, atol=1e-4)
-    assert t_grad.dtype == torch.float32
-    d_table = d_table.reshape(t_grad.shape)
-    scale = np.abs(d_table).max()
+    assert v_grad.dtype == torch.float32 and v_grad.shape == vol.shape
+    scale = np.abs(d_vol).max()
     assert scale > 0.1
-    np.testing.assert_allclose(t_grad.numpy(), d_table, rtol=1e-5,
+    np.testing.assert_allclose(v_grad.numpy(), d_vol, rtol=1e-5,
                                atol=1e-5 * scale)
-    if mode == 'naive':
-        assert float(b_grad) == 0.0 and float(d_beta) == 0.0
-    else:
-        assert abs(float(d_beta)) > 1e-3
-        np.testing.assert_allclose(float(b_grad), float(d_beta), rtol=1e-4)
+    _assert_beta_close(mode, b_grad, d_beta)
+
+
+@pytest.mark.parametrize('mode', ['sdf', 'naive'])
+def test_table_ray_backward_matches_jax_vjp(mode):
+    """The table's plain ray backward (d table, d beta) against jax.vjp of
+    the JAX dense sampler with respect to the same fp32 table: 1e-5 of the
+    gradient's magnitude."""
+    vol, coords, valid, deltas, mids, g = _ray_case(seed=1)
+    _, d_table, d_beta = _jax_ray_vjp(vol, coords, valid, deltas, mids, g,
+                                      mode, wrt_volume=False)
+    got, b_got = R.sample_and_composite_rays_backward_reference(
+        S.corner_table_reference(torch.from_numpy(vol)), VOL,
+        *(torch.from_numpy(a) for a in (coords, valid, deltas, mids)), BG,
+        mode, torch.tensor(BETA), BIAS, torch.from_numpy(g))
+    d_table = d_table.reshape(got.shape)
+    scale = np.abs(d_table).max()
+    np.testing.assert_allclose(got.numpy(), d_table, rtol=1e-5,
+                               atol=1e-5 * scale)
+    _assert_beta_close(mode, b_got, d_beta)
+
+
+def _padded(vol, extra):
+    """The channels-last field of a (C, D, H, W) volume as the channel slice
+    of a copy with `extra` zero channels a voxel."""
+    C = vol.shape[0]
+    return torch.nn.functional.pad(vol.permute(1, 2, 3, 0).contiguous(),
+                                   (0, extra))[..., :C]
+
+
+@pytest.mark.parametrize('extra', [0, 3])
+@pytest.mark.parametrize('mode', ['sdf', 'naive'])
+def test_field_backward_matches_table_backward(mode, extra):
+    """The field's plain backward is the table's d table passed through the
+    table's transpose (`corner_table_backward_reference`), summed in another
+    order: 1e-6 of the gradient's magnitude; d beta is the same sum."""
+    vol, coords, valid, deltas, mids, g = _ray_case(seed=2)
+    tv = torch.from_numpy(vol)
+    args = [torch.from_numpy(a) for a in (coords, valid, deltas, mids)]
+    d_table, b_table = R.sample_and_composite_rays_backward_reference(
+        S.corner_table_reference(tv), VOL, *args, BG, mode,
+        torch.tensor(BETA), BIAS, torch.from_numpy(g))
+    want = tables.corner_table_backward_reference(
+        d_table.reshape(tuple(n + 1 for n in VOL) + (-1,)), tv.shape)
+    d_field, b_field = R.sample_and_composite_rays_field_backward_reference(
+        _padded(tv, extra), *args, BG, mode,
+        torch.tensor(BETA), BIAS, torch.from_numpy(g), chunk_rays=13)
+    assert d_field.shape == VOL + (vol.shape[0],)
+    got = d_field.permute(3, 0, 1, 2)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-6 * scale
+    torch.testing.assert_close(b_field, b_table, rtol=1e-6, atol=0)
 
 
 def test_dense_sampler_matches_jax_compact_sampler():
@@ -231,10 +306,11 @@ def test_dense_sampler_matches_jax_compact_sampler():
     train-mode `sample_and_composite_rays_compact` at the flagship S = 85,
     ray_chunk = 8 and ray_pass_fracs, on 1,024 rays whose in-field sample
     prefixes the pass caps cover (prefix-style validity, as the frustum
-    leaves the field box). Values and d table agree up to fp reassociation
-    (the compact sampler's fog tail is closed form): 2e-5, the JAX package's
-    own tolerance for the two (tests/test_rendering.py), of each output's
-    and gradient's magnitude."""
+    leaves the field box). Values and d volume (the port's through its
+    field, the JAX compact sampler's through the corner table's VJP) agree
+    up to fp reassociation (the compact sampler's fog tail is closed form):
+    2e-5, the JAX package's own tolerance for the two
+    (tests/test_rendering.py), of each output's and gradient's magnitude."""
     jax = pytest.importorskip('jax')
     import jax.numpy as jnp
     from vampire_tpu.configs import flagship_config
@@ -264,29 +340,26 @@ def test_dense_sampler_matches_jax_compact_sampler():
     dens = functools.partial(JR.laplace_density, beta=jnp.float32(BETA),
                              bias=BIAS)
 
-    def f(table):
+    def f(v):
         return JR.sample_and_composite_rays_compact(
-            table, VOL, K_CLS, jnp.asarray(coords), jnp.asarray(valid),
-            jnp.asarray(deltas), jnp.asarray(mids), dens, BG, chunk=chunk,
-            pass_fracs=fracs)
-    jtable = JS.build_neighborhood_table(jnp.asarray(vol.transpose(1, 2, 3,
-                                                                   0)))
-    outs, vjp = jax.vjp(f, jtable)
-    (d_table,) = vjp((jnp.asarray(g[:, :3]), jnp.asarray(g[:, 3:K_CLS + 3]),
-                      jnp.asarray(g[:, K_CLS + 3])))
+            JS.build_neighborhood_table(v), VOL, K_CLS, jnp.asarray(coords),
+            jnp.asarray(valid), jnp.asarray(deltas), jnp.asarray(mids), dens,
+            BG, chunk=chunk, pass_fracs=fracs)
+    outs, vjp = jax.vjp(f, jnp.asarray(vol.transpose(1, 2, 3, 0)))
+    (d_vol,) = vjp((jnp.asarray(g[:, :3]), jnp.asarray(g[:, 3:K_CLS + 3]),
+                    jnp.asarray(g[:, K_CLS + 3])))
     want = np.concatenate([np.asarray(outs[0]), np.asarray(outs[1]),
                            np.asarray(outs[2])[:, None]], axis=1)
-    out, t_grad, _ = _port_ray_grads(
-        S.corner_table_reference(torch.from_numpy(vol)), VOL, coords, valid,
-        deltas, mids, g, 'sdf')
+    out, v_grad, _ = _port_ray_grads(vol, coords, valid, deltas, mids, g,
+                                     'sdf')
     assert (lengths > chunk * 8).sum() > 0       # some rays reach far
     for sl in (slice(0, 3), slice(3, K_CLS + 3), slice(K_CLS + 3, C)):
         np.testing.assert_allclose(
             out[:, sl].numpy(), want[:, sl], rtol=2e-5,
             atol=2e-5 * np.abs(want[:, sl]).max())
-    d_table = np.asarray(d_table).reshape(t_grad.shape)
-    np.testing.assert_allclose(t_grad.numpy(), d_table, rtol=2e-5,
-                               atol=2e-5 * np.abs(d_table).max())
+    d_vol = np.asarray(d_vol).transpose(3, 0, 1, 2)
+    np.testing.assert_allclose(v_grad.numpy(), d_vol, rtol=2e-5,
+                               atol=2e-5 * np.abs(d_vol).max())
 
 
 @pytest.mark.parametrize('mode', ['sdf', 'naive'])
@@ -309,12 +382,11 @@ def test_ray_geometry_takes_no_gradient():
     """coords, valid, deltas and mids come from the geometry: asking for
     their gradient raises instead of returning a wrong zero."""
     vol, coords, valid, deltas, mids, _ = _ray_case(n_rays=4, n_samp=5)
-    table = S.corner_table_reference(torch.from_numpy(vol))
+    field = rays.channels_last_field(torch.from_numpy(vol))
     args = [torch.from_numpy(a) for a in (coords, valid, deltas, mids)]
     args[2].requires_grad_()
     with pytest.raises(ValueError, match='deltas'):
-        rays.render_rays(table, VOL, *args, BG, 'sdf', torch.tensor(BETA),
-                         BIAS)
+        rays.render_rays(field, *args, BG, 'sdf', torch.tensor(BETA), BIAS)
 
 
 # ---------------------------------------------------------------------------
@@ -371,24 +443,31 @@ def test_corner_table_backward_kernel_matches_plain_on_gpu(dtype):
 def test_ray_backward_kernel_matches_plain_on_gpu(dtype, mode):
     """The kernel takes each ray's total from the saved outputs where the
     plain version sums the tail, and scatters with fp32 atomics in another
-    order: 1e-4 of the d table's magnitude, 1e-4 relative on d beta."""
+    order: 1e-4 of the d field's magnitude, 1e-4 relative on d beta; on the
+    field `channels_last_field` makes and on a padded one (voxel stride
+    16)."""
     _need_card()
     vol, coords, valid, deltas, mids, g = _ray_case(seed=6, n_rays=1000,
                                                     n_samp=85)
-    table = tables.corner_table(torch.from_numpy(vol).to(dtype).cuda())
+    tv = torch.from_numpy(vol).to(dtype).cuda()
     args = [torch.from_numpy(a).cuda() for a in (coords, valid, deltas,
                                                  mids)]
     beta = torch.tensor(BETA, device='cuda')
     go = torch.from_numpy(g).cuda()
-    out = rays.sample_and_composite_rays(table, VOL, *args, BG, mode, beta,
-                                         BIAS)
-    before = rays.BWD_LAUNCHES
-    got = rays.sample_and_composite_rays_backward(table, VOL, *args, BG,
-                                                  mode, beta, BIAS, out, go)
-    assert rays.BWD_LAUNCHES == before + 1
-    want = R.sample_and_composite_rays_backward_reference(
-        table, VOL, *args, BG, mode, beta, BIAS, go)
-    torch.cuda.synchronize()
-    tol = 1e-4 * want[0].abs().max().item()
-    assert (got[0] - want[0]).abs().max().item() <= tol
-    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+    for extra in (0, 8):
+        field = (rays.channels_last_field(tv) if extra == 0
+                 else _padded(tv, extra))
+        out = rays.sample_and_composite_rays(field, *args, BG, mode, beta,
+                                             BIAS)
+        before = rays.BWD_LAUNCHES
+        got = rays.sample_and_composite_rays_backward(field, *args, BG,
+                                                      mode, beta, BIAS, out,
+                                                      go)
+        assert rays.BWD_LAUNCHES == before + 1
+        want = R.sample_and_composite_rays_field_backward_reference(
+            field, *args, BG, mode, beta, BIAS, go)
+        torch.cuda.synchronize()
+        assert got[0].shape == want[0].shape
+        tol = 1e-4 * want[0].abs().max().item()
+        assert (got[0] - want[0]).abs().max().item() <= tol, extra
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)

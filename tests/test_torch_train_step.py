@@ -10,8 +10,9 @@ would pass almost nothing on), and the weights are carried across with
 renders, all losses, backward, clipping, AdamW and EMA, in fp32 on the CPU.
 The JAX model samples an fp32 corner table here (its `sample_dtype`, bf16 by
 default, set through a subclass in this file), and the port's
-`sample_dtype` matches, so that no bf16 rounding of the table's cotangent
-hides a difference downstream of the renders.
+`sample_dtype` matches (its channels-last field is fp32), so that no bf16
+rounding of the field's or the table's cotangent hides a difference
+downstream of the renders.
 
 Compared: every `logs` entry, every parameter's gradient (the JAX gradient
 read off AdamW's first moment, mu = (1 - b1) * g after one step, passed

@@ -10,8 +10,9 @@ Package layout (each module mirrors its counterpart in vampire_tpu)
   core/      geometry, field sampling and the corner table, volume rendering
              (plain torch: the reference versions of the kernels)
   models/    ResNet, SECONDFPN, Unet3D, field backbone, CenterPoint head
-  ops/       the wrappers of the lift, corner-table, ray and row-gather probe
-             kernels, host NMS, target assignment, and the build of csrc/
+  ops/       the wrappers of the lift, ray, corner-table (kernel checks only)
+             and row-gather probe kernels, host NMS, target assignment, and
+             the build of csrc/
   csrc/      hand-written CUDA kernels (sm_90a) and the host NMS (C++)
   data/      synthetic camera rigs and batches
   serving/   the micro-batching InferenceServer

@@ -2,9 +2,13 @@
 
 Port of `vampire_tpu/core/rendering.py`: the densities, the BEV column
 render, the unfused camera-ray oracle `render_camera_rays`,
-`sample_and_composite_rays_reference`, the dense ray sampler and the plain
-version of the CUDA kernel in `ops/rays.py`, and its gradient written out,
-`sample_and_composite_rays_backward_reference`. The port trains on the
+`sample_and_composite_rays_reference`, the dense ray sampler on the corner
+table as the JAX package runs it, and its gradient written out,
+`sample_and_composite_rays_backward_reference`; and the same two reading the
+channels-last field instead of the table
+(`sample_and_composite_rays_field_reference` and
+`sample_and_composite_rays_field_backward_reference`), the plain versions
+of the CUDA kernels in `ops/rays.py`. The port trains on the
 dense sampler too: the JAX package's train-mode compact sampler computes
 the same values (it exists because TPU scatters are slow) and, like the
 opt-in early-term sampler, is not ported (ROADMAP.md).
@@ -139,9 +143,42 @@ def render_camera_rays(sdf: torch.Tensor, seg_logits: torch.Tensor,
     return rgb_p, seg_p, depth_p + (1.0 - acc) * bg_depth
 
 
-# the plain sampler gathers (rays, S, 8, Ct) fp32 values per chunk; keep a
+# the plain samplers gather (rays, S, 8, Ct) fp32 values per chunk; keep a
 # chunk under ~1 GB
 _CHUNK_BYTES = 1 << 30
+
+
+def _composite(samp, vm, dl, mids, bg_depth, density_mode, beta, sdf_bias):
+    """[rgb | seg | depth] of a chunk from its (cr, S, Ct) samples."""
+    K = samp.shape[-1] - 4
+    samp = samp * vm[..., None]
+    sd = density(samp[..., 0], density_mode, beta, sdf_bias) * dl
+    alpha = 1.0 - torch.exp(-sd)
+    w = alpha * torch.exp(-(torch.cumsum(sd, dim=-1) - sd))   # (cr, S)
+    acc = torch.sum(w, dim=-1)
+    rgb_o = torch.sum(w[..., None] * samp[..., K + 1:K + 4], dim=1)
+    seg_o = torch.sum(w[..., None] * samp[..., 1:K + 1], dim=1)
+    depth_o = torch.sum(w * mids[None, :], dim=1) + (1.0 - acc) * bg_depth
+    return torch.cat([rgb_o, seg_o, depth_o[:, None]], dim=-1)
+
+
+def _march(sample, Ct, coords, valid, deltas, camera_mids, bg_depth,
+           density_mode, beta, sdf_bias, chunk_rays):
+    """Composite whole rays, chunk by chunk; `sample(c)` gives the (P, Ct)
+    fp32 samples at the (P, 3) coords c."""
+    R_, S_n = coords.shape[:2]
+    if chunk_rays is None:
+        chunk_rays = max(1, _CHUNK_BYTES // (S_n * 8 * Ct * 4))
+    mids = camera_mids.to(torch.float32)
+    outs = []
+    for r0 in range(0, R_, chunk_rays):
+        cc = coords[r0:r0 + chunk_rays]
+        samp = sample(cc.reshape(-1, 3)).reshape(cc.shape[0], S_n, Ct)
+        outs.append(_composite(
+            samp, valid[r0:r0 + chunk_rays].to(torch.float32),
+            deltas[r0:r0 + chunk_rays].to(torch.float32), mids, bg_depth,
+            density_mode, beta, sdf_bias))
+    return torch.cat(outs, dim=0)
 
 
 def sample_and_composite_rays_reference(
@@ -154,7 +191,10 @@ def sample_and_composite_rays_reference(
 
     The same values as `grid_sample_3d_fused(vol, coords) * valid` (zeros
     padding, align_corners=True) followed by `render_camera_rays`, chunked
-    over rays so that the gathered samples of a chunk stay under ~1 GB.
+    over rays so that the gathered samples of a chunk stay under ~1 GB. The
+    JAX package's dense sampler reads this table; the port's ray op reads
+    the field instead (`sample_and_composite_rays_field_reference`, the
+    same values).
 
     Args:
       table: the corner table of the fused (C, D, H, W) volume with
@@ -170,30 +210,79 @@ def sample_and_composite_rays_reference(
     """
     D, H, W = vol_shape
     flat = table.reshape((D + 1) * (H + 1) * (W + 1), -1)
-    Ct = flat.shape[1] // 8
-    K = Ct - 4
+
+    def sample(c):
+        rows, w8 = S.corner_rows_weights(c, vol_shape, True, False)
+        return S.gather_corners(flat, rows, w8)
+    return _march(sample, flat.shape[1] // 8, coords, valid, deltas,
+                  camera_mids, bg_depth, density_mode, beta, sdf_bias,
+                  chunk_rays)
+
+
+def sample_and_composite_rays_field_reference(
+        field: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+        deltas: torch.Tensor, camera_mids: torch.Tensor, bg_depth: float,
+        density_mode: str, beta: torch.Tensor, sdf_bias: float,
+        chunk_rays: Optional[int] = None) -> torch.Tensor:
+    """`sample_and_composite_rays_reference` reading the 8 corners of each
+    sample from the channels-last (D, H, W, C) field (bf16 or fp32, any
+    strides) instead of its corner table: the same terms in the same order,
+    so in fp32 the same results bit for bit. The plain version of the CUDA
+    kernel in `ops/rays.py`."""
+    C = field.shape[-1]
+    return _march(lambda c: S.gather_field_corners(field, c), C, coords,
+                  valid, deltas, camera_mids, bg_depth, density_mode, beta,
+                  sdf_bias, chunk_rays)
+
+
+def _sample_grads(samp, vm, dl, g, mids, bg_depth, density_mode, beta,
+                  sdf_bias):
+    """For a chunk's (cr, S, Ct) samples and its (cr, Ct) d out: d samples
+    (cr, S, Ct) fp32, times `valid`, and the chunk's d beta."""
+    K = samp.shape[-1] - 4
+    g_rgb, g_seg, g_d = g[:, :3], g[:, 3:K + 3], g[:, K + 3]
+    samp = samp * vm[..., None]
+    dens, ddx, ddb = density_and_grads(samp[..., 0], density_mode, beta,
+                                       sdf_bias)
+    sd = dens * dl
+    csum = torch.cumsum(sd, dim=-1)
+    w = (1.0 - torch.exp(-sd)) * torch.exp(-(csum - sd))
+    t_next = torch.exp(-csum)
+    u = (torch.einsum('rsk,rk->rs', samp[..., K + 1:K + 4], g_rgb)
+         + torch.einsum('rsk,rk->rs', samp[..., 1:K + 1], g_seg)
+         + g_d[:, None] * (mids[None, :] - bg_depth))
+    wu = w * u
+    after = torch.flip(torch.cumsum(torch.flip(wu, (1,)), 1), (1,)) - wu
+    dsd = t_next * u - after
+    dsamp = torch.cat([(dsd * dl * ddx)[..., None],
+                       w[..., None] * g_seg[:, None, :],
+                       w[..., None] * g_rgb[:, None, :]], dim=-1)
+    return dsamp * vm[..., None], torch.sum(dsd * dl * ddb)
+
+
+def _march_backward(sample, scatter, Ct, coords, valid, deltas, camera_mids,
+                    bg_depth, density_mode, beta, sdf_bias, g_out,
+                    chunk_rays):
+    """d beta of whole rays, chunk by chunk; `sample(c)` as in `_march`,
+    `scatter(c, d)` adds the (P, Ct) d samples at the coords c into the
+    caller's gradient."""
     R_, S_n = coords.shape[:2]
     if chunk_rays is None:
         chunk_rays = max(1, _CHUNK_BYTES // (S_n * 8 * Ct * 4))
     mids = camera_mids.to(torch.float32)
-    outs = []
+    d_beta = torch.zeros((), dtype=torch.float32, device=coords.device)
     for r0 in range(0, R_, chunk_rays):
-        cc = coords[r0:r0 + chunk_rays]
-        cr = cc.shape[0]
-        rows, w8 = S.corner_rows_weights(cc.reshape(-1, 3), vol_shape, True,
-                                         False)
-        samp = S.gather_corners(flat, rows, w8).reshape(cr, S_n, Ct)
-        samp = samp * valid[r0:r0 + chunk_rays].to(torch.float32)[..., None]
-        sd = (density(samp[..., 0], density_mode, beta, sdf_bias)
-              * deltas[r0:r0 + chunk_rays].to(torch.float32))
-        alpha = 1.0 - torch.exp(-sd)
-        w = alpha * torch.exp(-(torch.cumsum(sd, dim=-1) - sd))   # (cr, S)
-        acc = torch.sum(w, dim=-1)
-        rgb_o = torch.sum(w[..., None] * samp[..., K + 1:K + 4], dim=1)
-        seg_o = torch.sum(w[..., None] * samp[..., 1:K + 1], dim=1)
-        depth_o = torch.sum(w * mids[None, :], dim=1) + (1.0 - acc) * bg_depth
-        outs.append(torch.cat([rgb_o, seg_o, depth_o[:, None]], dim=-1))
-    return torch.cat(outs, dim=0)
+        c = coords[r0:r0 + chunk_rays].reshape(-1, 3)
+        cr = c.shape[0] // S_n
+        dsamp, db = _sample_grads(
+            sample(c).reshape(cr, S_n, Ct),
+            valid[r0:r0 + chunk_rays].to(torch.float32),
+            deltas[r0:r0 + chunk_rays].to(torch.float32),
+            g_out[r0:r0 + chunk_rays].to(torch.float32), mids, bg_depth,
+            density_mode, beta, sdf_bias)
+        d_beta = d_beta + db
+        scatter(c, dsamp.reshape(cr * S_n, 1, Ct))
+    return d_beta
 
 
 def sample_and_composite_rays_backward_reference(
@@ -216,48 +305,53 @@ def sample_and_composite_rays_backward_reference(
       d sdf_i = d sd_i * delta_i * density'(sdf_i)
 
     then every sample's d value is scattered into its 8 corner rows with its
-    corner weights times `valid`. This is the CPU path and the version the
-    CUDA kernel (`csrc/rays.cu`) is held to.
+    corner weights times `valid`.
     """
     D, H, W = vol_shape
     flat = table.reshape((D + 1) * (H + 1) * (W + 1), -1)
     Ct = flat.shape[1] // 8
-    K = Ct - 4
-    R_, S_n = coords.shape[:2]
-    if chunk_rays is None:
-        chunk_rays = max(1, _CHUNK_BYTES // (S_n * 8 * Ct * 4))
-    mids = camera_mids.to(torch.float32)
     d_table = torch.zeros(flat.shape, dtype=torch.float32,
                           device=flat.device)
-    d_beta = torch.zeros((), dtype=torch.float32, device=flat.device)
-    for r0 in range(0, R_, chunk_rays):
-        cc = coords[r0:r0 + chunk_rays]
-        cr = cc.shape[0]
-        vm = valid[r0:r0 + chunk_rays].to(torch.float32)
-        dl = deltas[r0:r0 + chunk_rays].to(torch.float32)
-        g = g_out[r0:r0 + chunk_rays].to(torch.float32)
-        g_rgb, g_seg, g_d = g[:, :3], g[:, 3:K + 3], g[:, K + 3]
-        rows, w8 = S.corner_rows_weights(cc.reshape(-1, 3), vol_shape, True,
-                                         False)
-        samp = S.gather_corners(flat, rows, w8).reshape(cr, S_n, Ct)
-        samp = samp * vm[..., None]
-        dens, ddx, ddb = density_and_grads(samp[..., 0], density_mode, beta,
-                                           sdf_bias)
-        sd = dens * dl
-        csum = torch.cumsum(sd, dim=-1)
-        w = (1.0 - torch.exp(-sd)) * torch.exp(-(csum - sd))
-        t_next = torch.exp(-csum)
-        u = (torch.einsum('rsk,rk->rs', samp[..., K + 1:K + 4], g_rgb)
-             + torch.einsum('rsk,rk->rs', samp[..., 1:K + 1], g_seg)
-             + g_d[:, None] * (mids[None, :] - bg_depth))
-        wu = w * u
-        after = torch.flip(torch.cumsum(torch.flip(wu, (1,)), 1), (1,)) - wu
-        dsd = t_next * u - after
-        d_beta = d_beta + torch.sum(dsd * dl * ddb)
-        dsamp = torch.cat([(dsd * dl * ddx)[..., None],
-                           w[..., None] * g_seg[:, None, :],
-                           w[..., None] * g_rgb[:, None, :]], dim=-1)
-        dsamp = (dsamp * vm[..., None]).reshape(cr * S_n, 1, Ct)
+
+    def sample(c):
+        rows, w8 = S.corner_rows_weights(c, vol_shape, True, False)
+        return S.gather_corners(flat, rows, w8)
+
+    def scatter(c, dsamp):
+        rows, w8 = S.corner_rows_weights(c, vol_shape, True, False)
         d_table.index_add_(0, rows,
                            (dsamp * w8[:, :, None]).reshape(-1, 8 * Ct))
+    d_beta = _march_backward(sample, scatter, Ct, coords, valid, deltas,
+                             camera_mids, bg_depth, density_mode, beta,
+                             sdf_bias, g_out, chunk_rays)
     return d_table, d_beta
+
+
+def sample_and_composite_rays_field_backward_reference(
+        field: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+        deltas: torch.Tensor, camera_mids: torch.Tensor, bg_depth: float,
+        density_mode: str, beta: torch.Tensor, sdf_bias: float,
+        g_out: torch.Tensor, chunk_rays: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of `sample_and_composite_rays_field_reference`: (d field
+    fp32 (D, H, W, C), d beta fp32 0-dim). As
+    `sample_and_composite_rays_backward_reference`, but each sample's d
+    value goes with its corner weights straight into the field's gradient,
+    so no table cotangent exists; in fp32 it is that version's d table
+    passed through the table's transpose, summed in another order. This is
+    the CPU path and the version the CUDA kernel (`csrc/rays.cu`) is held
+    to."""
+    D, H, W, C = field.shape
+    d_field = torch.zeros((D * H * W, C), dtype=torch.float32,
+                          device=field.device)
+
+    def scatter(c, dsamp):
+        vox, _, w8 = S.field_corners(c, (D, H, W))
+        # corners outside the field weigh 0: they add 0 at a clamped voxel
+        d_field.index_add_(0, vox.reshape(-1),
+                           (dsamp * w8[:, :, None]).reshape(-1, C))
+    d_beta = _march_backward(lambda c: S.gather_field_corners(field, c),
+                             scatter, C, coords, valid, deltas, camera_mids,
+                             bg_depth, density_mode, beta, sdf_bias, g_out,
+                             chunk_rays)
+    return d_field.reshape(D, H, W, C), d_beta

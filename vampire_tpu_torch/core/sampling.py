@@ -15,8 +15,10 @@ Port of the serving-path half of `vampire_tpu/core/sampling.py`:
     table of a volume (one row per trilinear footprint); the first is the
     plain version of the CUDA kernel in `ops/tables.py`.
   * `corner_rows_weights`: the row/weight contract between that table and
-    every sampler that reads it (`grid_sample_3d_fused` here, the ray
-    samplers of `core/rendering.py` and `csrc/rays.cu`).
+    every sampler that reads it (`grid_sample_3d_fused` here, the table ray
+    sampler of `core/rendering.py`); `field_corners` /
+    `gather_field_corners` read the same corners from a channels-last field
+    (the field ray sampler and `csrc/rays.cu`).
 
 Conventions follow torch `grid_sample`: coords are (x, y, z) in [-1, 1] with
 x indexing the innermost axis; align_corners=True maps -1/1 to the corner
@@ -187,6 +189,43 @@ def gather_corners(flat: torch.Tensor, rows: torch.Tensor,
     """Weighted sum of the 8 corners of each row: flat (R, 8*Ct) table,
     rows (P,), w8 (P, 8) -> (P, Ct) fp32."""
     t = flat.index_select(0, rows).reshape(rows.shape[0], 8, -1)
+    return torch.sum(t.to(torch.float32) * w8[:, :, None], dim=1)
+
+
+def field_corners(c: torch.Tensor, vol_shape: Tuple[int, int, int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The corners of `corner_rows_weights` (align_corners=True, zeros) in a
+    (D, H, W) field: c (P, 3) -> (voxels (P, 8) int64, flat indices into
+    the D*H*W voxels clamped into the field; inside (P, 8) bool; w8 (P, 8)
+    fp32 weights in the table's (dz, dy, dx)-major corner order). Corner k of
+    table row (bz, by, bx) is voxel (bz-1+dz, by-1+dy, bx-1+dx); a corner
+    outside the field weighs 0, and its table entry is 0."""
+    D, H, W = vol_shape
+    rows, w8 = corner_rows_weights(c, vol_shape, True, False)
+    k = torch.arange(8, device=c.device)
+    vox = torch.zeros(w8.shape, dtype=torch.int64, device=c.device)
+    inside = torch.ones(w8.shape, dtype=torch.bool, device=c.device)
+    for base, off, size in ((rows // ((W + 1) * (H + 1)), k >> 2, D),
+                            ((rows // (W + 1)) % (H + 1), (k >> 1) & 1, H),
+                            (rows % (W + 1), k & 1, W)):
+        r = base[:, None] - 1 + off
+        inside &= (r >= 0) & (r < size)
+        vox = vox * size + r.clamp(0, size - 1)
+    return vox, inside, w8
+
+
+def gather_field_corners(field: torch.Tensor, c: torch.Tensor
+                         ) -> torch.Tensor:
+    """Trilinear samples of a channels-last (D, H, W, C) field at c (P, 3)
+    -> (P, C) fp32: the 8 corners of `field_corners` (those outside read 0)
+    times their weights, summed over the corners. These are the terms
+    `gather_corners` reads from the field's corner table, summed the same
+    way, so the fp32 results are identical."""
+    D, H, W, C = field.shape
+    vox, inside, w8 = field_corners(c, (D, H, W))
+    t = field.reshape(D * H * W, C).index_select(0, vox.reshape(-1))
+    t = t.reshape(-1, 8, C)
+    t = torch.where(inside[..., None], t, torch.zeros((), dtype=t.dtype))
     return torch.sum(t.to(torch.float32) * w8[:, :, None], dim=1)
 
 

@@ -6,9 +6,11 @@ into one ego voxel field by the block-compacted lift (whose inner step is the
 CUDA kernel of `ops/lift.py`), refined by the Unet3D, and queried for the
 Occ3D grid, the LiDAR points, the BEV column renders and the BEV feature of
 the detection head. With `camera_renders=True` (the default, as in the JAX
-package) the fused field [sdf | seg | rgb] is also turned into one bf16
-corner table per frame (`ops/tables.py`), through which the camera rays are
-rendered (`ops/rays.py`); the ray renders are upsampled x4. The three
+package) the fused field [sdf | seg | rgb] is also copied channels-last in
+bf16 once per frame, and the camera rays are rendered from that copy
+(`ops/rays.py`); the ray renders are upsampled x4. The JAX package reads
+the same corner values through a corner table (a TPU gather layout), which
+the port builds only in its kernel checks (`ops/tables.py`). The two
 kernels' ops are `torch.autograd.Function`s with backward kernels, so the
 same forward trains (`training/`).
 
@@ -34,7 +36,6 @@ from ..core import rendering as R
 from ..core import sampling as S
 from ..ops import lift as lift_ops
 from ..ops import rays as ray_ops
-from ..ops import tables as table_ops
 from .resnet import Conv2d, ResNet
 from .second_fpn import SECONDFPN
 from .unet3d import Conv3d, Unet3D
@@ -278,10 +279,20 @@ class FieldBackbone(nn.Module):
             c.z_bound_det[2])
         return bev_rgb, bev_seg, bev_height, bev_density, vox_out
 
-    def _render_cameras(self, mats, tables, plain=False):
-        """Camera-ray renders through the frames' corner tables, x4
-        upsampled: rgb (B, N, H, W, 3), seg logits (B, N, H, W, K), depth
-        (B, N, H, W), with (H, W) = feat_hw * upsample_factor."""
+    def _ray_fields(self, fused):
+        """One channels-last `sample_dtype` copy (Z, Y, X, C) of each
+        frame's fused (C, Z, Y, X) field, the camera rays' input, with its
+        voxels padded to 16 bytes (`ops.rays.channels_last_field`). The
+        gradient flows back through the copy."""
+        fused_t = fused.to(self.sample_dtype)
+        return [ray_ops.channels_last_field(fused_t[b])
+                for b in range(fused.shape[0])]
+
+    def _render_cameras(self, mats, fields, plain=False):
+        """Camera-ray renders through the frames' channels-last fields
+        (`_ray_fields`), x4 upsampled: rgb (B, N, H, W, 3), seg logits
+        (B, N, H, W, K), depth (B, N, H, W), with (H, W) = feat_hw *
+        upsample_factor."""
         c = self.cfg
         K = c.num_classes
         if c.ray_et_fracs:
@@ -293,11 +304,11 @@ class FieldBackbone(nn.Module):
         coords, valid, delta = ray_inputs(geom, c)
         B, N, _, fh, fw = geom.shape[:5]
         out = torch.stack([
-            ray_ops.render_rays(t, c.grid_zyx('seg'), coords[b], valid[b],
-                                delta[b], self.camera_mids, c.d_bound[1],
+            ray_ops.render_rays(f, coords[b], valid[b], delta[b],
+                                self.camera_mids, c.d_bound[1],
                                 c.density_mode, self.density_beta,
                                 c.sdf_bias, plain)
-            for b, t in enumerate(tables)])                 # (B, R, 3+K+1)
+            for b, f in enumerate(fields)])                 # (B, R, 3+K+1)
         out = out.reshape(B, N, fh, fw, K + 4)
         up = c.upsample_factor
         size = (fh * up, fw * up)
@@ -314,18 +325,18 @@ class FieldBackbone(nn.Module):
         """Forward in the module's mode: `model.train()` is the JAX
         package's train=True (BN on batch statistics outside the frozen
         stem), `eval()` its train=False. The forward is differentiable: the
-        three kernels' ops carry their backward kernels.
+        two kernels' ops carry their backward kernels.
 
         Args:
           imgs: (B, N, H, W, 3) normalized images (channels-last).
           mats: 'sensor2ego'/'intrin'/'ida' (B, N, 4, 4) and 'bda' (B, 4, 4).
           points: optional (B, P, 3) padded ego-frame query points.
-          camera_renders: also build the frame's corner table and render
-            the camera rays through it, as the JAX package does by default
-            and as training needs; False is the metrics graph, whose outputs
-            carry None for the camera renders.
-          plain: run the plain PyTorch versions of the kernels (lift, corner
-            table, rays), forward and backward, instead of the kernels. Only
+          camera_renders: also render the camera rays through the frame's
+            field, as the JAX package does by default and as training needs;
+            False is the metrics graph, whose outputs carry None for the
+            camera renders.
+          plain: run the plain PyTorch versions of the kernels (lift, rays),
+            forward and backward, instead of the kernels. Only
             a caller comparing the two on a card sets it; on the CPU both
             are the plain versions.
 
@@ -365,13 +376,8 @@ class FieldBackbone(nn.Module):
         occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol)
         rgb_p = seg_p = depth_p = None
         if camera_renders:
-            # one corner table per frame, in sample_dtype, serves the camera
-            # rays (the JAX package's table_pad_channels only pads rows to
-            # TPU lane tiles, exactly; it is not read here)
-            fused_t = fused.to(self.sample_dtype)
-            tables = [table_ops.build_corner_table(fused_t[b], plain)
-                      for b in range(B)]
-            rgb_p, seg_p, depth_p = self._render_cameras(mats, tables, plain)
+            rgb_p, seg_p, depth_p = self._render_cameras(
+                mats, self._ray_fields(fused), plain)
         (bev_rgb, bev_seg, bev_height, bev_density,
          vox_out) = self._render_bev(fused, base.to(torch.float32))
 

@@ -33,12 +33,13 @@ class Vampire(nn.Module):
     def forward(self, imgs, mats, points=None, lidar_seg: bool = False,
                 camera_renders: bool = True, plain: bool = False):
         """Returns (field outputs dict, per-task head preds or None).
-        `lidar_seg=True` skips the detection head; `camera_renders=False` is
-        the metrics graph; `plain` runs the kernels' plain versions (see
-        `FieldBackbone.forward`)."""
+        `lidar_seg=True` skips the detection head in eval mode only, as the
+        JAX module skips it for `lidar_seg and not train`;
+        `camera_renders=False` is the metrics graph; `plain` runs the
+        kernels' plain versions (see `FieldBackbone.forward`)."""
         fo = self.backbone(imgs, mats, points=points,
                            camera_renders=camera_renders, plain=plain)
-        if lidar_seg:
+        if lidar_seg and not self.training:
             return fo, None
         return fo, self.head(fo['bev_feature'])
 

@@ -10,7 +10,7 @@ decoded on the device and circle-NMSed on the host by the C++ library of
 `outputs` selects the output groups as in the JAX server, with the same
 keys: None (the default, the full-render graph) or a selection that holds
 'camera_renders' runs the camera-ray branch; the others run the metrics
-graph (`camera_renders=False`), which skips the corner table and the rays.
+graph (`camera_renders=False`), which skips the camera rays.
 `ReplicaPool` and the TCP front-end are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations

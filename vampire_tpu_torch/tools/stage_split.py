@@ -15,8 +15,10 @@ For each it prints:
   * the forward's (the step's) host-clock median, min and max;
   * per stage, the mean CUDA-event span per forward (per step): the
     encoder, the lift, the Unet3D, the queries, the BEV render, the camera
-    rays and their parts, the det head, each kernel; in the step also the
-    losses, the backward, the clipping and the AdamW update. A span
+    rays and their parts (the channels-last field copy, each ray kernel;
+    in the step also the ray backward and the field gradient's permute
+    back), the det head, each kernel; in the step also the losses, the
+    backward, the clipping and the AdamW update. A span
     includes the host's launch gaps inside it, so it is the stage's
     latency, not its device busy time;
   * the peak device memory of one forward (one step);
@@ -49,7 +51,7 @@ def main(argv=None):
     import chip_smoke
     from vampire_tpu_torch.configs import flagship_config, synthetic_batch
     from vampire_tpu_torch.models import field as F
-    from vampire_tpu_torch.ops import _build, lift, rays, tables
+    from vampire_tpu_torch.ops import _build, lift, rays
     from vampire_tpu_torch.serving import InferenceServer
     from vampire_tpu_torch.training import train_step as TS
     from vampire_tpu_torch.training.trainer import Trainer
@@ -83,14 +85,19 @@ def main(argv=None):
 
     fb = F.FieldBackbone
     for meth in ('lift', '_query_points', '_query_occ', '_render_bev',
-                 '_render_cameras'):
+                 '_ray_fields', '_render_cameras'):
         setattr(fb, meth, timed(meth, getattr(fb, meth)))
     for mod, name in ((lift, 'lift_accumulate_'), (lift, 'lift_backward'),
-                      (tables, 'corner_table'),
-                      (tables, 'corner_table_backward'),
                       (rays, 'sample_and_composite_rays'),
                       (rays, 'sample_and_composite_rays_backward')):
         setattr(mod, name, timed(f'{name} kernel', getattr(mod, name)))
+    # the ray branch's other backward parts: the ray op's backward (the
+    # d field's zero-fill, the kernel and the cast to the field's dtype) and
+    # the field copy's backward (the permute back to channels-first)
+    rays.RenderRays.backward = timed('rays backward (zero-fill, kernel, '
+                                     'cast)', rays.RenderRays.backward)
+    rays.ChannelsLastField.backward = timed(
+        'field gradient permute', rays.ChannelsLastField.backward)
     F.G.get_geometry = timed('get_geometry', F.G.get_geometry)
     F.ray_inputs = timed('ray_inputs', F.ray_inputs)
     F.S.resize_linear = timed('resize_linear (x4 up, x0.5 bev)',

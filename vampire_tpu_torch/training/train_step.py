@@ -1,8 +1,8 @@
 """The training step; the port of `vampire_tpu/training/train_step.py`.
 
 One step: the forward in train mode (BN on batch statistics outside the
-frozen stem, camera renders on, the lift, corner-table and ray kernels with
-their backward kernels), all task losses, backward, global-norm clipping,
+frozen stem, camera renders on, the lift and ray kernels with their
+backward kernels), all task losses, backward, global-norm clipping,
 AdamW, the optional EMA, and the two train-IoU confusion matrices. The BN
 running statistics move during the forward, as flax's mutable batch_stats.
 """
