@@ -14,8 +14,10 @@ nonzero without printing a result:
                started together.
   3. kernel  - each kernel against its plain torch version at the flagship
                shapes, with the error and the median time of each:
-               the lift (D=86, h=64, w=176, C=16, K=264, Q=1280; camera_rig
-               geometry, torch.topk selection) in fp32 and bf16; the corner
+               the lift over a frame's 6 cameras in one launch (D=86,
+               h=64, w=176, C=16, K=264, Q=1280, G=1024; camera_rig
+               geometry, torch.topk selection) in fp32 and bf16, also with
+               every selected block selected by two cameras; the corner
                table of a (22, 20, 256, 256) field in fp32 and bf16, which
                must be byte-identical (the corner-table kernels left the
                model's path; they are the port of the TPU table kernels and
@@ -23,7 +25,8 @@ nonzero without printing a result:
                samples of camera_rig geometry through the bf16 channels-last
                field (voxel stride 24) of a synthetic field whose rays end
                partly opaque. Then the three backward kernels: the lift's
-               per camera in fp32 and bf16, the corner table's from an fp32
+               per frame in fp32 and bf16 (the same two cases), the corner
+               table's from an fp32
                and a bf16 (21, 257, 257, 176) cotangent (byte-identical),
                and the rays' over the same 67,584 rays (d field and d
                beta).
@@ -37,8 +40,8 @@ nonzero without printing a result:
                request 0 matches the same forward with the plain versions
                of the kernels on the card; the renders also under a
                density head that leaves the rays partly opaque. Per request
-               the full-render graph launches the lift 6 times and the rays
-               once, the corner table never; the metrics graph the lift
+               the full-render graph launches the lift and the rays once
+               each, the corner table never; the metrics graph the lift
                only.
   5. train   - Trainer(flagship_config(), device='cuda') in bf16 with seeded
                random weights. Under a density head that leaves the rays
@@ -47,8 +50,8 @@ nonzero without printing a result:
                through the backward kernels against their plain versions
                in bf16 compute; then
                `fit` over a list loader of 3 full-width training batches
-               for one epoch. Checks the launch counts per step (lift 6
-               forward and 6 backward, rays 1 and 1, corner table 0 and 0),
+               for one epoch. Checks the launch counts per step (lift 1
+               forward and 1 backward, rays 1 and 1, corner table 0 and 0),
                finite loss terms and grad_norm, every parameter with a
                gradient moved, the frozen stem bit-unchanged; then times
                more steps and reads the peak memory.
@@ -68,7 +71,8 @@ nonzero without printing a result:
 
 Every kernel line carries its bound: the bytes it must move (each input
 read once, each output written once; the rows or field voxels the indices
-or rays touch, not the whole table or field) at 3.35 TB/s
+or rays touch, not the whole table or field; the lift's lines are per
+frame) at 3.35 TB/s
 (`tools/gather_probe.bound_ms`); their operations take less time at every
 shape here. The ray kernels' lines also carry the bound of the same
 function read through the corner table (`table_bound_ms`), and their
@@ -210,7 +214,10 @@ def cuda_ms(fn, iters, warmup=3):
 def lift_cameras(bc, dev):
     """One flagship frame's lift inputs: softmax depth and features from a
     seed, and per camera its top-K block ids, coords and validity from the
-    camera_rig geometry."""
+    camera_rig geometry, stacked as `ops.lift.lift_frame` takes them:
+    depth (6, D, h, w), feat (6, h, w, C) fp32, ids (6, K), coords
+    (6, K, Q, 3), valid (6, K, Q). Returns those and (G, Q, C, K, the
+    valid queries)."""
     import torch
     from vampire_tpu_torch.configs import camera_rig
     from vampire_tpu_torch.core.geometry import get_pixel
@@ -223,68 +230,77 @@ def lift_cameras(bc, dev):
     pix = get_pixel(vox[:, :, None], rig['sensor2ego'], rig['intrin'],
                     rig['ida'], rig['bda'])[..., 0, :]
     coords, valid = coords_valid(pix, bc)
-    counts_ = valid.sum(-1)
     G, Q = valid.shape[2:]
     K = min(bc.lift_block_topk, G)
     g = torch.Generator(device=dev).manual_seed(0)
     depth = torch.softmax(torch.randn(6, D, h, w, device=dev, generator=g),
                           dim=1)
     feat = torch.randn(6, h, w, C, device=dev, generator=g)
-    cams = []
-    for n in range(6):
-        ids = torch.topk(counts_[0, n], K).indices
-        cams.append((ids, coords[0, n][ids].contiguous(),
-                     valid[0, n][ids].contiguous()))
-    return depth, feat, cams, G, Q, C, K, int(valid[0].sum())
+    ids = torch.topk(valid[0].sum(-1), K, dim=-1).indices       # (6, K)
+    sel = ids[..., None]
+    coords = torch.gather(coords[0], 1, sel[..., None].expand(-1, -1, Q, 3))
+    valid = torch.gather(valid[0], 1, sel.expand(-1, -1, Q))
+    frame = (depth, feat, ids.contiguous(), coords.contiguous(),
+             valid.contiguous())
+    return frame, (G, Q, C, K, int(valid.sum()))
+
+
+def paired_ids(ids):
+    """The frame's ids with cameras 1, 3 and 5 taking the blocks of cameras
+    0, 2 and 4 in reverse order: every selected block is selected by two
+    cameras, whose samples the kernel adds in camera order."""
+    out = ids.clone()
+    out[1::2] = ids[0::2].flip(-1)
+    return out
 
 
 def lift_check(card, bc, dev):
-    """The lift kernel against its plain version, one camera at a time."""
+    """The frame lift kernel against its plain version over all 6 cameras in
+    one call, in fp32 and bf16, on the frame and on `paired_ids`; times per
+    frame."""
     import torch
     from vampire_tpu_torch.ops import lift
 
     dev = torch.device(dev)
-    depth, feat, cams, G, Q, C, K, n_valid = lift_cameras(bc, dev)
+    (depth, feat, ids, coords, valid), (G, Q, C, K, n_valid) = \
+        lift_cameras(bc, dev)
     D, h, w = depth.shape[1:]
-    say(f'lift: depth ({D},{h},{w}) feat ({h},{w},{C}) K={K} Q={Q} G={G}, '
-        f'6 cameras, {n_valid} valid queries')
+    say(f'lift: depth (6,{D},{h},{w}) feat (6,{h},{w},{C}) K={K} Q={Q} '
+        f'G={G}, {n_valid} valid queries; one launch a frame')
 
     result = dict(max_abs_err=0.0)
     for dt in (torch.float32, torch.bfloat16):
         dep, fea = depth.to(dt), feat.to(dt)
-        acc_k = [torch.zeros(G, Q, C, device=dev) for _ in range(2)]
-        acc_r = [torch.zeros(G, Q, C, device=dev) for _ in range(2)]
-        for n, (ids, cc, vv) in enumerate(cams):
-            lift.lift_accumulate_(dep[n], fea[n], ids, cc, vv, *acc_k)
-            lift.lift_accumulate_reference(dep[n], fea[n], ids, cc, vv,
-                                           *acc_r)
-        torch.cuda.synchronize()
-        err = (acc_k[0] - acc_r[0]).abs().max().item()
-        scale = acc_r[0].abs().max().item()
-        dmis = int((acc_k[1] != acc_r[1]).sum())
-        tol = KERNEL_RTOL * max(1.0, scale)
-        ids, cc, vv = cams[1]
-        scratch = [torch.zeros(G, Q, C, device=dev) for _ in range(2)]
-        ms = cuda_ms(lambda: lift.lift_accumulate_(dep[1], fea[1], ids, cc,
-                                                   vv, *scratch), 50)
-        plain = cuda_ms(lambda: lift.lift_accumulate_reference(
-            dep[1], fea[1], ids, cc, vv, *scratch), 10)
         name = str(dt).replace('torch.', '')
-        # the camera's inputs, and numer and denom read and written at its
-        # K blocks
-        bound = hbm_ms(dep[1], fea[1], ids, cc, vv, 4 * K * Q * C * 4)
-        say(f'lift {name}: max abs err {err:.3e} (max |ref| {scale:.3e}, '
-            f'tol {tol:.1e}); denom mismatches {dmis} of '
-            f'{acc_r[1].numel()}; kernel {ms:.4f} ms, plain {plain:.4f} ms '
-            f'per camera, bound {bound:.4f} ms [{card}]')
-        if not err <= tol:
-            raise AssertionError(f'lift kernel {name} disagrees with the '
-                                 f'plain version: {err} > {tol}')
-        # an exact cancellation to 0 can flip one count; allow 1e-6 of them
-        if dmis > 1e-6 * acc_r[1].numel():
-            raise AssertionError(f'lift kernel {name}: {dmis} denominator '
-                                 f'counts differ')
-        result['max_abs_err'] = max(result['max_abs_err'], err)
+        for case, ii in (('frame', ids), ('paired cameras', paired_ids(ids))):
+            got = lift.lift_frame_accumulate(dep, fea, ii, coords, valid, G)
+            want = lift.lift_frame_accumulate_reference(dep, fea, ii, coords,
+                                                        valid, G)
+            torch.cuda.synchronize()
+            err = (got[0] - want[0]).abs().max().item()
+            scale = want[0].abs().max().item()
+            dmis = int((got[1] != want[1]).sum())
+            tol = KERNEL_RTOL * max(1.0, scale)
+            say(f'lift {name} {case}: max abs err {err:.3e} (max |ref| '
+                f'{scale:.3e}, tol {tol:.1e}); denom mismatches {dmis} of '
+                f'{want[1].numel()}')
+            if not err <= tol:
+                raise AssertionError(f'lift kernel {name} {case} disagrees '
+                                     f'with the plain version: {err} > {tol}')
+            # an exact cancellation to 0 can flip one count; allow 1e-6
+            if dmis > 1e-6 * want[1].numel():
+                raise AssertionError(f'lift kernel {name} {case}: {dmis} '
+                                     f'denominator counts differ')
+            result['max_abs_err'] = max(result['max_abs_err'], err)
+            del got, want
+        ms = cuda_ms(lambda: lift.lift_frame_accumulate(
+            dep, fea, ids, coords, valid, G), 50)
+        plain = cuda_ms(lambda: lift.lift_frame_accumulate_reference(
+            dep, fea, ids, coords, valid, G), 5)
+        # the frame's inputs read once, numer and denom written once
+        bound = hbm_ms(dep, fea, ids, coords, valid, 2 * G * Q * C * 4)
+        say(f'lift {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
+            f'frame, bound {bound:.4f} ms (share {bound / ms:.3f}) [{card}]')
         result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     return result
 
@@ -478,39 +494,53 @@ def check_grad(what, got, want, rtol):
 
 
 def lift_bwd_check(card, bc, dev):
-    """The lift backward kernel against its plain version, per camera,
-    from a random d numer (G, Q, C) fp32, in fp32 and bf16."""
+    """The frame lift backward kernel against its plain version over all 6
+    cameras in one call, from a random d numer (G, Q, C) fp32, in fp32 and
+    bf16, on the frame and on `paired_ids`; times per frame."""
     import torch
     from vampire_tpu_torch.ops import lift
 
     dev = torch.device(dev)
-    depth, feat, cams, G, Q, C, K, _ = lift_cameras(bc, dev)
+    (depth, feat, ids, coords, valid), (G, Q, C, K, n_valid) = \
+        lift_cameras(bc, dev)
     g = torch.randn(G, Q, C, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(3))
-    result = dict(max_abs_err=0.0)
+    live = int((valid.sum(-1) > 0).sum())
+    # the d numer rows the valid queries read: distinct (block, query)
+    rows = torch.zeros(G, Q, dtype=torch.bool, device=dev)
+    rows[ids[..., None].expand(-1, -1, Q)[valid > 0],
+         torch.arange(Q, device=dev).expand_as(valid)[valid > 0]] = True
+    n_rows = int(rows.sum())
+    say(f'lift_bwd: {ids.numel()} CTAs, one a (camera, selected block), '
+        f'{live} with a valid query; every CTA adds straight into device '
+        f'memory (float4 reductions); {n_valid} valid queries read '
+        f'{n_rows} d numer rows')
+    result = dict(max_abs_err=0.0, ctas=ids.numel(), live_ctas=live)
     for dt in (torch.float32, torch.bfloat16):
         dep, fea = depth.to(dt), feat.to(dt)
         name = str(dt).replace('torch.', '')
-        for n, (ids, cc, vv) in enumerate(cams):
-            got = lift.lift_backward(dep[n], fea[n], ids, cc, vv, g)
-            want = lift.lift_backward_reference(dep[n], fea[n], ids, cc, vv,
-                                                g)
+        for case, ii in (('frame', ids), ('paired cameras', paired_ids(ids))):
+            got = lift.lift_frame_backward(dep, fea, ii, coords, valid, g)
+            want = lift.lift_frame_backward_reference(dep, fea, ii, coords,
+                                                      valid, g)
             torch.cuda.synchronize()
             for what, a, b in (('d depth', got[0], want[0]),
                                ('d feat', got[1], want[1])):
-                err = check_grad(f'lift_bwd {name} camera {n} {what}', a, b,
+                err = check_grad(f'lift_bwd {name} {case} {what}', a, b,
                                  BWD_RTOL)
                 result['max_abs_err'] = max(result['max_abs_err'], err)
-        ids, cc, vv = cams[1]
-        ms = cuda_ms(lambda: lift.lift_backward(dep[1], fea[1], ids, cc, vv,
-                                                g), 20)
-        plain = cuda_ms(lambda: lift.lift_backward_reference(
-            dep[1], fea[1], ids, cc, vv, g), 5)
-        # the camera's inputs, d numer at its K blocks, fp32 d depth, d feat
-        bound = hbm_ms(dep[1], fea[1], ids, cc, vv, K * Q * C * 4,
-                       dep[1].numel() * 4, fea[1].numel() * 4)
+            del got, want
+        ms = cuda_ms(lambda: lift.lift_frame_backward(
+            dep, fea, ids, coords, valid, g), 20)
+        plain = cuda_ms(lambda: lift.lift_frame_backward_reference(
+            dep, fea, ids, coords, valid, g), 3)
+        # what the valid queries read (their coords and d numer rows; the
+        # kernel skips the others), the rest of the frame's inputs, fp32
+        # d depth and d feat written
+        bound = hbm_ms(dep, fea, ids, valid, n_valid * 3 * 4, n_rows * C * 4,
+                       dep.numel() * 4, fea.numel() * 4)
         say(f'lift_bwd {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
-            f'camera, bound {bound:.4f} ms [{card}]')
+            f'frame, bound {bound:.4f} ms (share {bound / ms:.3f}) [{card}]')
         result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     return result
 
@@ -861,7 +891,7 @@ def slice_phase(card, cfg=None, dev='cuda'):
     outs, launched['metrics'] = serve_path(card, server, calib, samples,
                                            'metrics')
     check_launches('metrics', launched['metrics'],
-                   dict(lift=N, corner_table=0, rays=0))
+                   dict(lift=1, corner_table=0, rays=0))
     check_outputs('metrics', outs, metric, cfg)
     check_against_plain('metrics', server, samples[0], outs[0], metric)
     del server, outs
@@ -874,7 +904,7 @@ def slice_phase(card, cfg=None, dev='cuda'):
     outs, launched['full'] = serve_path(card, server, calib, samples,
                                         'full-render')
     check_launches('full-render', launched['full'],
-                   dict(lift=N, corner_table=0, rays=1))
+                   dict(lift=1, corner_table=0, rays=1))
     check_outputs('full-render', outs,
                   dict(metric, depth_preds=(N, H, W), seg_preds=(N, H, W),
                        bev_seg=(Yd, Xd)), cfg)
@@ -894,7 +924,8 @@ def plain_backwards():
     def rays_ref(*args):            # the plain version takes no saved `out`
         return R.sample_and_composite_rays_field_backward_reference(
             *args[:-2], args[-1])
-    swaps = ((lift, 'lift_backward', lift.lift_backward_reference),
+    swaps = ((lift, 'lift_frame_backward',
+              lift.lift_frame_backward_reference),
              (rays, 'sample_and_composite_rays_backward', rays_ref))
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     try:
@@ -1068,7 +1099,7 @@ def train_phase(card, cfg=None, dev='cuda'):
     say(f'train: fit over {N_TRAIN_BATCHES} steps in {fit_s:.2f} s (host '
         f'clock, incl. the epoch report and checkpoint); kernel launches '
         f'{launched}')
-    want = dict(lift=6, corner_table=0, rays=1, lift_bwd=6,
+    want = dict(lift=1, corner_table=0, rays=1, lift_bwd=1,
                 corner_table_bwd=0, rays_bwd=1)
     want = {k: n * N_TRAIN_BATCHES for k, n in want.items()}
     if launched != want:
@@ -1238,6 +1269,7 @@ def main():
         'also_replaces': 'vampire_tpu/ops/pallas_gather.py:68',
         'launches': launched['lift'],
         'train_launches': tl['lift'],
+        'per': 'frame',
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -1282,6 +1314,9 @@ def main():
         'source': f'{csrc}/lift.cu',
         'replaces': 'vampire_tpu/ops/pallas_tables.py:374',
         'launches': tl['lift_bwd'],
+        'per': 'frame',
+        'ctas': k['lift_bwd']['ctas'],
+        'live_ctas': k['lift_bwd']['live_ctas'],
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],

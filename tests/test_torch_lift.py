@@ -1,5 +1,6 @@
 """The lift: the port's plain version against the JAX `FieldBackbone._lift`,
-and (on a card only) the CUDA kernel against the plain version.
+the plain frame versions against the per-camera ones, the wrappers' checks,
+and (on a card only) the frame kernel against the plain version.
 
 JAX is imported inside the parity test only, so that the card-only cases
 run where JAX is not installed:
@@ -105,37 +106,187 @@ def test_reference_accumulates_in_place():
                                   n0[rest].numpy())
 
 
+def _frame_case(device, dtype, seed=0, N=3, D=9, H=8, W=12, C=5, G=6, K=4,
+                Q=50, spare=0):
+    """One frame of N cameras as `lift_frame_accumulate` takes it, with a
+    d numer (G, Q, C) for the backward. Cameras 0 and 1 select the same
+    blocks in another order; the last camera's first block has no valid
+    query; the last `spare` blocks are selected by no camera."""
+    g = torch.Generator().manual_seed(seed)
+    depth = torch.softmax(torch.randn(N, D, H, W, generator=g), 1)
+    feat = torch.randn(N, H, W, C, generator=g)
+    coords = torch.rand(N, K, Q, 3, generator=g) * 2.6 - 1.3
+    valid = (torch.rand(N, K, Q, generator=g) > 0.3).float()
+    ids = torch.stack([torch.randperm(G - spare, generator=g)[:K]
+                       for _ in range(N)])
+    ids[1] = ids[0].flip(0)
+    valid[-1, 0] = 0.0
+    t = dict(depth=depth.to(dtype), feat=feat.to(dtype), ids=ids,
+             coords=coords, valid=valid,
+             g_numer=torch.randn(G, Q, C, generator=g))
+    return {k: v.to(device) for k, v in t.items()}, G
+
+
 @pytest.mark.parametrize('field,bad,err', [
     ('feat', lambda t: t.to(torch.float64), TypeError),
     ('ids', lambda t: t.to(torch.int32), TypeError),
-    ('coords', lambda t: t[:, :, :2].contiguous(), ValueError),
-    ('numer', lambda t: t.transpose(0, 1), ValueError),
+    ('coords', lambda t: t[..., :2].contiguous(), ValueError),
+    ('g_numer', lambda t: t.transpose(0, 1), ValueError),
     ('valid', lambda t: t.to(torch.bfloat16), TypeError),
 ])
 def test_kernel_argument_checks(field, bad, err):
-    """The checks the wrapper makes before any launch."""
-    t = _camera_case('cpu', torch.float32)
+    """The checks the wrappers make before any launch."""
+    t, G = _frame_case('cpu', torch.float32)
     t[field] = bad(t[field])
     with pytest.raises(err):
-        lift._check(**t)
+        lift._check(n_blocks=G, **t)
+
+
+@pytest.mark.parametrize('N,C', [(33, 8), (2, 33), (2, 132)])
+def test_kernel_limits(N, C):
+    """More cameras than the forward's slot array holds, or more channels
+    than a warp's lanes cover, raise before any launch."""
+    t, G = _frame_case('cpu', torch.float32, N=N, C=C, Q=3)
+    with pytest.raises(ValueError):
+        lift._check(n_blocks=G, **t)
+
+
+def _shifted(t, elements):
+    """A contiguous copy of t whose data starts `elements` past an aligned
+    allocation."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize('dtype,C,field,shift,fwd_ok,bwd_ok', [
+    (torch.float32, 16, 'feat', 2, False, False),   # float4 reads: 16 B
+    (torch.bfloat16, 16, 'feat', 4, True, True),    # 8-byte reads: 8 B
+    (torch.bfloat16, 16, 'feat', 2, False, False),
+    (torch.float32, 8, 'feat', 1, True, False),     # forward: scalar reads
+    (torch.float32, 5, 'feat', 1, True, True),      # scalar reads both ways
+    (torch.float32, 8, 'g_numer', 2, True, False),  # float4 reads: 16 B
+])
+def test_kernel_alignment(dtype, C, field, shift, fwd_ok, bwd_ok):
+    """Each direction asks for the alignment its vector reads need, and no
+    more."""
+    t, G = _frame_case('cpu', dtype, C=C)
+    t[field] = _shifted(t[field], shift)
+    g_numer = t.pop('g_numer')
+    for ok, extra in ((fwd_ok, {}), (bwd_ok, dict(g_numer=g_numer))):
+        if ok:
+            lift._check(n_blocks=G, **t, **extra)
+        else:
+            with pytest.raises(ValueError, match='must start on'):
+                lift._check(n_blocks=G, **t, **extra)
+
+
+def test_frame_reference_is_the_camera_loop():
+    """The plain frame versions are the per-camera plain versions in camera
+    order, from zero (forward) and stacked (backward); ids outside
+    [0, n_blocks) are dropped in both directions, as the kernels ignore
+    them."""
+    t, G = _frame_case('cpu', torch.float32)
+    args = [t[k] for k in ('depth', 'feat', 'ids', 'coords', 'valid')]
+    N, K, Q = t['valid'].shape
+    C = t['feat'].shape[-1]
+    numer = torch.zeros(G, Q, C)
+    denom = torch.zeros(G, Q, C)
+    for n in range(N):
+        lift.lift_accumulate_reference(*(a[n] for a in args), numer, denom)
+    got = lift.lift_frame_accumulate_reference(*args, G)
+    assert torch.equal(got[0], numer) and torch.equal(got[1], denom)
+    want = [lift.lift_backward_reference(*(a[n] for a in args), t['g_numer'])
+            for n in range(N)]
+    dd, df = lift.lift_frame_backward_reference(*args, t['g_numer'])
+    assert torch.equal(dd, torch.stack([w[0] for w in want]))
+    assert torch.equal(df, torch.stack([w[1] for w in want]))
+
+    # ids out of range: as if those blocks were not selected
+    ids = t['ids'].clone()
+    ids[0, 1], ids[2, 3] = G, -1
+    args[2] = ids
+    keep = torch.ones(N, K, dtype=torch.bool)
+    keep[0, 1] = keep[2, 3] = False
+    numer.zero_()
+    denom.zero_()
+    grads = []
+    for n in range(N):
+        cam = args[0][n], args[1][n], *(a[n][keep[n]] for a in args[2:])
+        lift.lift_accumulate_reference(*cam, numer, denom)
+        grads.append(lift.lift_backward_reference(*cam, t['g_numer']))
+    got = lift.lift_frame_accumulate_reference(*args, G)
+    assert torch.equal(got[0], numer) and torch.equal(got[1], denom)
+    dd, df = lift.lift_frame_backward_reference(*args, t['g_numer'])
+    assert torch.equal(dd, torch.stack([g[0] for g in grads]))
+    assert torch.equal(df, torch.stack([g[1] for g in grads]))
+
+
+def test_frame_wrappers_run_the_plain_versions_on_the_cpu():
+    """On CPU tensors the frame wrappers are their plain versions and count
+    no launch."""
+    t, G = _frame_case('cpu', torch.float32)
+    args = [t[k] for k in ('depth', 'feat', 'ids', 'coords', 'valid')]
+    before = (lift.LAUNCHES, lift.BWD_LAUNCHES)
+    got = lift.lift_frame_accumulate(*args, G)
+    want = lift.lift_frame_accumulate_reference(*args, G)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = lift.lift_frame_backward(*args, t['g_numer'])
+    want = lift.lift_frame_backward_reference(*args, t['g_numer'])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (lift.LAUNCHES, lift.BWD_LAUNCHES) == before
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_gpu(dtype):
-    """The CUDA kernel vs the plain version on the same card and inputs.
-    Both read the same fp32/bf16 values and sum in fp32 in the same order;
-    only FMA contraction differs: 1e-5. The count must match exactly."""
+    """The frame kernel vs the plain frame version on the same card and
+    inputs, one launch a frame: 16 channels (four lanes a query sharing
+    the corner weights), 8 and 5 (a lane a channel); cameras 0 and 1
+    select the same blocks in another order; ids out of range and blocks
+    no camera selected (zeros). Both read the same fp32/bf16 values and
+    sum in fp32 in the same order; only FMA contraction differs: 1e-5.
+    The counts must match exactly."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
-    for seed in range(3):
-        t = _camera_case('cuda', dtype, seed=seed)
-        ref = {k: v.clone() for k, v in t.items()}
+    for seed, C, G, K, Q, spare in ((0, 16, 20, 12, 1280, 2),
+                                    (1, 8, 9, 9, 300, 0),
+                                    (2, 5, 30, 7, 77, 3)):
+        t, _ = _frame_case('cuda', dtype, seed=seed, N=6, C=C, G=G, K=K, Q=Q,
+                           spare=spare)
+        t['ids'][3, 0] = G          # ignored, as in the plain version
+        t['ids'][4, 2] = -1
+        args = [t[k] for k in ('depth', 'feat', 'ids', 'coords', 'valid')]
         before = lift.LAUNCHES
-        lift.lift_accumulate_(**t)
+        numer, denom = lift.lift_frame_accumulate(*args, G)
         assert lift.LAUNCHES == before + 1
-        lift.lift_accumulate_reference(**ref)
+        want = lift.lift_frame_accumulate_reference(*args, G)
         torch.cuda.synchronize()
-        torch.testing.assert_close(t['numer'], ref['numer'], rtol=1e-5,
-                                   atol=1e-5)
-        torch.testing.assert_close(t['denom'], ref['denom'], rtol=0, atol=0)
+        torch.testing.assert_close(numer, want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(denom, want[1], rtol=0, atol=0)
+        # the spare blocks: zeros written by the kernel itself
+        assert not numer[G - spare:].any() and not denom[G - spare:].any()
+
+
+@pytest.mark.gpu
+def test_kernels_read_8_byte_aligned_bf16_feat_on_gpu():
+    """bf16 features that start on 8 bytes but not 16 (a model's feat
+    slice can) run in both directions, as the kernels read them 8 bytes at
+    a time, and agree with the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    t, G = _frame_case('cuda', torch.bfloat16, seed=5, N=6, C=16, G=20,
+                       K=12, Q=300)
+    t['feat'] = _shifted(t['feat'], 4)
+    assert t['feat'].data_ptr() % 16 == 8
+    args = [t[k] for k in ('depth', 'feat', 'ids', 'coords', 'valid')]
+    numer, denom = lift.lift_frame_accumulate(*args, G)
+    want = lift.lift_frame_accumulate_reference(*args, G)
+    torch.testing.assert_close(numer, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(denom, want[1], rtol=0, atol=0)
+    got = lift.lift_frame_backward(*args, t['g_numer'])
+    want = lift.lift_frame_backward_reference(*args, t['g_numer'])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()

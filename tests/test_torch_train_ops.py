@@ -96,6 +96,41 @@ def test_lift_frame_matches_jax_vjp(seed):
                                    atol=1e-5 * np.abs(ref).max())
 
 
+def _lift_frame_case(case):
+    """The three frames the per-camera kernels never saw: two cameras
+    selecting the same blocks in another order, ids that include blocks
+    with no valid query, and every block selected (K = G)."""
+    if case == 'k_equals_g':
+        return _lift_case(5, K=6, G=6)
+    c = _lift_case(6)
+    if case == 'overlap':
+        c['ids'][1] = c['ids'][0][::-1]
+    else:                                   # empty_blocks
+        c['valid'][0, 1] = 0.0
+        c['valid'][2, :2] = 0.0
+    return c
+
+
+@pytest.mark.parametrize('case', ['overlap', 'empty_blocks', 'k_equals_g'])
+def test_lift_frame_cases_match_jax_vjp(case):
+    """The plain frame forward and backward (what the frame kernels are held
+    to on a card) against the JAX compacted lift step and its `jax.vjp`,
+    fp32, with the tolerances of `test_lift_frame_matches_jax_vjp`."""
+    c = _lift_frame_case(case)
+    want = _jax_lift_vjp(c)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in c.items()
+         if k != 'G'}
+    args = [t[k] for k in ('depth', 'feat', 'ids', 'coords', 'valid')]
+    numer, denom = lift.lift_frame_accumulate_reference(*args, c['G'])
+    d_depth, d_feat = lift.lift_frame_backward_reference(*args, t['g'])
+    np.testing.assert_allclose(numer.numpy(), want[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(denom.numpy(), want[1])
+    for got, ref in ((d_depth, want[2]), (d_feat, want[3])):
+        assert np.abs(ref).max() > 0.1
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
 def test_lift_frame_backward_casts_to_input_dtype():
     """bf16 inputs get bf16 gradients, the fp32 sums rounded once, as
     `_lift_table_bwd` casts them."""
@@ -401,23 +436,30 @@ def _need_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_lift_backward_kernel_matches_plain_on_gpu(dtype):
-    """fp32 atomics in another order than the plain version's index_add:
-    1e-5 of each gradient's magnitude. One launch per camera."""
+    """fp32 reductions in another order than the plain version's index_add:
+    1e-5 of each gradient's magnitude. One launch a frame; 16 channels
+    (float4 reductions, four lanes a query) and 5 (a scalar reduction a
+    lane and channel); cameras 0 and 1 select the same blocks in another
+    order, camera 2 a block with no valid query, and an id out of range."""
     _need_card()
-    c = _lift_case(4, N=2, G=20, K=12, Q=400)
-    for n in range(2):
-        t = [torch.from_numpy(np.asarray(c[k][n])).cuda() for k in
+    for seed, C in ((4, 16), (7, 5)):
+        c = _lift_case(seed, N=6, G=20, K=12, Q=400, C=C)
+        c['ids'][1] = c['ids'][0][::-1]
+        c['valid'][2, 3] = 0.0
+        c['ids'][5, 0] = 20
+        t = [torch.from_numpy(np.ascontiguousarray(c[k])).cuda() for k in
              ('depth', 'feat', 'ids', 'coords', 'valid')]
         t[0], t[1] = t[0].to(dtype), t[1].to(dtype)
         g = torch.from_numpy(c['g']).cuda()
         before = lift.BWD_LAUNCHES
-        got = lift.lift_backward(*t, g)
+        got = lift.lift_frame_backward(*t, g)
         assert lift.BWD_LAUNCHES == before + 1
-        want = lift.lift_backward_reference(*t, g)
+        want = lift.lift_frame_backward_reference(*t, g)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
+            assert a.shape == b.shape
             tol = 1e-5 * b.abs().max().item()
-            assert (a - b).abs().max().item() <= tol
+            assert (a - b).abs().max().item() <= tol, C
 
 
 @pytest.mark.gpu

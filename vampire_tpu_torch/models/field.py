@@ -192,9 +192,10 @@ class FieldBackbone(nn.Module):
 
         depth: (B, N, D, h, w) depth distribution; feat: (B, N, h, w, C).
         Each camera selects its top-K (Y, X) blocks by valid-query count and
-        `ops.lift.lift_frame` (the lift kernel per camera, `plain`: its plain
-        version; differentiable) adds its samples into block-major (G, Q, C)
-        accumulators. Returns (B, C, Z, Y, X) fp32.
+        `ops.lift.lift_frame` (one launch of the lift kernel a frame,
+        `plain`: its plain version; differentiable) sums the frame's samples
+        into block-major (G, Q, C) accumulators. Returns (B, C, Z, Y, X)
+        fp32.
         """
         c = self.cfg
         Z, Y, X = c.grid_zyx('seg')
@@ -215,15 +216,21 @@ class FieldBackbone(nn.Module):
         coords = torch.gather(coords, 2, sel[..., None].expand(
             -1, -1, -1, Q, 3))                               # (B, N, K, Q, 3)
         valid = torch.gather(valid, 2, sel.expand(-1, -1, -1, Q))
-        outs = []
-        for b in range(B):
-            numer, denom = lift_ops.lift_frame(
-                depth[b].contiguous(), feat[b].contiguous(),
-                ids[b].contiguous(), coords[b].contiguous(),
-                valid[b].contiguous(), Gn, plain)
-            outs.append(numer / (denom + 1e-6))
-        out = torch.stack(outs).reshape(B, GY, GX, Z, blk, blk, C)
-        return out.permute(0, 6, 3, 1, 4, 2, 5).reshape(B, C, Z, Y, X)
+        accs = [lift_ops.lift_frame(
+            depth[b].contiguous(), feat[b].contiguous(), ids[b].contiguous(),
+            coords[b].contiguous(), valid[b].contiguous(), Gn, plain)
+            for b in range(B)]
+        return self._masked_mean(accs)
+
+    def _masked_mean(self, accs) -> torch.Tensor:
+        """The lift's masked mean: per batch element its block-major (G, Q,
+        C) (numer, denom) -> numer / (denom + 1e-6) as (B, C, Z, Y, X)."""
+        Z, Y, X = self.cfg.grid_zyx('seg')
+        blk = self.cfg.lift_block
+        C = accs[0][0].shape[-1]
+        out = torch.stack([n / (d + 1e-6) for n, d in accs])
+        out = out.reshape(len(accs), Y // blk, X // blk, Z, blk, blk, C)
+        return out.permute(0, 6, 3, 1, 4, 2, 5).reshape(-1, C, Z, Y, X)
 
     def _query_points(self, fused, points):
         """Point queries: pts_logits (B, P, K), pts_sdf (B, P).

@@ -64,31 +64,14 @@ _ARGTYPES = dict(
     row_gather_tma_allow_smem=[_i],
     row_gather_tma_blocks_per_sm=[_i],
 )
-# the typed ctypes function of each symbol, made at its first use
-_FNS = {}
-
-
 def _kernel(symbol):
-    fn = _FNS.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load_library('gather_probe'), symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[symbol]
-        _FNS[symbol] = fn
-    return fn
+    return _build.kernel('gather_probe', symbol, _ARGTYPES[symbol])
 
 
 def _run(name, symbol, device, *args):
     """Launch `symbol` on the current stream of `device`; raise on a CUDA
-    error of the launch; count it. The raw stream handle costs the host
-    0.13 us where `torch.cuda.current_stream` costs 6.6 on an H100's host
-    (PERF.md)."""
-    stream = torch._C._cuda_getCurrentRawStream(device.index)
-    if device.index == torch.cuda.current_device():
-        err = _kernel(symbol)(*args, stream)
-    else:
-        with torch.cuda.device(device):
-            err = _kernel(symbol)(*args, stream)
+    error of the launch; count it."""
+    err = _build.launch(_kernel(symbol), device, *args)
     if err != 0:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{err}')

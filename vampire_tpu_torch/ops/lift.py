@@ -1,35 +1,38 @@
-"""The lift: fused outer-product sample + masked-mean accumulate per camera.
+"""The lift: fused outer-product sample + masked-mean accumulate of a frame.
 
-`lift_accumulate_(depth, feat, ids, coords, valid, numer, denom)` adds one
-camera's contribution into the block-major accumulators of
+`lift_frame_accumulate(depth, feat, ids, coords, valid, n_blocks)` lifts one
+frame's N cameras into fresh block-major accumulators of
 `FieldBackbone._lift_compact`:
 
-    v[k,q,:]   = sample_outer_product(depth, feat, coords[k,q]) * valid[k,q]
-    numer[ids[k], q, :] += v[k,q,:]
-    denom[ids[k], q, :] += (|v[k,q,:]| > 0)
+    v[n,k,q,:] = sample_outer_product(depth[n], feat[n], coords[n,k,q])
+                 * valid[n,k,q]
+    numer[ids[n,k], q, :] = sum over the cameras n, in order, of v[n,k,q,:]
+    denom[ids[n,k], q, :] = the count of those terms with |v| > 0
 
-On CUDA tensors it launches the hand-written kernel `csrc/lift.cu`, which
-replaces the JAX package's TPU kernels `_lift_table_pallas`
+On CUDA tensors it is one launch of the hand-written kernel `csrc/lift.cu`,
+which replaces the JAX package's TPU kernels `_lift_table_pallas`
 (vampire_tpu/ops/pallas_tables.py:289) and `gather_reduce`
 (vampire_tpu/ops/pallas_gather.py:68): it reads the 2x2x2 depth corners and
 the 2x2 feature block straight from `depth` and `feat` instead of building a
-corner table (the camera's inputs sit in L2; the table would cost ~144 MB of
-writes and reads per camera). It is bound by the read-modify-write of the
-fp32 accumulators; see the source note in csrc/lift.cu for the design.
+corner table, and each output element is summed in registers over the
+cameras and written once (see the source note in csrc/lift.cu).
 
-`lift_backward(depth, feat, ids, coords, valid, g_numer)` is its transpose
-for one camera: given g_numer = d numer (G, Q, C) fp32 it returns
-(d depth, d feat) in fp32, the JAX package's `_lift_table_bwd`
-(vampire_tpu/ops/pallas_tables.py:374-396) composed with the transpose of
-the row gather, computed without a table by the second kernel of
-`csrc/lift.cu`; `lift_backward_reference` is its plain version. `denom`
-counts nonzero samples and takes no gradient, as in the JAX package.
+`lift_frame_backward(depth, feat, ids, coords, valid, g_numer)` is its
+transpose: given g_numer = d numer (G, Q, C) fp32 it returns (d depth
+(N, D, h, w), d feat (N, h, w, C)) in fp32, the JAX package's
+`_lift_table_bwd` (vampire_tpu/ops/pallas_tables.py:374-396) composed with
+the transpose of the row gather, in one launch of the second kernel of
+`csrc/lift.cu`. `denom` counts nonzero samples and takes no gradient, as in
+the JAX package.
+
+The plain versions are per camera: `lift_accumulate_reference` and
+`lift_backward_reference`, looped over a frame's cameras by
+`lift_frame_accumulate_reference` and `lift_frame_backward_reference`.
 
 `lift_frame(depth, feat, ids, coords, valid, n_blocks)` is the
-differentiable op the model calls: a `torch.autograd.Function` over one
-frame's N cameras whose forward runs `lift_accumulate_` per camera into
-fresh accumulators and whose backward runs `lift_backward` per camera and
-casts to the inputs' dtype, as `_lift_table_bwd` does.
+differentiable op the model calls: a `torch.autograd.Function` whose forward
+and backward are the two frame functions, the gradients cast to the inputs'
+dtype, as `_lift_table_bwd` does.
 
 On CPU tensors the wrappers run their plain versions. A CUDA tensor never
 falls back: the kernel launches or the call raises.
@@ -37,26 +40,32 @@ falls back: the kernel launches or the call raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from ..core.sampling import _prep_axis, sample_outer_product
 from . import _build
 
-# kernel launches made by lift_accumulate_ and by lift_backward
+# kernel launches made by lift_frame_accumulate and by lift_frame_backward
 # (incremented at each launch only)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-_SYMBOLS = {torch.float32: 'lift_accumulate_f32',
-            torch.bfloat16: 'lift_accumulate_bf16'}
-_BWD_SYMBOLS = {torch.float32: 'lift_backward_f32',
-                torch.bfloat16: 'lift_backward_bf16'}
+# the most cameras a frame may have (the forward's shared slot array)
+MAX_CAMERAS = 32
+
+_SYMBOLS = {torch.float32: 'lift_frame_f32',
+            torch.bfloat16: 'lift_frame_bf16'}
+_BWD_SYMBOLS = {torch.float32: 'lift_frame_backward_f32',
+                torch.bfloat16: 'lift_frame_backward_bf16'}
 
 
 def lift_accumulate_reference(depth, feat, ids, coords, valid, numer, denom):
-    """Plain torch version of the kernel (any device). Updates numer/denom in
-    place and returns them."""
+    """Plain torch lift of one camera (any device): adds its samples into
+    the (G, Q, C) fp32 accumulators numer/denom in place and returns them.
+    depth (D, h, w), feat (h, w, C), ids (K,) distinct, coords (K, Q, 3),
+    valid (K, Q)."""
     K, Q = valid.shape
     C = feat.shape[-1]
     v = sample_outer_product(depth, feat, coords.reshape(K * Q, 3),
@@ -67,79 +76,20 @@ def lift_accumulate_reference(depth, feat, ids, coords, valid, numer, denom):
     return numer, denom
 
 
-def _check(depth, feat, ids, coords, valid, numer, denom):
-    dev = depth.device
-    tensors = dict(depth=depth, feat=feat, ids=ids, coords=coords,
-                   valid=valid, numer=numer, denom=denom)
-    for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f'lift: {name} is on {t.device}, depth on {dev}')
-        if not t.is_contiguous():
-            raise ValueError(f'lift: {name} must be contiguous')
-    if depth.dtype not in _SYMBOLS or feat.dtype != depth.dtype:
-        raise TypeError(f'lift: depth/feat must both be float32 or bfloat16, '
-                        f'got {depth.dtype}/{feat.dtype}')
-    if ids.dtype != torch.int64:
-        raise TypeError(f'lift: ids must be int64, got {ids.dtype}')
-    for name in ('coords', 'valid', 'numer', 'denom'):
-        if tensors[name].dtype != torch.float32:
-            raise TypeError(f'lift: {name} must be float32')
-    D, H, W = depth.shape
-    K, Q = valid.shape
-    C = feat.shape[-1]
-    G = numer.shape[0]
-    if (feat.shape != (H, W, C) or ids.shape != (K,)
-            or coords.shape != (K, Q, 3) or numer.shape != (G, Q, C)
-            or denom.shape != (G, Q, C)):
-        raise ValueError(
-            f'lift: shapes depth {tuple(depth.shape)} feat '
-            f'{tuple(feat.shape)} ids {tuple(ids.shape)} coords '
-            f'{tuple(coords.shape)} valid {tuple(valid.shape)} numer '
-            f'{tuple(numer.shape)} denom {tuple(denom.shape)} do not agree')
-    if K * Q >= 2 ** 31:
-        raise ValueError(f'lift: K*Q = {K * Q} queries exceed one launch')
-    return D, H, W, C, K, Q, G
-
-
-def _kernel(symbols, dtype, n_ptr):
-    lib = _build.load_library('lift')
-    fn = getattr(lib, symbols[dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    return fn
-
-
-def lift_accumulate_(depth, feat, ids, coords, valid, numer, denom):
-    """One camera's lift into (G, Q, C) fp32 accumulators, in place.
-
-    Args:
-      depth: (D, h, w) depth distribution, float32 or bfloat16.
-      feat: (h, w, C) features, same dtype as depth.
-      ids: (K,) int64 distinct block ids in [0, G).
-      coords: (K, Q, 3) float32 normalized (x, y, z) sample coords.
-      valid: (K, Q) float32 validity.
-      numer, denom: (G, Q, C) float32 accumulators, updated in place.
-
-    Returns (numer, denom).
-    """
-    global LAUNCHES
-    if depth.device.type == 'cpu':
-        return lift_accumulate_reference(depth, feat, ids, coords, valid,
-                                         numer, denom)
-    if depth.device.type != 'cuda':
-        raise NotImplementedError(f'lift: no kernel for {depth.device}')
-    D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid, numer,
-                                 denom)
-    fn = _kernel(_SYMBOLS, depth.dtype, 7)
-    with torch.cuda.device(depth.device):
-        stream = torch.cuda.current_stream(depth.device).cuda_stream
-        err = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
-                 coords.data_ptr(), valid.data_ptr(), numer.data_ptr(),
-                 denom.data_ptr(), D, H, W, C, K, Q, G, stream)
-    if err != 0:
-        raise RuntimeError(f'lift: kernel launch failed with CUDA error {err}')
-    LAUNCHES += 1
+def lift_frame_accumulate_reference(depth, feat, ids, coords, valid,
+                                    n_blocks):
+    """Plain version of `lift_frame_accumulate` (any device): the cameras'
+    `lift_accumulate_reference` in order into zeroed accumulators. Ids
+    outside [0, n_blocks) are dropped, as the kernel ignores them."""
+    Q, C = valid.shape[-1], feat.shape[-1]
+    numer = torch.zeros((n_blocks, Q, C), dtype=torch.float32,
+                        device=feat.device)
+    denom = torch.zeros_like(numer)
+    for n in range(depth.shape[0]):
+        keep = (ids[n] >= 0) & (ids[n] < n_blocks)
+        lift_accumulate_reference(depth[n], feat[n], ids[n][keep],
+                                  coords[n][keep], valid[n][keep], numer,
+                                  denom)
     return numer, denom
 
 
@@ -176,27 +126,150 @@ def lift_backward_reference(depth, feat, ids, coords, valid, g_numer):
     return d_depth.reshape(D, H, W), d_feat.reshape(H, W, C)
 
 
-def lift_backward(depth, feat, ids, coords, valid, g_numer):
-    """One camera's lift backward: (d depth (D, h, w), d feat (h, w, C)),
-    float32, from g_numer = d numer (G, Q, C) float32 and the forward's
-    inputs (see `lift_accumulate_`)."""
-    global BWD_LAUNCHES
+def lift_frame_backward_reference(depth, feat, ids, coords, valid, g_numer):
+    """Plain version of `lift_frame_backward` (any device): the cameras'
+    `lift_backward_reference`, stacked: (N, D, h, w), (N, h, w, C) fp32."""
+    G = g_numer.shape[0]
+    grads = []
+    for n in range(depth.shape[0]):
+        keep = (ids[n] >= 0) & (ids[n] < G)
+        grads.append(lift_backward_reference(
+            depth[n], feat[n], ids[n][keep], coords[n][keep], valid[n][keep],
+            g_numer))
+    return (torch.stack([g[0] for g in grads]),
+            torch.stack([g[1] for g in grads]))
+
+
+def _check(depth, feat, ids, coords, valid, n_blocks, g_numer=None):
+    """The checks the wrappers make before a launch; returns the sizes
+    (N, D, H, W, C, K, Q, G)."""
+    dev = depth.device
+    tensors = dict(depth=depth, feat=feat, ids=ids, coords=coords,
+                   valid=valid)
+    if g_numer is not None:
+        tensors['g_numer'] = g_numer
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f'lift: {name} is on {t.device}, depth on {dev}')
+        if not t.is_contiguous():
+            raise ValueError(f'lift: {name} must be contiguous')
+    if depth.dtype not in _SYMBOLS or feat.dtype != depth.dtype:
+        raise TypeError(f'lift: depth/feat must both be float32 or bfloat16, '
+                        f'got {depth.dtype}/{feat.dtype}')
+    if ids.dtype != torch.int64:
+        raise TypeError(f'lift: ids must be int64, got {ids.dtype}')
+    for name in ('coords', 'valid', 'g_numer'):
+        if name in tensors and tensors[name].dtype != torch.float32:
+            raise TypeError(f'lift: {name} must be float32')
+    if depth.dim() != 4 or valid.dim() != 3:
+        raise ValueError(f'lift: depth {tuple(depth.shape)} must be '
+                         f'(N, D, h, w) and valid {tuple(valid.shape)} '
+                         f'(N, K, Q)')
+    N, D, H, W = depth.shape
+    _, K, Q = valid.shape
+    C = feat.shape[-1]
+    G = int(n_blocks)
+    if (valid.shape[0] != N or feat.shape != (N, H, W, C)
+            or ids.shape != (N, K) or coords.shape != (N, K, Q, 3)
+            or (g_numer is not None and g_numer.shape != (G, Q, C))):
+        raise ValueError(
+            f'lift: shapes depth {tuple(depth.shape)} feat '
+            f'{tuple(feat.shape)} ids {tuple(ids.shape)} coords '
+            f'{tuple(coords.shape)} valid {tuple(valid.shape)}'
+            + ('' if g_numer is None else
+               f' g_numer {tuple(g_numer.shape)}')
+            + f' n_blocks {G} do not agree')
+    if N > MAX_CAMERAS or G >= 2 ** 16 or K >= 2 ** 31:
+        raise ValueError(f'lift: {N} cameras (at most {MAX_CAMERAS}), '
+                         f'{G} blocks (under 65536), {K} selected a camera')
+    if C > (128 if C % 4 == 0 else 32):
+        raise ValueError(f'lift: {C} channels; the kernels take up to 32, '
+                         f'or up to 128 in multiples of 4')
+    if D * H * W * max(C, 1) >= 2 ** 31:
+        raise ValueError(f'lift: a camera of {D}x{H}x{W}x{C} exceeds the '
+                         f'kernels\' 32-bit offsets')
+    # where the kernels read 4 channels at a time (the forward at C = 16,
+    # the backward at C % 4 == 0), feat must start on 4 elements and
+    # g_numer on 16 bytes
+    if C == 16 or (g_numer is not None and C % 4 == 0):
+        if feat.data_ptr() % (4 * feat.element_size()):
+            raise ValueError(f'lift: feat must start on '
+                             f'{4 * feat.element_size()} bytes')
+        if g_numer is not None and g_numer.data_ptr() % 16:
+            raise ValueError('lift: g_numer must start on 16 bytes')
+    return N, D, H, W, C, K, Q, G
+
+
+def _kernel(symbol, n_ptr):
+    """The typed entry point: n_ptr pointers, 8 sizes, the stream."""
+    return _build.kernel('lift', symbol, [ctypes.c_void_p] * n_ptr
+                         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def lift_frame_accumulate(depth: torch.Tensor, feat: torch.Tensor,
+                          ids: torch.Tensor, coords: torch.Tensor,
+                          valid: torch.Tensor, n_blocks: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame's lift into fresh (n_blocks, Q, C) fp32 accumulators.
+
+    Args:
+      depth: (N, D, h, w) depth distributions, float32 or bfloat16.
+      feat: (N, h, w, C) features, same dtype as depth.
+      ids: (N, K) int64, each row distinct block ids; ids outside
+        [0, n_blocks) are ignored.
+      coords: (N, K, Q, 3) float32 normalized (x, y, z) sample coords.
+      valid: (N, K, Q) float32 validity.
+
+    Returns (numer, denom).
+    """
+    global LAUNCHES
     if depth.device.type == 'cpu':
-        return lift_backward_reference(depth, feat, ids, coords, valid,
-                                       g_numer)
+        return lift_frame_accumulate_reference(depth, feat, ids, coords,
+                                               valid, n_blocks)
     if depth.device.type != 'cuda':
         raise NotImplementedError(f'lift: no kernel for {depth.device}')
-    D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid, g_numer,
-                                 g_numer)
-    d_depth = torch.zeros((D, H, W), dtype=torch.float32, device=depth.device)
-    d_feat = torch.zeros((H, W, C), dtype=torch.float32, device=depth.device)
-    fn = _kernel(_BWD_SYMBOLS, depth.dtype, 8)
-    with torch.cuda.device(depth.device):
-        stream = torch.cuda.current_stream(depth.device).cuda_stream
-        err = fn(depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
-                 coords.data_ptr(), valid.data_ptr(), g_numer.data_ptr(),
-                 d_depth.data_ptr(), d_feat.data_ptr(), D, H, W, C, K, Q, G,
-                 stream)
+    N, D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid,
+                                    n_blocks)
+    numer = torch.empty((G, Q, C), dtype=torch.float32, device=depth.device)
+    denom = torch.empty_like(numer)
+    err = _build.launch(_kernel(_SYMBOLS[depth.dtype], 7), depth.device,
+                        depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
+                        coords.data_ptr(), valid.data_ptr(), numer.data_ptr(),
+                        denom.data_ptr(), N, D, H, W, C, K, Q, G)
+    if err != 0:
+        raise RuntimeError(f'lift: kernel launch failed with CUDA error {err}')
+    LAUNCHES += 1
+    return numer, denom
+
+
+def lift_frame_backward(depth: torch.Tensor, feat: torch.Tensor,
+                        ids: torch.Tensor, coords: torch.Tensor,
+                        valid: torch.Tensor, g_numer: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame's lift backward: (d depth (N, D, h, w), d feat
+    (N, h, w, C)), float32, from g_numer = d numer (G, Q, C) float32 and the
+    forward's inputs (see `lift_frame_accumulate`)."""
+    global BWD_LAUNCHES
+    if depth.device.type == 'cpu':
+        return lift_frame_backward_reference(depth, feat, ids, coords, valid,
+                                             g_numer)
+    if depth.device.type != 'cuda':
+        raise NotImplementedError(f'lift: no kernel for {depth.device}')
+    N, D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid,
+                                    g_numer.shape[0], g_numer)
+    # one buffer for the whole frame, zeroed once; d feat starts on 16
+    # bytes (the kernel adds into it four floats at a time)
+    nd = N * D * H * W
+    off = -(-nd // 4) * 4
+    grads = torch.zeros(off + N * H * W * C, dtype=torch.float32,
+                        device=depth.device)
+    d_depth = grads[:nd].view(N, D, H, W)
+    d_feat = grads[off:].view(N, H, W, C)
+    err = _build.launch(_kernel(_BWD_SYMBOLS[depth.dtype], 8), depth.device,
+                        depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
+                        coords.data_ptr(), valid.data_ptr(),
+                        g_numer.data_ptr(), d_depth.data_ptr(),
+                        d_feat.data_ptr(), N, D, H, W, C, K, Q, G)
     if err != 0:
         raise RuntimeError(f'lift: backward kernel launch failed with CUDA '
                            f'error {err}')
@@ -211,14 +284,9 @@ class LiftFrame(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, depth, feat, ids, coords, valid, n_blocks, plain):
-        N = depth.shape[0]
-        Q, C = valid.shape[-1], feat.shape[-1]
-        numer = torch.zeros((n_blocks, Q, C), dtype=torch.float32,
-                            device=feat.device)
-        denom = torch.zeros_like(numer)
-        fwd = lift_accumulate_reference if plain else lift_accumulate_
-        for n in range(N):
-            fwd(depth[n], feat[n], ids[n], coords[n], valid[n], numer, denom)
+        fwd = (lift_frame_accumulate_reference if plain
+               else lift_frame_accumulate)
+        numer, denom = fwd(depth, feat, ids, coords, valid, n_blocks)
         ctx.save_for_backward(depth, feat, ids, coords, valid)
         ctx.plain = plain
         ctx.mark_non_differentiable(denom)
@@ -227,13 +295,12 @@ class LiftFrame(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_numer, _g_denom):
         depth, feat, ids, coords, valid = ctx.saved_tensors
-        bwd = lift_backward_reference if ctx.plain else lift_backward
-        g_numer = g_numer.contiguous()
-        grads = [bwd(depth[n], feat[n], ids[n], coords[n], valid[n], g_numer)
-                 for n in range(depth.shape[0])]
-        d_depth = torch.stack([g[0] for g in grads]).to(depth.dtype)
-        d_feat = torch.stack([g[1] for g in grads]).to(feat.dtype)
-        return d_depth, d_feat, None, None, None, None, None
+        bwd = (lift_frame_backward_reference if ctx.plain
+               else lift_frame_backward)
+        d_depth, d_feat = bwd(depth, feat, ids, coords, valid,
+                              g_numer.contiguous())
+        return (d_depth.to(depth.dtype), d_feat.to(feat.dtype), None, None,
+                None, None, None)
 
 
 def lift_frame(depth, feat, ids, coords, valid, n_blocks, plain=False):
@@ -243,8 +310,8 @@ def lift_frame(depth, feat, ids, coords, valid, n_blocks, plain=False):
     Args:
       depth: (N, D, h, w), feat: (N, h, w, C), both float32 or bfloat16.
       ids: (N, K) int64, each row distinct block ids in [0, n_blocks).
-      coords: (N, K, Q, 3), valid: (N, K, Q) float32, per camera as in
-        `lift_accumulate_`.
+      coords: (N, K, Q, 3), valid: (N, K, Q) float32, as in
+        `lift_frame_accumulate`.
       plain: run the plain versions of the forward and the backward.
 
     Returns (numer, denom), each (n_blocks, Q, C) float32.

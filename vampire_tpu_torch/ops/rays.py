@@ -111,37 +111,23 @@ def _check(field, coords, valid, deltas, mids, beta, **more):
     return R, S, C, CS
 
 
-# the typed ctypes function of each symbol, made at its first use
-_FNS = {}
-
-
 def _kernel(symbols, dtype, n_ptr):
-    symbol = symbols[dtype]
-    fn = _FNS.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load_library('rays'), symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-        _FNS[symbol] = fn
-    return fn
+    """The typed entry point: n_ptr pointers, 8 ints, 2 floats, the
+    stream."""
+    return _build.kernel('rays', symbols[dtype], [ctypes.c_void_p] * n_ptr
+                         + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                         + [ctypes.c_void_p])
 
 
 def _launch(fn, field, ptrs, R, S, C, CS, density_mode, sdf_bias, bg_depth):
-    """Launch on the current stream of the field's card (the raw stream
-    handle: it costs the host far less than `torch.cuda.current_stream`,
-    PERF.md); returns the CUDA error code."""
+    """Launch on the current stream of the field's card; returns the CUDA
+    error code."""
     if density_mode not in _MODES:
         raise ValueError(f'rays: density_mode {density_mode!r}')
     D, H, W = field.shape[:3]
-    dev = field.device
-    args = (field.data_ptr(), *ptrs, R, S, C, CS, D, H, W,
-            _MODES[density_mode], float(sdf_bias), float(bg_depth),
-            torch._C._cuda_getCurrentRawStream(dev.index))
-    if dev.index == torch.cuda.current_device():
-        return fn(*args)
-    with torch.cuda.device(dev):
-        return fn(*args)
+    return _build.launch(fn, field.device, field.data_ptr(), *ptrs, R, S, C,
+                         CS, D, H, W, _MODES[density_mode], float(sdf_bias),
+                         float(bg_depth))
 
 
 def sample_and_composite_rays(field: torch.Tensor, coords: torch.Tensor,
@@ -225,9 +211,8 @@ def plan(dtype: torch.dtype, channels: int, backward: bool = False) -> dict:
     `channels` channels on the current card: blocks per SM (the occupancy
     API's count), registers a thread, the channels the registers hold
     (CMAX), threads a block."""
-    fn = _build.load_library('rays').rays_plan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = _build.kernel('rays', 'rays_plan',
+                       [ctypes.c_int] * 3 + [ctypes.c_void_p])
     info = (ctypes.c_int * 4)()
     err = fn(int(dtype == torch.bfloat16), channels, int(backward),
              ctypes.cast(info, ctypes.c_void_p))

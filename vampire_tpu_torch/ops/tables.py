@@ -53,11 +53,10 @@ def _check(vol):
 
 
 def _kernel(symbols, dtype):
-    fn = getattr(_build.load_library('corner_table'), symbols[dtype])
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    return fn
+    """The typed entry point: 2 pointers, 4 sizes, the stream."""
+    return _build.kernel('corner_table', symbols[dtype],
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p])
 
 
 def corner_table(vol: torch.Tensor) -> torch.Tensor:
@@ -71,10 +70,8 @@ def corner_table(vol: torch.Tensor) -> torch.Tensor:
     C, D, H, W = _check(vol)
     out = torch.empty((D + 1, H + 1, W + 1, 8 * C), dtype=vol.dtype,
                       device=vol.device)
-    fn = _kernel(_SYMBOLS, vol.dtype)
-    with torch.cuda.device(vol.device):
-        stream = torch.cuda.current_stream(vol.device).cuda_stream
-        err = fn(vol.data_ptr(), out.data_ptr(), C, D, H, W, stream)
+    err = _build.launch(_kernel(_SYMBOLS, vol.dtype), vol.device,
+                        vol.data_ptr(), out.data_ptr(), C, D, H, W)
     if err != 0:
         raise RuntimeError(f'corner_table: kernel launch failed with CUDA '
                            f'error {err}')
@@ -121,10 +118,8 @@ def corner_table_backward(g: torch.Tensor,
     if not g.is_contiguous():
         raise ValueError('corner_table: the cotangent must be contiguous')
     out = torch.empty((C, D, H, W), dtype=torch.float32, device=g.device)
-    fn = _kernel(_BWD_SYMBOLS, g.dtype)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(g.data_ptr(), out.data_ptr(), C, D, H, W, stream)
+    err = _build.launch(_kernel(_BWD_SYMBOLS, g.dtype), g.device,
+                        g.data_ptr(), out.data_ptr(), C, D, H, W)
     if err != 0:
         raise RuntimeError(f'corner_table: backward kernel launch failed '
                            f'with CUDA error {err}')

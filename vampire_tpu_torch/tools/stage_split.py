@@ -14,7 +14,8 @@ For each it prints:
 
   * the forward's (the step's) host-clock median, min and max;
   * per stage, the mean CUDA-event span per forward (per step): the
-    encoder, the lift, the Unet3D, the queries, the BEV render, the camera
+    encoder, the lift (its op in each direction, and its masked-mean divide
+    and permute), the Unet3D, the queries, the BEV render, the camera
     rays and their parts (the channels-last field copy, each ray kernel;
     in the step also the ray backward and the field gradient's permute
     back), the det head, each kernel; in the step also the losses, the
@@ -84,13 +85,20 @@ def main(argv=None):
         return g
 
     fb = F.FieldBackbone
-    for meth in ('lift', '_query_points', '_query_occ', '_render_bev',
-                 '_ray_fields', '_render_cameras'):
+    for meth in ('lift', '_masked_mean', '_query_points', '_query_occ',
+                 '_render_bev', '_ray_fields', '_render_cameras'):
         setattr(fb, meth, timed(meth, getattr(fb, meth)))
-    for mod, name in ((lift, 'lift_accumulate_'), (lift, 'lift_backward'),
+    for mod, name in ((lift, 'lift_frame_accumulate'),
+                      (lift, 'lift_frame_backward'),
                       (rays, 'sample_and_composite_rays'),
                       (rays, 'sample_and_composite_rays_backward')):
         setattr(mod, name, timed(f'{name} kernel', getattr(mod, name)))
+    # the lift op's two directions whole: the forward with its
+    # accumulators' allocation, the backward with its gradients' zero-fill,
+    # the kernel and the cast
+    lift.LiftFrame.forward = timed('lift op forward', lift.LiftFrame.forward)
+    lift.LiftFrame.backward = timed('lift op backward (zero-fill, kernel, '
+                                    'cast)', lift.LiftFrame.backward)
     # the ray branch's other backward parts: the ray op's backward (the
     # d field's zero-fill, the kernel and the cast to the field's dtype) and
     # the field copy's backward (the permute back to channels-first)
