@@ -64,9 +64,10 @@ nonzero without printing a result:
                bit for bit to its plain version, the capacity probe run at
                48 KB and 227 KB of shared memory and refused at one byte
                more, every kernel launched; each line carries its time,
-               plain time, library time and bound. The kernels line shows
-               the two bulk-copy kernels at a second configuration too
-               (`also_at`): the dma sub-command's depth-8 gather of 2^16
+               plain time, library time, bound and launch geometry. The
+               kernels line shows three kernels at a second configuration
+               too (`also_at`): `row_gather` at the vmem bf16 table
+               (`gk_tala`), the dma sub-command's depth-8 gather of 2^16
                rows (`k_s2`) and its 2 MB static copy (`k_static`).
 
 Every kernel line carries its bound: the bytes it must move (each input
@@ -78,7 +79,8 @@ shape here. The ray kernels' lines also carry the bound of the same
 function read through the corner table (`table_bound_ms`), and their
 launch geometry (`plan`). The one-hot gather's
 function needs no arithmetic; its entry also gives `method_ops_ms`, the
-one-hot product's multiply-adds at the tensor cores' peak.
+one-hot product's multiply-adds at the tensor cores' peak, and
+`method_share`, that time over the kernel's.
 
 The last three lines are a JSON object of the kernels run, the card's name
 and power limit, and `{"ok": true, "device": {...}}`.
@@ -1199,12 +1201,14 @@ def probe_numbers(recs, name, sub, **match):
     r = next(r for r in recs[sub] if r.get('kernel') == name
              and all(r.get(k) == v for k, v in match.items()))
     out = {k: r[k] for k in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-                             'bound_by', 'library_ms', 'method_ops_ms')
+                             'bound_by', 'library_ms', 'method_ops_ms',
+                             'method_share')
            if k in r}
     out['at'] = ' '.join(f'{k}={r[k]}' for k in
                          ('probe', 'tpu_kernel', 'R', 'W', 'dtype', 'Q',
-                          'stream', 'depth', 'unroll', 'blocks', 'tile_rows',
-                          'chunk_bytes') if k in r)
+                          'stream', 'depth', 'unroll', 'blocks', 'ctas',
+                          'loads_in_flight', 'tile_rows', 'chunk_bytes')
+                         if k in r)
     return out
 
 
@@ -1355,7 +1359,9 @@ def main():
         'plan': k['rays_bwd']['plan'],
     },
         probe_entry(probes, pl, 'row_gather', 'scale', variant='rows',
-                    stream='random', W=176),
+                    stream='random', W=176,
+                    also=('vmem', dict(tpu_kernel='gk_tala',
+                                       dtype='bfloat16'))),
         probe_entry(probes, pl, 'onehot_gather_mma', 'vmem'),
         probe_entry(probes, pl, 'block_copy_tma', 'scale', variant='copy',
                     stream='static', W=256,

@@ -239,6 +239,50 @@ def test_onehot_gather_matches_chunked_onehot_dot(jnp):
         got, np.asarray(jt.astype(jnp.float32))[idx])
 
 
+def _nonfinite_onehot_case(jnp, R=2 * gp.ONEHOT_RB, W=128, Q=256):
+    """A bf16 table with non-finite entries and indices that select some of
+    them: column 0 holds one inf, in a selected row; column 1 one NaN, in
+    an unselected row; column 2 -inf and inf. As jax and torch arrays, the
+    indices as numpy, and the selected row of column 0."""
+    a = np.random.RandomState(4).randn(R, W).astype(np.float32)
+    idx = np.random.RandomState(5).randint(0, R, Q).astype(np.int32)
+    hit = int(idx[7])
+    miss = next(r for r in range(R) if r not in set(idx.tolist()))
+    a[hit, 0] = np.inf
+    a[miss, 1] = np.nan
+    a[3, 2], a[R - 2, 2] = -np.inf, np.inf
+    return (jnp.asarray(a).astype(jnp.bfloat16),
+            torch.from_numpy(a).to(torch.bfloat16), idx, hit)
+
+
+def test_onehot_gather_nonfinite_matches_chunked_onehot_dot(jnp):
+    """The full one-hot product's semantics on a table with inf and NaN:
+    the port's plain version against the script's chunked
+    jnp.dot(onehot_bf16, tab_bf16, preferred_element_type=f32). NaN masks
+    equal, every other value bit-equal; the selected inf survives for the
+    query that selects it, 0 * inf poisons the rest of its column."""
+    RB = gp.ONEHOT_RB
+    jt, tt, idx, hit = _nonfinite_onehot_case(jnp)
+    R, Q = tt.shape[0], idx.shape[0]
+    ids = jnp.asarray(idx)[:, None]
+    want = jnp.zeros((Q, tt.shape[1]), jnp.float32)
+    for j in range(R // RB):
+        oh = (jnp.arange(RB, dtype=jnp.int32)[None, :]
+              == ids - j * RB).astype(jnp.bfloat16)
+        want = want + jnp.dot(oh, jt[j * RB:(j + 1) * RB],
+                              preferred_element_type=jnp.float32)
+    want = np.asarray(want)
+    got = gp.onehot_gather_mma(tt, torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    np.testing.assert_array_equal(_bits(got[fin]), _bits(want[fin]))
+    # what the case is built to show
+    sel = idx == hit
+    assert np.isposinf(got[sel, 0]).all() and np.isnan(got[~sel, 0]).all()
+    assert np.isnan(got[:, 1]).all() and np.isnan(got[:, 2]).all()
+    assert not np.isnan(got[:, 3:]).any()
+
+
 @pytest.mark.parametrize('permuted', [False, True])
 def test_block_copy_matches_control(jnp, permuted):
     """`k_static` (out = tab) and `k_dyn` (perf_r3_dma_control.py:77:
@@ -382,6 +426,123 @@ def test_shared_memory_is_allowed_once_and_a_refusal_is_not_kept(
                                 (0, 'row_gather_tma'): 1024}
 
 
+PLAN_Q = [1, 31, 257, 19993]
+
+
+def _walk_rows(Q, plan):
+    """The (query, piece) pairs row_gather's rows kernel stores, in the
+    order its threads visit them: the first pair, 32 pairs and a run of
+    every warp divided once, from the plan's `blocks`, then additions, as
+    csrc/gather_probe.cu walks them."""
+    P, U = plan['pieces'], plan['loads_in_flight']
+    t = np.arange(plan['blocks'] * plan['threads'], dtype=np.int64)
+    e = (t >> 5) * 32 * U + (t & 31)
+    q, c = e // P, e % P
+    lane_q, lane_c = divmod(32, P)
+    step_q, step_c = divmod(plan['blocks'] * plan['threads'] * U, P)
+    seen = []
+
+    def add(q, c, dq, dc):
+        q, c = q + dq, c + dc
+        wrap = c >= P
+        return q + wrap, c - P * wrap
+    while (q < Q).any():
+        qq, cc = q, c
+        for _ in range(U):
+            seen.append(qq[qq < Q] * P + cc[qq < Q])
+            qq, cc = add(qq, cc, lane_q, lane_c)
+        q, c = add(q, c, step_q, step_c)
+    return np.concatenate(seen)
+
+
+@pytest.mark.parametrize('row_bytes', [16, 48, 256, 352, 512, 4096])
+@pytest.mark.parametrize('Q', PLAN_Q)
+def test_row_gather_plan_covers_every_piece_once(row_bytes, Q):
+    """Rows mode: the walk by additions stores every (query, 16-byte piece)
+    pair once; a warp's loads are 32 consecutive pairs; the grid fits the
+    card and needs no more blocks than the work."""
+    plan = gp.row_gather_plan(Q, row_bytes // 4, 4)
+    P = plan['pieces']
+    assert P == row_bytes // 16
+    assert 1 <= plan['blocks'] <= plan['blocks_per_sm'] * gp.H100_SMS
+    assert (plan['blocks'] - 1) * plan['threads'] * \
+        plan['loads_in_flight'] < Q * P
+    walked = _walk_rows(Q, plan)
+    np.testing.assert_array_equal(np.sort(walked), np.arange(Q * P))
+    assert plan == gp.row_gather_plan(Q, row_bytes // 2, 2)
+
+
+@pytest.mark.parametrize('row_bytes', [16, 352, 4096])
+def test_query_numbers_stay_in_int(row_bytes, monkeypatch):
+    """At MAX_QUERIES the kernels' int query numbers cannot overflow: the
+    rows walk's last step and the one-hot CTAs' queries stay below 2^31;
+    the wrappers refuse more queries before they reach a kernel."""
+    # an H100 SM holds 2,048 threads: 8 blocks of the rows mode
+    plan = gp.row_gather_plan(gp.MAX_QUERIES, row_bytes // 4, 4, per_sm=8)
+    step = plan['blocks'] * plan['threads'] * plan['loads_in_flight']
+    assert gp.MAX_QUERIES + step + 32 <= 2 ** 31 - 1
+    oh = gp.onehot_plan(gp.MAX_QUERIES, 16384)
+    assert oh['ctas'] * oh['queries_per_cta'] <= 2 ** 31 - 1
+    monkeypatch.setattr(gp, 'MAX_QUERIES', 4)
+    tab = torch.zeros(8, row_bytes // 2, dtype=torch.bfloat16)
+    idx = torch.zeros(5, dtype=torch.int32)
+    for name in ('row_gather', 'row_gather_tma'):
+        with pytest.raises(ValueError, match='5 queries exceed'):
+            gp.prepare(name, tab, idx)
+    with pytest.raises(ValueError, match='5 queries'):
+        gp.prepare('onehot_gather_mma', tab[:, :8].contiguous(), idx)
+    assert torch.equal(gp.row_gather(tab, idx[:4]), tab[:4])
+
+
+@pytest.mark.parametrize('W,elem_bytes', [(5, 4), (12, 4), (128, 4),
+                                          (1024, 4), (5, 2), (128, 2),
+                                          (176, 2)])
+@pytest.mark.parametrize('Q', PLAN_Q)
+def test_row_gather_lanes_plan_covers_every_element_once(W, elem_bytes, Q):
+    """Lanes mode: every (query, element) is one thread's, once; 16 bytes a
+    thread where W allows it and the indices are aligned; the grid and
+    blocks fit the card's limits."""
+    for aligned in (True, False):
+        plan = gp.row_gather_plan(Q, W, elem_bytes, lanes=True,
+                                  aligned=aligned)
+        vec = plan['vec']
+        assert vec == (16 // elem_bytes if aligned and
+                       W % (16 // elem_bytes) == 0 else 1)
+        (bx, by), (gx, gy) = plan['block'], plan['grid']
+        assert bx * by == plan['threads'] <= 1024 and gy <= 65535
+        q = (np.arange(gx)[:, None] * by + np.arange(by)[None, :]).ravel()
+        jv = (np.arange(gy)[:, None] * bx + np.arange(bx)[None, :]).ravel()
+        q, jv = q[q < Q], jv[jv < W // vec]
+        el = (q[:, None, None] * W + jv[None, :, None] * vec
+              + np.arange(vec)[None, None, :]).ravel()
+        np.testing.assert_array_equal(np.sort(el), np.arange(Q * W))
+
+
+@pytest.mark.parametrize('R', [1, 64, 3000, 65541])
+@pytest.mark.parametrize('Q', PLAN_Q)
+def test_onehot_plan_covers_every_query_once(R, Q):
+    """Each query is the fragment row of one thread of one consumer
+    warpgroup (rows g and g + 8 of a warp's 16, two m64 tiles); the ring
+    of 128-column tiles and its barriers fit the shared memory; one CTA
+    fits an SM."""
+    plan = gp.onehot_plan(Q, R)
+    assert plan['smem_bytes'] >= 1024 + plan['stages'] * (
+        gp.ONEHOT_STAGE_BYTES + 16)
+    assert plan['smem_bytes'] <= gp.SMEM_LIMIT
+    assert plan['threads'] == 128 * (1 + gp.ONEHOT_CONSUMERS) <= 1024
+    assert 0 <= plan['table_tiles'] * plan['tile_rows'] - R < \
+        plan['tile_rows']
+    cta, wg, mt, warp, g, h = np.meshgrid(
+        np.arange(plan['ctas']), np.arange(gp.ONEHOT_CONSUMERS),
+        np.arange(2), np.arange(4), np.arange(8), np.arange(2),
+        indexing='ij')
+    q = ((cta * gp.ONEHOT_CONSUMERS + wg) * 128 + 64 * mt + 16 * warp + g
+         + 8 * h).ravel()
+    q = q[q < Q]
+    np.testing.assert_array_equal(np.sort(q), np.arange(Q))
+    assert (plan['ctas'] - 1) * plan['queries_per_cta'] < Q
+
+
 def test_prepared_launch_carries_its_plan():
     """On CPU tensors the prepared launch runs the plain version and
     carries the geometry an H100 would run."""
@@ -392,6 +553,16 @@ def test_prepared_launch_carries_its_plan():
     assert torch.equal(call(), tab)
     call = gp.prepare('block_copy_tma', tab, 100, None, 64 * 1024)
     assert call.plan == gp.block_copy_plan(3, 100 * 176, 64 * 1024)
+    call = gp.prepare('row_gather', tab, idx)
+    assert call.plan == gp.row_gather_plan(300, 88, 2)
+    assert torch.equal(call(), tab)
+    lanes = idx[:, None].expand(300, 88).contiguous()
+    call = gp.prepare('row_gather', tab, lanes)
+    assert call.plan == gp.row_gather_plan(300, 88, 2, lanes=True)
+    assert call.plan['vec'] == 8
+    call = gp.prepare('onehot_gather_mma', tab[:, :72].contiguous(), idx)
+    assert call.plan == gp.onehot_plan(300, 300)
+    assert call.plan['ctas'] == 2
 
 
 # --------------------------------------------------------------------------
@@ -458,11 +629,17 @@ def _cuda():
 @pytest.mark.parametrize('dtype,W', [(torch.float32, 128),
                                      (torch.bfloat16, 176),
                                      (torch.float32, 4),
+                                     (torch.float32, 12),
+                                     (torch.bfloat16, 256),
                                      (torch.float32, 1024)])
 def test_row_gathers_match_plain_on_gpu(dtype, W):
-    """Both row gathers, bit for bit, on f32 W128, bf16 W176 and 16 B and
-    4 KB rows; `row_gather_tma` at depths 1, 8 and 32 and unroll 1 and 4,
-    with ragged edges: Q not a multiple of the tile, Q < 32 and one row."""
+    """Both row gathers, bit for bit, on f32 W128 (512 B), bf16 W176 and
+    W256 (352 and 512 B) and 16 B, 48 B and 4 KB rows; `row_gather_tma` at
+    depths 1, 8 and 32 and unroll 1 and 4, with ragged edges: Q not a
+    multiple of the tile, Q < 32 and one row. Per lane, tables of width 5,
+    128, 176 and the case's W (block shapes (1, 256) at f32 W4 and (256, 1)
+    at W1024), with aligned indices (16 bytes a thread where W allows) and
+    with indices one element off alignment."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(0)
     tab = torch.randn((5000, W), generator=g, device=dev).to(dtype)
@@ -471,21 +648,31 @@ def test_row_gathers_match_plain_on_gpu(dtype, W):
         idx = torch.randint(0, 5000, (Q,), generator=g, device=dev,
                             dtype=torch.int32)
         want = gp.row_gather_reference(tab, idx)
-        assert tool.same_bits(gp.row_gather(tab, idx), want)
+        got = gp.row_gather(tab, idx)
+        torch.cuda.synchronize()
+        assert tool.same_bits(got, want), Q
         for depth, unroll in ((1, 1), (8, 1), (8, 4), (32, 1), (32, 4)):
             got = gp.row_gather_tma(tab, idx, depth=depth, unroll=unroll)
             torch.cuda.synchronize()
             assert tool.same_bits(got, want), (Q, depth, unroll)
-    lanes = torch.randint(0, 5000, (3000, W), generator=g, device=dev,
-                          dtype=torch.int32)
-    assert tool.same_bits(gp.row_gather(tab, lanes),
-                          gp.row_gather_reference(tab, lanes))
+    for lw in sorted({5, 128, 176, W}):
+        t = torch.randn((5000, lw), generator=g, device=dev).to(dtype)
+        for Q in (3000, 257, 1):
+            flat = torch.randint(0, 5000, (Q * lw + 1,), generator=g,
+                                 device=dev, dtype=torch.int32)
+            for lanes in (flat[:-1].view(Q, lw), flat[1:].view(Q, lw)):
+                call = gp.prepare('row_gather', t, lanes)
+                got = call()
+                torch.cuda.synchronize()
+                assert tool.same_bits(got, gp.row_gather_reference(t, lanes)), \
+                    (lw, Q, call.plan)
 
 
 @pytest.mark.gpu
 def test_bulk_copy_plans_match_the_cards_occupancy():
     """The plans' blocks per SM are what the card reports for the same
-    dynamic shared memory, and its SMs are the H100's 132."""
+    dynamic shared memory (for row_gather's rows mode, for its 256-thread
+    blocks), and its SMs are the H100's 132."""
     dev = _cuda()
     assert torch.cuda.get_device_properties(dev).multi_processor_count \
         == gp.H100_SMS
@@ -495,24 +682,59 @@ def test_bulk_copy_plans_match_the_cards_occupancy():
         t = flat[:4096 * row_bytes // 4].view(4096, row_bytes // 4)
         got = gp.prepare('row_gather_tma', t, idx, depth=depth).plan
         assert got == gp.row_gather_tma_plan(1 << 16, row_bytes, depth)
+    for row_bytes in (48, 352, 512):
+        t = flat[:4096 * row_bytes // 4].view(4096, row_bytes // 4)
+        got = gp.prepare('row_gather', t, idx).plan
+        assert got == gp.row_gather_plan(1 << 16, row_bytes // 4, 4)
     tab = flat[:4096 * 128].view(4096, 128)
     for smem in (16 * 1024, 48 * 1024, gp.SMEM_LIMIT):
         got = gp.prepare('block_copy_tma', tab, 512, None, smem).plan
         assert got == gp.block_copy_plan(8, 512 * 512, smem)
 
 
+def _nan_equal(a, b):
+    """NaN at the same places, every other value bit-equal. (The tensor
+    cores' NaN and the plain version's bf16 NaN widened to fp32 differ in
+    their payload.)"""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and tool.same_bits(a[~na], b[~nb])
+
+
 @pytest.mark.gpu
 def test_onehot_gather_matches_plain_on_gpu():
+    """W 8, 72 and 128 (two 64-column boxes, zero-filled past W), R
+    3000 and 65,541 (no multiple of the 64-row tile), Q 1, 257 and 1000
+    (ragged CTAs), bit for bit; then a table with inf and NaN, whose
+    columns the full product poisons as the plain version's does."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(1)
-    tab = torch.randn((3000, 128), generator=g, device=dev).to(
-        torch.bfloat16)
+    for W in (8, 72, 128):
+        for R in (3000, 65541):
+            tab = torch.randn((R, W), generator=g, device=dev).to(
+                torch.bfloat16)
+            for Q in (1, 257, 1000):
+                idx = torch.randint(0, R, (Q,), generator=g, device=dev,
+                                    dtype=torch.int32)
+                got = gp.onehot_gather_mma(tab, idx)
+                torch.cuda.synchronize()
+                assert tool.same_bits(got, gp.onehot_gather_reference(
+                    tab, idx)), (W, R, Q)
+                assert tool.same_bits(got, tab.float()[idx.long()])
+    tab = torch.randn((3000, 128), generator=g, device=dev).to(torch.bfloat16)
     idx = torch.randint(0, 3000, (1000,), generator=g, device=dev,
                         dtype=torch.int32)
+    hit = int(idx[7])
+    miss = next(r for r in range(3000) if r not in set(idx.tolist()))
+    tab[hit, 0] = float('inf')
+    tab[miss, 1] = float('nan')
+    tab[3, 2], tab[2998, 2] = float('-inf'), float('inf')
     got = gp.onehot_gather_mma(tab, idx)
+    want = gp.onehot_gather_reference(tab, idx)
     torch.cuda.synchronize()
-    assert tool.same_bits(got, gp.onehot_gather_reference(tab, idx))
-    assert tool.same_bits(got, tab.float()[idx.long()])
+    assert _nan_equal(got, want)
+    sel = idx == hit
+    assert torch.isposinf(got[sel, 0]).all()
+    assert torch.isnan(got[~sel, 0]).all() and torch.isnan(got[:, 1:3]).all()
 
 
 @pytest.mark.gpu

@@ -10,9 +10,11 @@ scripts' shapes. Each kernel copies bits, so each matches its plain version
 bit for bit:
 
   row_gather(tab, idx)          out[q] = tab[idx[q]], or per lane
-                                out[q, j] = tab[idx[q, j], j]
-  onehot_gather_mma(tab, idx)   sum_j onehot(idx - j*RB) @ tab_j in fp32 on
-                                the tensor cores = f32(bf16(tab))[idx]
+                                out[q, j] = tab[idx[q, j], j], with full
+                                warps, loads in flight and streaming stores
+  onehot_gather_mma(tab, idx)   sum_j onehot(idx - j*RB) @ tab_j in fp32 by
+                                wgmma on table tiles that TMA brings in
+                                = f32(bf16(tab))[idx]
   block_copy_tma(tab, rows, perm, smem_bytes)
                                 block i of `rows` rows = tab block perm[i]
                                 (or i), through shared memory by bulk copies;
@@ -28,9 +30,11 @@ replaces, what bounds it and how it is built. On CPU tensors each wrapper
 checks its arguments and runs the plain version (`*_reference`). On a CUDA
 tensor it launches its kernel or raises, never falls back; `LAUNCHES`
 counts the launches per wrapper. `prepare` checks a wrapper's arguments
-once and returns its launch, for timing loops. The two bulk-copy kernels
-launch as many blocks as fit on the card at once; `row_gather_tma_plan`
-and `block_copy_plan` compute their tiles, rings and grids.
+once and returns its launch, for timing loops. Every launch's geometry is
+computed here: `row_gather_plan` (the rows mode's persistent grid, the
+lanes mode's 2-D grid), `onehot_plan` (CTAs, the ring),
+`row_gather_tma_plan` and `block_copy_plan` (tiles, rings, grids); the
+persistent kernels launch as many blocks as fit on the card at once.
 """
 from __future__ import annotations
 
@@ -49,14 +53,19 @@ SMEM_LIMIT = 232448
 # the RB of scripts/perf_vmem_gather.py's one-hot gather: table rows per
 # one-hot product
 ONEHOT_RB = 2048
+# queries one launch of row_gather, onehot_gather_mma or row_gather_tma
+# takes: their kernels hold query numbers in int, and the rows walk steps
+# up to blocks x threads x loads (2^20 at most) past the last query
+MAX_QUERIES = 2 ** 31 - 2 ** 21
 
 _c = ctypes.c_void_p
 _ll = ctypes.c_longlong
 _i = ctypes.c_int
 _ARGTYPES = dict(
-    row_gather_rows=[_c, _c, _c, _ll, _i, _c],
-    row_gather_lanes=[_c, _c, _c, _ll, _i, _i, _c],
-    onehot_gather_mma=[_c, _c, _c, _ll, _i, _i, _c],
+    row_gather_rows=[_c, _c, _c, _i, _i, _i, _c],
+    row_gather_rows_blocks_per_sm=[],
+    row_gather_lanes=[_c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _i, _c],
+    onehot_gather_mma=[_c, _c, _c, _i, _i, _i, _i, _i, _c],
     block_copy_tma=[_c, _c, _c, _ll, _ll, _i, _i, _i, _c],
     block_copy_tma_allow_smem=[_i],
     block_copy_tma_blocks_per_sm=[_i],
@@ -68,17 +77,29 @@ def _kernel(symbol):
     return _build.kernel('gather_probe', symbol, _ARGTYPES[symbol])
 
 
+# what onehot_gather_mma returns when it cannot make the table's TMA
+# descriptor (csrc/gather_probe.cu kEncodeFailed, kNoEncoder)
+ENCODE_FAILED = 10000
+NO_ENCODER = 20000
+
+
 def _run(name, symbol, device, *args):
     """Launch `symbol` on the current stream of `device`; raise on a CUDA
-    error of the launch; count it."""
+    error of the launch, or on a TMA descriptor that failed to encode;
+    count it."""
     err = _build.launch(_kernel(symbol), device, *args)
+    if err == NO_ENCODER:
+        raise RuntimeError(f'{name}: the driver has no cuTensorMapEncodeTiled')
+    if err >= ENCODE_FAILED:
+        raise RuntimeError(f'{name}: the TMA descriptor failed to encode '
+                           f'(CUresult {err - ENCODE_FAILED})')
     if err != 0:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error '
                            f'{err}')
     LAUNCHES[name] += 1
 
 
-# ------------------------------------------ launch plans of the bulk copies
+# ------------------------------------------------------------ launch plans
 
 # H100: shared memory of one SM, the part of it the card keeps per block,
 # resident blocks per SM at most, and SMs
@@ -96,6 +117,20 @@ TMA_TILE_BYTES = 4 * 1024
 COPY_STAGES = 4
 COPY_BAR_BYTES = 128
 
+# row_gather, rows mode (csrc/gather_probe.cu kRgThreads, kRgLoads): threads
+# a block, 16-byte loads in flight a thread, and the blocks an SM holds
+# (2,048 threads; the card's occupancy API decides on the card)
+ROW_GATHER_THREADS = 256
+ROW_GATHER_LOADS = 4
+ROW_GATHER_BLOCKS_PER_SM = 8
+# onehot_gather_mma (kOhConsumers, kOhStages, kOhRows, kOhStageBytes):
+# consumer warpgroups of 128 queries, ring stages, table rows a tile, and
+# the bytes of one tile, two TMA boxes of 64 rows x 64 bf16 columns
+ONEHOT_CONSUMERS = 2
+ONEHOT_STAGES = 6
+ONEHOT_TILE_ROWS = 64
+ONEHOT_STAGE_BYTES = 2 * 64 * 128
+
 # (device index, symbol) -> the most dynamic shared memory allowed so far
 _SMEM_ALLOWED = {}
 # (device index, symbol, bytes) -> blocks per SM, as the card reports them
@@ -107,6 +142,52 @@ def blocks_per_sm(smem_bytes: int) -> int:
     on an H100 SM: the SM's 228 KB, less 1 KB per block, bound it."""
     return min(MAX_BLOCKS_PER_SM,
                SM_SMEM // (smem_bytes + SMEM_RESERVED_PER_BLOCK))
+
+
+def row_gather_plan(Q: int, W: int, elem_bytes: int, lanes: bool = False,
+                    aligned: bool = True, sms: int = H100_SMS,
+                    per_sm: Optional[int] = None) -> dict:
+    """The launch of `row_gather` for Q queries of a width-W table.
+
+    Rows mode: `blocks` blocks of ROW_GATHER_THREADS (no more than fit on
+    the card, `per_sm` on each of `sms` SMs, and no more than the work
+    needs) walk the Q x `pieces` (query, 16-byte piece) pairs, a warp
+    32 x ROW_GATHER_LOADS consecutive pairs at a time.
+
+    Lanes mode: `vec` elements a thread, 16 bytes of them where W is a
+    multiple of that and the indices are 16-byte `aligned`, else 1; blocks
+    `block` = (bx, by) of consecutive elements by queries, on a `grid` of
+    (queries, elements) blocks."""
+    if lanes:
+        v = 16 // elem_bytes
+        vec = v if aligned and W % v == 0 else 1
+        nv = W // vec
+        bx = min(nv, ROW_GATHER_THREADS)
+        by = max(1, ROW_GATHER_THREADS // bx)
+        return dict(mode='lanes', vec=vec, block=(bx, by),
+                    grid=(-(-Q // by), -(-nv // bx)), threads=bx * by)
+    pieces = W * elem_bytes // 16
+    per_sm = ROW_GATHER_BLOCKS_PER_SM if per_sm is None else per_sm
+    run = ROW_GATHER_THREADS * ROW_GATHER_LOADS
+    blocks = max(1, min(-(-Q * pieces // run), per_sm * sms))
+    return dict(mode='rows', threads=ROW_GATHER_THREADS,
+                loads_in_flight=ROW_GATHER_LOADS, pieces=pieces,
+                blocks=blocks, blocks_per_sm=per_sm)
+
+
+def onehot_plan(Q: int, R: int) -> dict:
+    """The launch of `onehot_gather_mma`: `ctas` CTAs of 128 x
+    ONEHOT_CONSUMERS queries and `threads` threads (a producer warpgroup and
+    the consumers); `table_tiles` tiles of ONEHOT_TILE_ROWS rows by 128
+    columns (those past the table's width zero) walked by every CTA through a ring of
+    `stages`; dynamic shared memory for 1 KB of alignment, the ring and its
+    full and empty mbarriers."""
+    per_cta = 128 * ONEHOT_CONSUMERS
+    return dict(ctas=-(-Q // per_cta), queries_per_cta=per_cta,
+                threads=128 * (1 + ONEHOT_CONSUMERS), stages=ONEHOT_STAGES,
+                tile_rows=ONEHOT_TILE_ROWS,
+                table_tiles=-(-R // ONEHOT_TILE_ROWS),
+                smem_bytes=1024 + ONEHOT_STAGES * (ONEHOT_STAGE_BYTES + 16))
 
 
 def row_gather_tma_plan(Q: int, row_bytes: int, depth: int,
@@ -260,22 +341,55 @@ def _row_gather(tab, idx):
         raise ValueError(f'{name}: indices must be (Q,) or (Q, W), got '
                          f'{tuple(idx.shape)}')
     _check_index(name, idx, R)
-    if dev.type == 'cpu':
-        return lambda: row_gather_reference(tab, idx)
     Q = idx.shape[0]
-    if Q * W >= 2 ** 31 * 32:
+    if Q > MAX_QUERIES:
         raise ValueError(f'{name}: {Q} queries exceed one launch')
+    es = tab.element_size()
+    aligned = idx.data_ptr() % 16 == 0
+    if dev.type == 'cpu':
+        def launch():
+            return row_gather_reference(tab, idx)
+        launch.plan = row_gather_plan(Q, W, es, lanes, aligned)
+        return launch
+    if lanes:
+        plan = row_gather_plan(Q, W, es, True, aligned)
+    else:
+        plan = row_gather_plan(Q, W, es, sms=_sms(dev),
+                               per_sm=_rows_per_sm(dev))
 
     def launch():
         out = torch.empty((Q, W), dtype=tab.dtype, device=dev)
+        if Q == 0:
+            return out
         if lanes:
             _run(name, 'row_gather_lanes', dev, tab.data_ptr(),
-                 idx.data_ptr(), out.data_ptr(), Q, W, tab.element_size())
+                 idx.data_ptr(), out.data_ptr(), Q, W, es, plan['vec'],
+                 *plan['block'], *plan['grid'])
         else:
             _run(name, 'row_gather_rows', dev, tab.data_ptr(),
-                 idx.data_ptr(), out.data_ptr(), Q, row_bytes)
+                 idx.data_ptr(), out.data_ptr(), Q, row_bytes,
+                 plan['blocks'])
         return out
+    launch.plan = plan
     return launch
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _rows_per_sm(device) -> int:
+    """Blocks of row_gather's rows mode that fit on an SM of `device`, as
+    the card's occupancy API reports them (asked once)."""
+    key = (device.index, 'row_gather_rows', 0)
+    if key not in _PER_SM:
+        with torch.cuda.device(device):
+            n = _kernel('row_gather_rows_blocks_per_sm')()
+        if n <= 0:
+            raise RuntimeError(f'row_gather: no block fits an SM (CUDA error '
+                               f'{-n})')
+        _PER_SM[key] = n
+    return _PER_SM[key]
 
 
 # ----------------------------------------------------- onehot_gather_mma
@@ -308,7 +422,8 @@ def onehot_gather_reference(tab: torch.Tensor, idx: torch.Tensor,
 
 def onehot_gather_mma(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """f32(tab)[idx] of a bf16 table (R, W), W a multiple of 8 up to 128,
-    computed as the one-hot product on the tensor cores: (Q, W) float32."""
+    computed as the one-hot product on the tensor cores (`wgmma` on table
+    tiles that TMA loads, `onehot_plan`): (Q, W) float32."""
     return _onehot_gather_mma(tab, idx)()
 
 
@@ -326,17 +441,25 @@ def _onehot_gather_mma(tab, idx):
         raise ValueError(f'{name}: indices must be (Q,), got '
                          f'{tuple(idx.shape)}')
     _check_index(name, idx, R)
-    if dev.type == 'cpu':
-        return lambda: onehot_gather_reference(tab, idx)
     Q = idx.shape[0]
-    if Q >= 2 ** 31 or R >= 2 ** 31:
+    if Q > MAX_QUERIES or R >= 2 ** 31:
         raise ValueError(f'{name}: {Q} queries or {R} rows exceed a launch')
+    plan = onehot_plan(Q, R)
+    if dev.type == 'cpu':
+        def launch():
+            return onehot_gather_reference(tab, idx)
+        launch.plan = plan
+        return launch
+    if tab.data_ptr() % 16 != 0:
+        raise ValueError(f'{name}: the table is not 16-byte aligned')
 
     def launch():
         out = torch.empty((Q, W), dtype=torch.float32, device=dev)
-        _run(name, 'onehot_gather_mma', dev, tab.data_ptr(), idx.data_ptr(),
-             out.data_ptr(), Q, R, W)
+        if Q:
+            _run(name, name, dev, tab.data_ptr(), idx.data_ptr(),
+                 out.data_ptr(), Q, R, W, plan['ctas'], plan['smem_bytes'])
         return out
+    launch.plan = plan
     return launch
 
 
@@ -428,7 +551,7 @@ def _row_gather_tma(tab, idx, depth=8, unroll=1):
                          f'must be a positive multiple of unroll')
     _check_index(name, idx, tab.shape[0])
     Q = idx.shape[0]
-    if Q >= 2 ** 31:
+    if Q > MAX_QUERIES:
         raise ValueError(f'{name}: {Q} queries exceed one launch')
     plan = row_gather_tma_plan(Q, row_bytes, depth)
     smem = plan['smem_bytes']
@@ -464,7 +587,7 @@ def prepare(name: str, *args, **kwargs) -> Callable[[], torch.Tensor]:
     and return a callable that launches its kernel on them (on CPU tensors:
     runs the plain version) each time it is called, without checking again.
     `tools/gather_probe.py` times these calls, so that a time is the
-    kernel's and not the index check's, which waits for the card. For the
-    two bulk-copy kernels the callable's `plan` is the launch's geometry (on
-    CPU tensors, the one an H100 would run)."""
+    kernel's and not the index check's, which waits for the card. The
+    callable's `plan` is the launch's geometry (on CPU tensors, the one an
+    H100 would run)."""
     return _PREPARE[name](*args, **kwargs)

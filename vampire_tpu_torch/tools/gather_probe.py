@@ -40,11 +40,14 @@ and index streams, through the four kernels of `ops/gather_probe.py`:
            time, which is the host's wherever the host is slower.
 
 The scripts' BQ (queries per TPU grid step) stays in each line as
-`script_bq`; `row_gather_tma` launches as many blocks as fit on the card
-(`ops/gather_probe.row_gather_tma_plan`), and its lines and
-`block_copy_tma`'s carry the geometry that ran: blocks, blocks per SM,
-tile rows, ring tiles and copies in flight (blocks x depth), or stages and
-chunk bytes.
+`script_bq`. Every kernel's line carries the geometry that ran, from the
+plans of `ops/gather_probe.py`: `row_gather` in rows mode its blocks,
+blocks per SM, threads and loads in flight a thread (`row_gather_plan`),
+per lane its elements a thread (`vec`), block and grid;
+`onehot_gather_mma` its CTAs, queries a CTA, ring stages, tile rows, N and
+shared memory (`onehot_plan`); `row_gather_tma` its blocks, blocks per SM,
+tile rows, ring tiles and copies in flight (blocks x depth); and
+`block_copy_tma` its blocks, blocks per SM, stages and chunk bytes.
 
 Every configuration prints one JSON line: the shapes, whether the kernel's
 output equals its plain version bit for bit (a mismatch raises), and on the
@@ -56,7 +59,9 @@ at 989 TFLOP/s bf16; the distinct rows the indices touch are counted, not
 R), the largest absolute difference from the plain version and the card's
 name and power limit. The one-hot gather's function moves bytes and needs
 no arithmetic, so its bound is the bytes'; the 2*Q*R*W multiply-adds of the
-one-hot method at the tensor cores' peak are `method_ops_ms` beside it. Times are CUDA events around K = 8
+one-hot method at the tensor cores' peak are `method_ops_ms` beside it, and
+`method_share` is that over the kernel's time. Times are CUDA events
+around K = 8
 launches (in `scale` on index windows shifted by k, as the script does),
 the least of 3 such runs, per launch.
 
@@ -96,10 +101,15 @@ GATHER_STREAMS = ('random', 'coherent')
 COPY_STREAMS = ('static', 'permuted')
 CAPACITY_BYTES = (16 * 1024, 48 * 1024, 96 * 1024, 160 * 1024,
                   gp.SMEM_LIMIT, gp.SMEM_LIMIT + 1)
-# the launch geometry each line of the two bulk-copy kernels carries
-GATHER_GEOMETRY = ('blocks', 'blocks_per_sm', 'tile_rows', 'ring_tiles',
-                   'copies_in_flight')
-COPY_GEOMETRY = ('blocks', 'blocks_per_sm', 'stages', 'chunk_bytes')
+# the launch geometry each kernel's line carries
+GEOMETRY = dict(
+    row_gather_tma=('blocks', 'blocks_per_sm', 'tile_rows', 'ring_tiles',
+                    'copies_in_flight'),
+    row_gather=('blocks', 'blocks_per_sm', 'threads', 'loads_in_flight'),
+    row_gather_lanes=('vec', 'block', 'grid'),
+    onehot_gather_mma=('ctas', 'queries_per_cta', 'stages', 'tile_rows',
+                       'smem_bytes'),
+    block_copy_tma=('blocks', 'blocks_per_sm', 'stages', 'chunk_bytes'))
 LAUNCH_REPS = 200
 # clock cycles the card spins per queued call in `device_us`: 100 us at
 # 2 GHz, several times the host's cost of a launch
@@ -215,6 +225,8 @@ class Probe:
             rec['library_ms'] = (None if library is None
                                  else time_ms(library))
             rec['share_of_bound'] = b / rec['ms']
+            if 'method_ops_ms' in rec:
+                rec['method_share'] = rec['method_ops_ms'] / rec['ms']
             if rows:
                 rec['ns_per_row'] = rec['ms'] * 1e6 / rows
         return self.emit(rec)
@@ -222,8 +234,8 @@ class Probe:
     def gather(self, rec: dict, tab: torch.Tensor, windows, name='row_gather',
                **kw) -> dict:
         """A row gather (`row_gather` or `row_gather_tma` with `kw`) of tab
-        by each index window; bound: output + distinct rows + indices.
-        `row_gather_tma`'s line also carries the launch's geometry."""
+        by each index window; bound: output + distinct rows + indices. The
+        line also carries the launch's geometry."""
         row_bytes = tab.shape[1] * tab.element_size()
         Q = windows[0].shape[0]
         distinct = int(torch.unique(windows[0]).numel())
@@ -231,8 +243,7 @@ class Probe:
                    dtype=str(tab.dtype).replace('torch.', ''), Q=Q,
                    distinct_rows=distinct, kernel=name, **kw)
         kernel = [gp.prepare(name, tab, i, **kw) for i in windows]
-        if name == 'row_gather_tma':
-            rec.update({k: kernel[0].plan[k] for k in GATHER_GEOMETRY})
+        rec.update(geometry(name, kernel[0]))
         return self.measure(
             rec, kernel,
             [lambda i=i: gp.row_gather_reference(tab, i) for i in windows],
@@ -261,11 +272,19 @@ class Probe:
             0 if perm is None else perm.numel() * 4)
         kernel = gp.prepare('block_copy_tma', tab, block_rows, perm,
                             smem_bytes)
-        rec.update({k: kernel.plan[k] for k in COPY_GEOMETRY})
+        rec.update(geometry('block_copy_tma', kernel))
         return self.measure(
             rec, [kernel] * K,
             [lambda: gp.block_copy_reference(tab, block_rows, perm)] * K,
             [library] * K, n_bytes)
+
+
+def geometry(name: str, launch) -> dict:
+    """The fields of GEOMETRY[name] (per lane: `row_gather_lanes`) from a
+    prepared launch's plan."""
+    if launch.plan.get('mode') == 'lanes':
+        name = 'row_gather_lanes'
+    return {k: launch.plan[k] for k in GEOMETRY[name]}
 
 
 def _streams(p: Probe, R: int, Q: int, names, extra: int = 0):
@@ -322,9 +341,11 @@ def run_vmem(p: Probe, one=None):
                tpu_kernel='gk_onehot', kernel='onehot_gather_mma', R=R,
                W=W, dtype='bfloat16', Q=Q, rb=gp.ONEHOT_RB, stream='random',
                library='none: no single call gathers bf16 rows into fp32')
+    kernel = gp.prepare('onehot_gather_mma', t16, idx)
+    rec.update(geometry('onehot_gather_mma', kernel))
     if p.cuda:
         rec['method_ops_ms'] = bound_ms(0.0, 2.0 * Q * R * W)[0]
-    p.measure(rec, [gp.prepare('onehot_gather_mma', t16, idx)] * K,
+    p.measure(rec, [kernel] * K,
               [lambda: gp.onehot_gather_reference(t16, idx)] * K, None,
               R * W * 2 + Q * 4 + Q * W * 4, rows=Q)
 
@@ -344,7 +365,9 @@ def run_layouts(p: Probe, one=None):
                tpu_kernel='gk_full', kernel='row_gather', mode='per lane',
                R=R, W=W, dtype='float32', Q=Q, stream='random',
                distinct_elements=distinct)
-    p.measure(rec, [gp.prepare('row_gather', tab, full)] * K,
+    kernel = gp.prepare('row_gather', tab, full)
+    rec.update(geometry('row_gather', kernel))
+    p.measure(rec, [kernel] * K,
               [lambda: gp.row_gather_reference(tab, full)] * K,
               [lambda: torch.take_along_dim(tab, full64, 0)] * K,
               Q * W * 4 * 2 + distinct * 4, rows=Q)
