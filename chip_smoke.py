@@ -19,15 +19,19 @@ nonzero without printing a result:
                geometry, torch.topk selection) in fp32 and bf16, also with
                every selected block selected by two cameras; the corner
                table of a (22, 20, 256, 256) field in fp32 and bf16, which
-               must be byte-identical (the corner-table kernels left the
-               model's path; they are the port of the TPU table kernels and
-               are checked here only); the ray sampler over 67,584 rays x 85
+               must be byte-identical and launched on its plan's staging
+               route (its plan and the route the kernel's C entry reports
+               are printed; 16-byte loads at the flagship; timed beside a pad + strided copy, a one-hot
+               conv3d and a zero_() of the table; the corner-table
+               kernels left the model's path; they are the port of the TPU
+               table kernels and are checked here only); the ray sampler over 67,584 rays x 85
                samples of camera_rig geometry through the bf16 channels-last
                field (voxel stride 24) of a synthetic field whose rays end
                partly opaque. Then the three backward kernels: the lift's
                per frame in fp32 and bf16 (the same two cases), the corner
                table's from an fp32
-               and a bf16 (21, 257, 257, 176) cotangent (byte-identical),
+               and a bf16 (21, 257, 257, 176) cotangent (byte-identical;
+               timed beside a one-hot conv_transpose3d),
                and the rays' over the same 67,584 rays (d field and d
                beta).
   4. slice   - InferenceServer(flagship_config(), device='cuda') in bf16 with
@@ -309,8 +313,15 @@ def lift_check(card, bc, dev):
 
 def table_check(card, bc, dev):
     """The corner-table kernel against its plain version on a fused field of
-    the flagship grid: byte-identical, in fp32 and in bf16."""
+    the flagship grid: byte-identical, in fp32 and in bf16, with its launch
+    plan and the staging route the C entry reports it launched, which must
+    be the plan's (16-byte loads, vec16, at the flagship). Beside its time,
+    the plain version's, the PyTorch calls' that compute the table (a pad and
+    one strided copy, `library_ms`; a one-hot conv3d, TF32 off in fp32)
+    and a zero_() of a buffer the table's size (`write_floor_ms`, the
+    card's practical store rate)."""
     import torch
+    import torch.nn.functional as F
     from vampire_tpu_torch.core.sampling import corner_table_reference
     from vampire_tpu_torch.ops import tables
 
@@ -320,27 +331,57 @@ def table_check(card, bc, dev):
     result = dict(max_abs_err=0.0)
     for dt in (torch.float32, torch.bfloat16):
         v = vol.to(dt)
+        name = str(dt).replace('torch.', '')
+        plan = tables.card_plan(v)
         got = tables.corner_table(v)
+        if v.is_cuda:
+            plan = dict(plan, launched=tables.LAST_ROUTE)
+        say(f'corner_table {name}: launch {plan}')
+        if v.is_cuda and plan['launched'] != plan['route']:
+            raise AssertionError(f'corner_table {name}: the kernel took the '
+                                 f'{plan["launched"]} route, its plan '
+                                 f'{plan["route"]}')
         want = corner_table_reference(v)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         err = (got.float() - want.float()).abs().max().item()
         mb = got.numel() * got.element_size() / 1e6
         bound = hbm_ms(v, got)
+        floor = cuda_ms(lambda: got.zero_(), 20)
         del got, want
         ms = cuda_ms(lambda: tables.corner_table(v), 20)
         plain = cuda_ms(lambda: corner_table_reference(v), 5)
-        name = str(dt).replace('torch.', '')
+        library = cuda_ms(lambda: tables.corner_table_library(v), 20)
+        w = tables.onehot_corner_weight(shape[0], dt, v.device)
+        with no_tf32():
+            conv = cuda_ms(lambda: F.conv3d(v[None], w, padding=1), 10)
         say(f'corner_table {name}: {shape} -> {mb:.0f} MB, byte-identical '
             f'{same}, max abs err {err:.3e}; kernel {ms:.4f} ms '
             f'({mb / ms:.0f} GB/s written), plain {plain:.4f} ms, bound '
-            f'{bound:.4f} ms [{card}]')
+            f'{bound:.4f} ms (share {bound / ms:.3f}); pad + strided copy '
+            f'{library:.4f} ms; one-hot conv3d {conv:.4f} ms'
+            f'{" (TF32 off)" if dt == torch.float32 else ""}; zero_() of '
+            f'the table {floor:.4f} ms [{card}]')
         if not same:
             raise AssertionError(f'corner_table kernel {name} is not '
                                  f'byte-identical to the plain version')
         result['max_abs_err'] = max(result['max_abs_err'], err)
-        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                            library_ms=library, conv3d_ms=conv,
+                            write_floor_ms=floor, plan=plan)
     return result
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN convolutions in full fp32 (TF32 off) inside the block."""
+    import torch
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def sdf_along_rays(sdf_vol, coords, valid):
@@ -550,7 +591,9 @@ def lift_bwd_check(card, bc, dev):
 def table_bwd_check(card, bc, dev):
     """The corner-table backward kernel against its plain version from a
     random (21, 257, 257, 176) cotangent in fp32 and bf16: byte-identical
-    (no atomics, the plain version's summation order)."""
+    (no atomics, the plain version's summation order). Beside its time, the
+    one-hot conv_transpose3d's (`library_ms`, the weight built before the
+    timing, TF32 off in fp32)."""
     import torch
     from vampire_tpu_torch.ops import tables
 
@@ -573,16 +616,23 @@ def table_bwd_check(card, bc, dev):
         ms = cuda_ms(lambda: tables.corner_table_backward(g, shape), 20)
         plain = cuda_ms(lambda: tables.corner_table_backward_reference(
             g, shape), 5)
+        w = tables.onehot_corner_weight(C, dt, g.device)
+        with no_tf32():
+            library = cuda_ms(lambda: tables.corner_table_backward_library(
+                g, shape, w), 20)
         name = str(dt).replace('torch.', '')
         say(f'corner_table_bwd {name}: {mb:.0f} MB cotangent -> {shape} '
             f'fp32, byte-identical {same}, max abs err {err:.3e}; kernel '
             f'{ms:.4f} ms ({mb / ms:.0f} GB/s read), plain {plain:.4f} ms, '
-            f'bound {bound:.4f} ms [{card}]')
+            f'bound {bound:.4f} ms (share {bound / ms:.3f}); one-hot '
+            f'conv_transpose3d {library:.4f} ms'
+            f'{" (TF32 off)" if dt == torch.float32 else ""} [{card}]')
         if not same:
             raise AssertionError(f'corner_table backward kernel {name} is '
                                  f'not byte-identical to the plain version')
         result['max_abs_err'] = max(result['max_abs_err'], err)
-        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                            library_ms=library)
     del g32
     return result
 
@@ -1262,9 +1312,11 @@ def main():
     if leaked:
         raise AssertionError(f'the port imported {leaked}')
     csrc = 'vampire_tpu_torch/csrc'
-    # library_ms None: no single PyTorch call computes the lift, the corner
-    # table, the rays or their backwards. The corner-table pair is off the
-    # model's path (0 launches there) and checked in the kernel phase only.
+    # library_ms None: no single PyTorch call computes the lift, the rays or
+    # their backwards. The corner table's is a pad and one strided copy, its
+    # backward's a one-hot conv_transpose3d (ops/tables.py, yardsticks no
+    # path calls). The corner-table pair is off the model's path (0
+    # launches there) and checked in the kernel phase only.
     print(json.dumps({'kernels': [{
         'name': 'lift_accumulate',
         'route': 'cuda',
@@ -1294,9 +1346,16 @@ def main():
         'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
         'bound_ms': k['corner_table']['bfloat16']['bound_ms'],
         'bound_by': 'bytes',
-        'library_ms': None,
+        'library_ms': k['corner_table']['bfloat16']['library_ms'],
+        'write_floor_ms': k['corner_table']['bfloat16']['write_floor_ms'],
+        'conv3d_ms': k['corner_table']['bfloat16']['conv3d_ms'],
+        'plan': k['corner_table']['bfloat16']['plan'],
         'fp32_ms': k['corner_table']['float32']['ms'],
         'fp32_plain_ms': k['corner_table']['float32']['plain_ms'],
+        'fp32_library_ms': k['corner_table']['float32']['library_ms'],
+        'fp32_write_floor_ms':
+            k['corner_table']['float32']['write_floor_ms'],
+        'fp32_plan': k['corner_table']['float32']['plan'],
     }, {
         'name': 'sample_and_composite_rays',
         'route': 'cuda',
@@ -1340,9 +1399,10 @@ def main():
         'plain_ms': k['corner_table_bwd']['bfloat16']['plain_ms'],
         'bound_ms': k['corner_table_bwd']['bfloat16']['bound_ms'],
         'bound_by': 'bytes',
-        'library_ms': None,
+        'library_ms': k['corner_table_bwd']['bfloat16']['library_ms'],
         'fp32_ms': k['corner_table_bwd']['float32']['ms'],
         'fp32_plain_ms': k['corner_table_bwd']['float32']['plain_ms'],
+        'fp32_library_ms': k['corner_table_bwd']['float32']['library_ms'],
     }, {
         'name': 'sample_and_composite_rays_backward',
         'route': 'cuda',

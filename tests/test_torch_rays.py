@@ -10,6 +10,7 @@ run where JAX is not installed:
         tests/test_torch_rays.py
 """
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -284,23 +285,14 @@ def test_kernel_argument_checks_pass_a_padded_field():
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_gpu(dtype):
-    """On the card: the corner-table kernel (off the model's path, still a
-    port of `_corner_table_pallas`) is byte-identical to its plain version,
-    and the ray kernel agrees with its plain version to 1e-4 * max(1,
-    max |ref|) per output (fp32 sums in another order; the plain
+    """On the card: the ray kernel agrees with its plain version to 1e-4 *
+    max(1, max |ref|) per output (fp32 sums in another order; the plain
     transmittance is a sequential cumsum), in both density modes, on the
     field `channels_last_field` makes and on a padded one (voxel stride
     16). Each launches once; a field whose voxels do not start on 16 bytes
-    raises."""
+    raises. (The corner table's cases: the next test.)"""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
-    for shape in ((8, 5, 8, 8), (22, 3, 17, 33), (5, 1, 1, 70)):
-        vol = torch.randn(shape, generator=torch.Generator().manual_seed(0))
-        vol = vol.to(dtype).cuda()
-        before = tables.LAUNCHES
-        got = tables.corner_table(vol)
-        assert tables.LAUNCHES == before + 1
-        assert torch.equal(got, S.corner_table_reference(vol))
     for mode in ('sdf', 'naive'):
         vol, coords, valid, deltas, mids = _case(seed=4, n_rays=1000,
                                                  n_samp=85)
@@ -324,3 +316,49 @@ def test_kernels_match_plain_on_gpu(dtype):
                 tol = 1e-4 * max(1.0, ref[:, sl].abs().max().item())
                 err = (got[:, sl] - ref[:, sl]).abs().max().item()
                 assert err <= tol, (mode, extra, sl, err, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_corner_table_kernel_matches_plain_on_gpu(dtype):
+    """On the card: the corner-table kernel (off the model's path, still a
+    port of `_corner_table_pallas`) is byte-identical to its plain version
+    on both staging routes (16-byte loads at W 8, 16, 64 and 256, and in
+    fp32 at 300 and 1,400, whose rows are cut into segments; a value a
+    lane at W 1, 33, 70, in bf16 at 300, at C = 300 in segments, and on a
+    contiguous view that does not start on 16 bytes), at D = 1, H = 1, odd
+    C, on a volume holding NaN, inf and -0.0 (copied bit for bit); each
+    call launches once, on the route its plan names."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    gen = torch.Generator().manual_seed(0)
+    cases = [(8, 5, 8, 8), (22, 2, 4, 256), (22, 3, 17, 33), (5, 1, 1, 70),
+             (22, 2, 2, 300), (1, 1, 1, 1), (6, 1, 3, 16), (7, 2, 3, 64)]
+    if dtype == torch.float32:
+        cases.append((22, 1, 2, 1400))           # rows in segments
+    else:
+        cases.append((300, 1, 2, 201))           # segments, scalar route
+    # (shape, values the view starts after): views one value into a buffer
+    cases = [(shape, 0) for shape in cases] + [((22, 3, 17, 33), 1),
+                                               ((22, 2, 4, 256), 1)]
+    for shape, offset in cases:
+        base = torch.randn(offset + math.prod(shape), generator=gen)
+        vol = base[offset:].view(shape)
+        if shape == (22, 2, 4, 256) and offset == 0:
+            vol.view(-1)[::97] = float('nan')
+            vol.view(-1)[5::101] = float('inf')
+            vol.view(-1)[7::103] = -float('inf')
+            vol.view(-1)[9::89] = -0.0
+        vol = base.to(dtype).cuda()[offset:].view(shape)
+        assert vol.is_contiguous()
+        assert (vol.data_ptr() % 16 == 0) == (offset == 0)
+        plan = tables.card_plan(vol)
+        before = tables.LAUNCHES
+        got = tables.corner_table(vol)
+        assert tables.LAUNCHES == before + 1
+        assert tables.LAST_ROUTE == plan['route'], (shape, offset, plan)
+        if offset:
+            assert plan['route'] == 'scalar'
+        want = S.corner_table_reference(vol)
+        view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(got.view(view), want.view(view)), (shape, plan)

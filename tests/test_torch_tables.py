@@ -13,7 +13,7 @@ import torch
 from vampire_tpu.core import sampling as JS
 from vampire_tpu.ops import pallas_tables as PT
 from vampire_tpu_torch.core import sampling as S
-from vampire_tpu_torch.ops import tables
+from vampire_tpu_torch.ops import _build, tables
 
 
 def _vol(shape, seed):
@@ -137,3 +137,187 @@ def test_kernel_argument_checks(bad, err):
     """The checks the wrapper makes before any launch."""
     with pytest.raises(err):
         tables._check(bad(torch.zeros(3, 4, 5, 6)))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(22, 3, 5, 7), (5, 2, 4, 9), (7, 1, 1, 1),
+                                   (22, 2, 3, 16)])
+def test_corner_table_library_matches_plain(shape, dtype):
+    """The yardstick (a pad and one strided copy) is the plain table bit for
+    bit, -0.0 included, at an even and an odd C."""
+    tv = torch.from_numpy(_vol(shape, seed=sum(shape))).to(dtype)
+    got = tables.corner_table_library(tv)
+    want = S.corner_table_reference(tv)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize('shape', [(22, 3, 5, 7), (5, 2, 4, 9)])
+def test_onehot_conv3d_is_the_table(shape):
+    """`onehot_corner_weight` makes F.conv3d the table channels-first: each
+    output is 1 x one value plus zeros, exact in fp32."""
+    tv = torch.from_numpy(_vol(shape, seed=3))
+    w = tables.onehot_corner_weight(shape[0], torch.float32)
+    got = torch.nn.functional.conv3d(tv[None], w, padding=1)[0]
+    assert torch.equal(got.permute(1, 2, 3, 0),
+                       S.corner_table_reference(tv))
+
+
+# shapes for the launch plan: the flagship, the gpu test's, D = 1, H = 1,
+# W + 1 a multiple of no tile, odd C, rows cut into segments
+PLAN_SHAPES = [(22, 20, 256, 256), (8, 5, 8, 8), (22, 2, 4, 256),
+               (22, 3, 17, 33),
+               (5, 1, 1, 70), (22, 2, 2, 300), (1, 1, 1, 1), (6, 1, 3, 16),
+               (33, 2, 2, 8), (3, 4, 1, 1000), (22, 2, 3, 2000),
+               (64, 1, 2, 129), (250, 1, 2, 61), (22, 1, 2, 1400)]
+
+
+def _replay(plan, C, D, H, W):
+    """The kernel's walk (csrc/corner_table.cu corner_table_kernel), as
+    counts: items handed to CTAs, and for each segment length the 16-byte
+    chunks of its positions the threads store."""
+    items, ctas = plan['items'], plan['ctas']
+    starts = [i * items // ctas for i in range(ctas + 1)]
+    item_hits = np.zeros(items, np.int64)
+    for i in range(ctas):
+        item_hits[starts[i]:starts[i + 1]] += 1
+    seg, nt = plan['seg'], plan['threads']
+    cp, pps = plan['chunks_per_position'], plan['positions_per_step']
+    chunk_hits = {}
+    for sg in range(plan['segments']):
+        npos = min(seg, W + 1 - sg * seg)
+        if npos in chunk_hits:
+            continue
+        hits = np.zeros(npos * cp, np.int64)
+        tid = np.arange(nt)
+        for k in range(-(-npos // pps)):
+            pos = tid // cp + k * pps
+            ok = pos < npos
+            np.add.at(hits, (pos * cp + tid % cp)[ok], 1)
+        chunk_hits[npos] = hits
+    return item_hits, chunk_hits, starts
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', PLAN_SHAPES)
+def test_table_plan_covers_every_row_once(shape, dtype):
+    """Every work item (row or row segment) goes to exactly one CTA, every
+    CTA walks at most rows_per_cta of them, the segments tile each row's
+    W + 1 positions, and the threads store every 16-byte chunk of a work
+    item's positions exactly once."""
+    C, D, H, W = shape
+    plan = tables.table_plan(*shape, dtype)
+    assert plan['items'] == (D + 1) * (H + 1) * plan['segments']
+    assert plan['segments'] == -(-(W + 1) // plan['seg'])
+    assert plan['threads'] % plan['chunks_per_position'] == 0
+    assert plan['threads'] <= 1024
+    item_hits, chunk_hits, starts = _replay(plan, *shape)
+    assert (item_hits == 1).all()
+    assert max(np.diff(starts)) == 1          # a CTA an item
+    assert sum(chunk_hits) == W + 1 or plan['segments'] > 1
+    for npos, hits in chunk_hits.items():
+        assert (hits == 1).all(), npos
+    # the chunks of a position are its 8C values
+    elem = 2 if dtype == torch.bfloat16 else 4
+    assert plan['chunks_per_position'] * 16 == 8 * C * elem
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', PLAN_SHAPES + [(256, 1, 1, 256),
+                                                 (512, 2, 2, 600)])
+def test_table_plan_fits_shared_memory(shape, dtype):
+    """A launch's shared memory stays within the 232,448 bytes a block may
+    take and holds the 4C staged runs of seg + 1 values (2 z planes x 2 y
+    planes x C channels); rows are cut into segments only where a whole
+    row would exceed the 48 KB a CTA aims at (four CTAs an SM), and then
+    into the longest that stay within it."""
+    C, D, H, W = shape
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if C * elem // 2 > 512:
+        with pytest.raises(ValueError):
+            tables.table_plan(*shape, dtype)
+        return
+    plan = tables.table_plan(*shape, dtype)
+    seg = plan['seg']
+    assert plan['smem_bytes'] <= _build.SMEM_LIMIT
+    assert plan['smem_bytes'] == tables.table_smem(C, elem, seg)
+    assert plan['smem_bytes'] >= 4 * C * (seg + 1) * elem
+    assert plan['ctas'] == plan['items']
+    target = max(tables.TABLE_SMEM_TARGET, tables.table_smem(C, elem, 1))
+    assert plan['smem_bytes'] <= target
+    if plan['segments'] > 1:        # a longer segment would not fit
+        assert tables.table_smem(C, elem, seg + 1) > target
+    else:
+        assert seg == W + 1
+
+
+@pytest.mark.parametrize('shape,dtype,route', [
+    ((22, 20, 256, 256), torch.bfloat16, 'vec16'),
+    ((22, 20, 256, 256), torch.float32, 'vec16'),
+    ((22, 2, 4, 256), torch.bfloat16, 'vec16'),
+    ((6, 1, 3, 16), torch.bfloat16, 'vec16'),
+    ((22, 2, 2, 300), torch.float32, 'vec16'),
+    ((22, 3, 17, 33), torch.bfloat16, 'scalar'),
+    ((22, 3, 17, 33), torch.float32, 'scalar'),
+    ((22, 2, 2, 300), torch.bfloat16, 'scalar'),
+    ((5, 1, 1, 70), torch.bfloat16, 'scalar'),
+    ((300, 2, 2, 64), torch.bfloat16, 'vec16'),
+])
+def test_table_plan_route(shape, dtype, route):
+    """The CTA stages with 16-byte loads where every row of the field starts
+    on 16 bytes (W x size a multiple of 16), else a value a lane: bf16
+    W = 33 and 300 and fp32 W = 33 take the scalar route. The flagship
+    shape takes the 16-byte route in both dtypes."""
+    assert tables.table_plan(*shape, dtype)['route'] == route
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(22, 20, 256, 256), (8, 5, 8, 8),
+                                   (22, 3, 17, 33)])
+def test_table_plan_route_of_a_field_off_16_bytes(shape, dtype):
+    """A field that does not start on 16 bytes (a contiguous view at an
+    offset) is staged a value a lane at every width; `card_plan` keys its
+    plans by that alignment, and the rest of the launch stays the same."""
+    plan = tables.table_plan(*shape, dtype, aligned=False)
+    assert plan['route'] == 'scalar'
+    assert dict(plan, route=None) == dict(tables.table_plan(*shape, dtype),
+                                          route=None)
+    C, D, H, W = shape
+    base = torch.zeros(8 + C * D * H * W, dtype=dtype)
+    at = next(i for i in range(8) if base[i:].data_ptr() % 16 == 0)
+    on = base[at:at + C * D * H * W].view(shape)
+    off = base[at + 1:at + 1 + C * D * H * W].view(shape)
+    assert tables.card_plan(off)['route'] == 'scalar'
+    assert tables.card_plan(on)['route'] == \
+        tables.table_plan(*shape, dtype)['route']
+
+
+def test_corner_table_of_an_offset_view():
+    """On the CPU the wrapper takes a contiguous view at any offset (the
+    plain version); the card's kernel stages it a value a lane."""
+    v = torch.from_numpy(_vol((5, 2, 3, 9), seed=8).ravel())
+    for dt in (torch.float32, torch.bfloat16):
+        vol = torch.cat([v[:1], v]).to(dt)[1:].view(5, 2, 3, 9)
+        assert torch.equal(_bits(tables.corner_table(vol)),
+                           _bits(S.corner_table_reference(
+                               v.to(dt).view(5, 2, 3, 9))))
+
+
+def test_table_plan_flagship():
+    """At (22, 20, 256, 256): 352 threads (11 warps, 16 positions a step in
+    bf16, 8 in fp32). bf16: whole rows, a CTA a row (5,397), 4 x 22 runs
+    of 258 values, 45 KB (five CTAs an SM). fp32: whole rows would take
+    91 KB (two an SM), so rows go in two segments of 138 positions, 48 KB
+    a CTA (four an SM)."""
+    bf = tables.table_plan(22, 20, 256, 256, torch.bfloat16)
+    f32 = tables.table_plan(22, 20, 256, 256, torch.float32)
+    assert (bf['threads'], bf['positions_per_step'], bf['seg'],
+            bf['segments'], bf['ctas'], bf['smem_bytes']) == \
+        (352, 16, 257, 1, 5397, 45408)
+    assert (f32['threads'], f32['positions_per_step'], f32['seg'],
+            f32['segments'], f32['ctas'], f32['smem_bytes']) == \
+        (352, 8, 138, 2, 10794, 48928)

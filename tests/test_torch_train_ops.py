@@ -181,6 +181,29 @@ def test_corner_table_backward_matches_jax_vjp():
     np.testing.assert_array_equal(tv.grad.numpy(), want)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(22, 3, 5, 7), (5, 2, 4, 9), (7, 1, 1, 1)])
+def test_corner_table_backward_library_matches_plain(shape, dtype):
+    """The yardstick (one one-hot conv_transpose3d) sums the same 8 values
+    in cuDNN's order: in fp32 within 1e-6 of the plain version's corner
+    order; from a bf16 cotangent the call's output is rounded to bf16,
+    so within one rounding (2^-8 relative) of the plain fp32 sum."""
+    C, D, H, W = shape
+    rng = np.random.RandomState(sum(shape))
+    g = torch.from_numpy(rng.randn(D + 1, H + 1, W + 1, 8 * C)
+                         .astype(np.float32)).to(dtype)
+    got = tables.corner_table_backward_library(g, shape)
+    want = tables.corner_table_backward_reference(g, shape)
+    assert got.shape == want.shape == (C, D, H, W)
+    assert got.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        torch.testing.assert_close(got, want, rtol=2 ** -8, atol=1e-6)
+    w = tables.onehot_corner_weight(C, dtype)
+    assert torch.equal(tables.corner_table_backward_library(g, shape, w), got)
+
+
 def _ray_case(seed=0, n_rays=60, n_samp=9):
     """A fused (C, D, H, W) field around the density's knee and rays whose
     samples fall inside, on and beyond the field's borders (as in

@@ -35,6 +35,8 @@ NVCC_FLAGS = ('-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v') + ARCH_FLAGS
 # no FMA contraction: the host library computes as its numpy plain version
 CXX_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC', '-ffp-contract=off')
+# the dynamic shared memory one block may ask for on an H100 (227 KB)
+SMEM_LIMIT = 232448
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -44,12 +44,11 @@ from typing import Callable, Optional
 import torch
 
 from . import _build
+from ._build import SMEM_LIMIT
 
 # kernel launches per wrapper (incremented at each launch only)
 LAUNCHES = dict(row_gather=0, onehot_gather_mma=0, block_copy_tma=0,
                 row_gather_tma=0)
-# the dynamic shared memory one block may ask for on an H100 (227 KB)
-SMEM_LIMIT = 232448
 # the RB of scripts/perf_vmem_gather.py's one-hot gather: table rows per
 # one-hot product
 ONEHOT_RB = 2048
