@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths and its
-row-gather probes once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and evaluation paths and
+its row-gather probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -59,7 +59,21 @@ nonzero without printing a result:
                finite loss terms and grad_norm, every parameter with a
                gradient moved, the frozen stem bit-unchanged; then times
                more steps and reads the peak memory.
-  6. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
+  6. eval    - Trainer(flagship_config(), device='cuda') in bf16 with seeded
+               random weights and BN calibrated on one frame, through its
+               evaluation entry points: `validate` over 4 frames, `test`
+               (in-repo NDS/mAP against seeded GT boxes), `predict` and
+               `test(vis=True)` over 2; each loader's last frame comes as
+               a batch of 2 whose second row sample_valid marks padding.
+               Checks each confusion's total (the valid points, the masked
+               voxels), `eval_confusions` on the card against np.add.at on
+               the same forward, the mIoUs in [0, 1] or NaN, the files
+               each call writes (one detection entry, lidarseg bin or
+               pickle per valid frame; NDS in [0, 1]) and the launches per
+               call: the lift once a row, the rays once a row on vis only,
+               nothing else. Prints each call's host-clock ms a row and
+               its peak memory.
+  7. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
                layouts and dma sub-commands and its scale sub-command on
                the ray stage's 1,387,029-row tables of 256 and 176 bf16
                (depths 1, 8 and 32, issued 1 and 4 at a time, random and
@@ -86,8 +100,11 @@ function needs no arithmetic; its entry also gives `method_ops_ms`, the
 one-hot product's multiply-adds at the tensor cores' peak, and
 `method_share`, that time over the kernel's.
 
-The last three lines are a JSON object of the kernels run, the card's name
-and power limit, and `{"ok": true, "device": {...}}`.
+Each model kernel's entry also gives its launches in each call of the eval
+phase (`eval_launches`); the object also holds the eval calls' ms a row
+and validate's peak memory. The last three lines are a JSON object of the
+kernels run, the card's name and power limit, and `{"ok": true, "device":
+{...}}`.
 """
 import contextlib
 import dataclasses
@@ -123,6 +140,10 @@ BWD_RTOL = 1e-4
 BETA_RTOL = 1e-3
 N_TRAIN_BATCHES = 3
 N_TIMED_STEPS = 5
+# the eval phase's frames: validate over N_VAL_FRAMES, test, predict and vis
+# over N_TEST_FRAMES; each loader's last frame comes padded to 2 rows
+N_VAL_FRAMES = 4
+N_TEST_FRAMES = 2
 # the probe phase's scale pairs (variant, stream) of tools/gather_probe.py
 PROBE_SCALE = [(v, s) for v in ('rows', 'dma1', 'dma8', 'dmau8', 'dma32',
                                 'dmau32') for s in ('random', 'coherent')]
@@ -695,10 +716,11 @@ def kernel_phase(card, bc=None, dev='cuda'):
     return out
 
 
-def calibrate_batchnorm_(server, frame):
+def calibrate_batchnorm_(model, inputs, camera_renders=False):
     """Set every BatchNorm's running statistics to the batch statistics of
-    one synthetic frame (one train-mode forward of the graph the server
-    serves, momentum 1).
+    one synthetic frame: one train-mode forward of `inputs` (imgs, mats,
+    points on the model's device), momentum 1. Leaves the model in eval
+    mode.
 
     Seeded random weights leave BN the identity, so activations grow
     through the residual stacks (~3x in variance per bottleneck) until the
@@ -707,19 +729,16 @@ def calibrate_batchnorm_(server, frame):
     trained model's would.
     """
     import torch
-    bns = [m for m in server.model.modules()
-           if isinstance(m, torch.nn.BatchNorm2d)]
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for m in bns:
         m.momentum = 1.0
-    imgs, mats, points = server.to_device({k: v[None]
-                                           for k, v in frame.items()})
-    server.model.train()
+    imgs, mats, points = inputs
+    model.train()
     for m in bns:       # the frozen stem's BN too, which train() leaves out
         m.train()
     with torch.no_grad():
-        server.model(imgs, mats, points=points,
-                     camera_renders=server.camera_renders)
-    server.model.eval()
+        model(imgs, mats, points=points, camera_renders=camera_renders)
+    model.eval()
     say(f'calibrated {len(bns)} BatchNorm layers on one synthetic frame')
 
 
@@ -728,7 +747,10 @@ def serve_path(card, server, calib, samples, label):
     launch count set to 0 just before; returns (outputs, launch counts)."""
     import torch
     t0 = time.perf_counter()
-    calibrate_batchnorm_(server, calib)
+    calibrate_batchnorm_(server.model,
+                         server.to_device({k: v[None]
+                                           for k, v in calib.items()}),
+                         server.camera_renders)
     t1 = time.perf_counter()
     server.start()
     outs, lat = [], []
@@ -1203,6 +1225,259 @@ def train_phase(card, cfg=None, dev='cuda'):
     return dict(launched=launched, grad=grad, step_ms=ms, peak_gb=peak)
 
 
+def eval_frame(cfg, seed, token):
+    """A val-mode synthetic flagship frame (B=1) with what a real loader
+    adds and the synthetic batches lack: the meta (sample and lidar
+    tokens, a seeded ego pose) and the number of points before padding."""
+    import numpy as np
+    from vampire_tpu_torch.configs import synthetic_batch
+    P = cfg.train.max_points
+    b = synthetic_batch(cfg, batch_size=1, n_points=P, seed=seed, mode='val')
+    rng = np.random.RandomState(seed)
+    q = rng.randn(4)
+    b['meta'] = dict(token=[token], lidar_token=[f'lidar_{token}'],
+                     ego2global_rotation=[(q / np.linalg.norm(q)).tolist()],
+                     ego2global_translation=[
+                         rng.uniform(-500, 500, 3).tolist()])
+    b['num_points'] = np.array([rng.randint(1, P + 1)])
+    return b
+
+
+def padded(frame):
+    """`frame` as a final partial batch of 2: a second row, a copy of the
+    first under the token 'pad', that sample_valid marks invalid."""
+    import numpy as np
+    out = {k: np.concatenate([v, v]) for k, v in frame.items()
+           if k != 'meta'}
+    out['sample_valid'] = np.array([True, False])
+    out['meta'] = {k: v + (['pad'] if 'token' in k else v)
+                   for k, v in frame['meta'].items()}
+    return out
+
+
+def valid_rows(batch):
+    """The rows of a batch that sample_valid does not mark as padding."""
+    import numpy as np
+    return np.flatnonzero(batch.get('sample_valid',
+                                    np.ones(len(batch['imgs']), bool)))
+
+
+class EvalLoader(list):
+    """Batches with a `dataset` whose `global_gt_boxes()` gives seeded
+    global-frame GT boxes around each valid frame's ego position, the
+    interface `Trainer.test` reads GT through."""
+
+    def __init__(self, batches, classes, seed=0):
+        import numpy as np
+        super().__init__(batches)
+        rng = np.random.RandomState(seed)
+        self.gt = {}
+        for b in batches:
+            for i in valid_rows(b):
+                tok = b['meta']['token'][i]
+                ego = np.asarray(b['meta']['ego2global_translation'][i])
+                boxes = []
+                for _ in range(20):
+                    et = np.r_[rng.uniform(-40, 40, 2), rng.uniform(-2, 1)]
+                    yaw = rng.uniform(-np.pi, np.pi)
+                    boxes.append(dict(
+                        translation=(ego + et).tolist(),
+                        ego_translation=et.tolist(),
+                        size=rng.uniform(0.5, 5, 3).tolist(),
+                        rotation=[np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)],
+                        velocity=rng.uniform(-3, 3, 2).tolist(),
+                        detection_name=classes[rng.randint(len(classes))],
+                        attribute_name='', num_pts=int(rng.randint(1, 20))))
+                self.gt[tok] = boxes
+        self.dataset = self
+
+    def global_gt_boxes(self):
+        return self.gt
+
+
+@contextlib.contextmanager
+def recorded_confusions(into):
+    """Append each (conf_seg, conf_occ) that the validation's metric step
+    computes (`train_step.eval_confusions`) to `into`."""
+    from vampire_tpu_torch.training import train_step
+    original = train_step.eval_confusions
+
+    def record(fo, batch, num_classes):
+        out = original(fo, batch, num_classes)
+        into.append(out)
+        return out
+    train_step.eval_confusions = record
+    try:
+        yield
+    finally:
+        train_step.eval_confusions = original
+
+
+def numpy_confusions(fo, batch, K):
+    """The validation confusions of one forward's logits on the host: the
+    JAX package's semantics with np.add.at (base_exp.py:644-658)."""
+    import numpy as np
+    sv = np.asarray(batch['sample_valid'])
+    pts = fo['pts_logits'].float().cpu().numpy()
+    occ = fo['occ_logits'].float().cpu().numpy()
+    labels = np.asarray(batch['point_labels'])
+    valid = (np.asarray(batch['point_valid']) & (labels != 0)
+             & sv[:, None])
+    seg = np.zeros((K - 1, K - 1), np.float32)
+    np.add.at(seg, (labels[valid], pts[..., 1:-1].argmax(-1)[valid] + 1), 1)
+    mask = np.asarray(batch['mask_camera']) & sv[:, None, None, None]
+    conf = np.zeros((K, K), np.float32)
+    np.add.at(conf, (np.asarray(batch['occ_semantics'])[mask],
+                     occ.argmax(-1)[mask]), 1)
+    return seg, conf
+
+
+def eval_phase(card, cfg=None, dev='cuda'):
+    """The Trainer's evaluation paths at flagship width, bf16, B=1, through
+    their entry points, with every launch count set to 0 just before each
+    call and read just after: `validate` over N_VAL_FRAMES frames,
+    `test` and `predict` over N_TEST_FRAMES frames with synthetic GT, and
+    `test(vis=True)` over the same; each loader's last batch is padded to
+    2 rows with sample_valid. Checks the confusions' totals, the device
+    confusion function against numpy on one forward, the mIoU range, the
+    files each call writes and the launches (the lift once a row on every
+    call, the rays once a row on vis only, nothing else). Returns the
+    launch counts, the ms a row and validate's peak memory."""
+    import numpy as np
+    import torch
+    from vampire_tpu_torch.configs import flagship_config
+    from vampire_tpu_torch.training.train_step import (build_eval_step,
+                                                       eval_confusions,
+                                                       split_mats)
+    from vampire_tpu_torch.training.trainer import Trainer
+
+    cfg = cfg or flagship_config()
+    K = cfg.backbone.num_classes
+    classes = [c for t in cfg.head.tasks for c in t]
+    t0 = time.perf_counter()
+    frames = [eval_frame(cfg, 30 + i, f'sample{i}')
+              for i in range(N_VAL_FRAMES)]
+    val = EvalLoader(frames[:-1] + [padded(frames[-1])], classes)
+    tst = EvalLoader(frames[:N_TEST_FRAMES - 1]
+                     + [padded(frames[N_TEST_FRAMES - 1])], classes)
+    results = {}
+    with tempfile.TemporaryDirectory() as wd:
+        trainer = Trainer(cfg, workdir=wd, device=dev)
+        state = trainer.init_state(None, 1)
+        model = trainer.model
+        d = trainer.to_device(frames[-1])
+        calibrate_batchnorm_(model, (d['imgs'], split_mats(d), d['points']))
+        # warm up each graph at both batch shapes (cuDNN and cuBLAS plans)
+        with torch.no_grad():
+            for b in (frames[0], val[-1]):
+                d = trainer.to_device(b)
+                for renders in (False, True):
+                    model(d['imgs'], split_mats(d), points=d['points'],
+                          camera_renders=renders)
+        say(f'eval: {cfg.train.compute_dtype} Trainer built, BN calibrated '
+            f'and warmed up in {time.perf_counter() - t0:.1f} s')
+
+        def run(label, loader, fn):
+            rows = sum(len(b['imgs']) for b in loader)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            h0 = time.perf_counter()
+            out = fn(loader)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - h0) * 1e3
+            launched = counts()
+            peak = (torch.cuda.max_memory_allocated() / 1e9
+                    if dev == 'cuda' else float('nan'))
+            say(f'eval {label}: {ms:.2f} ms for {rows} rows ({rows - 1} '
+                f'frames and a padding row), {ms / rows:.2f} ms a row, host '
+                f'clock incl. the host work; peak memory {peak:.3f} GB; '
+                f'kernel launches {launched} [{card}]')
+            want = dict(lift=rows, rays=rows if label == 'vis' else 0)
+            want = {k: want.get(k, 0) for k in launched}
+            if launched != want:
+                raise AssertionError(f'eval {label}: kernel launches '
+                                     f'{launched}, want {want}')
+            results[label] = dict(launched=launched, ms_per_row=ms / rows,
+                                  ms=ms, rows=rows, peak_gb=peak)
+            return out
+
+        confs = []
+        with recorded_confusions(confs):
+            miou = run('validate', val,
+                       lambda ld: trainer.validate(ld, state))
+        for b, (seg, occ) in zip(val, confs):
+            sv = np.isin(np.arange(len(b['imgs'])), valid_rows(b))
+            pts = (b['point_valid'] & (b['point_labels'] != 0)
+                   & sv[:, None]).sum()
+            vox = (b['mask_camera'] & sv[:, None, None, None]).sum()
+            got = (int(seg.sum().item()), int(occ.sum().item()))
+            if got != (int(pts), int(vox)):
+                raise AssertionError(f'validate: confusion totals {got}, '
+                                     f'want {(int(pts), int(vox))}')
+        if len(confs) != len(val) or not all(
+                np.isnan(v) or 0.0 <= v <= 1.0 for v in miou.values()):
+            raise AssertionError(f'validate: {len(confs)} batches, {miou}')
+        say(f'eval validate: {miou}; confusion totals equal the valid '
+            f'points and the masked voxels of every batch')
+        # the device confusion function against numpy on one forward
+        d = trainer.to_device(val[-1])
+        fo = build_eval_step(model, cfg)(d)
+        with torch.no_grad():
+            dev_conf = [c.cpu().numpy() for c in eval_confusions(fo, d, K)]
+        for what, g, w in zip(('seg', 'occ'), dev_conf,
+                              numpy_confusions(fo, val[-1], K)):
+            if not np.array_equal(g, w):
+                raise AssertionError(f'eval_confusions {what}: device vs '
+                                     f'numpy differ in {(g != w).sum()} '
+                                     f'entries')
+        model.train()
+        say('eval: eval_confusions on the device equals np.add.at on the '
+            'same forward (both matrices, every entry)')
+
+        tokens = [b['meta']['token'][i] for b in tst for i in valid_rows(b)]
+        run('test', tst, lambda ld: trainer.test(ld, state))
+        sub = os.path.join(trainer.workdir, 'detection_submit')
+        with open(os.path.join(sub, 'results_nusc.json')) as f:
+            det = json.load(f)['results']
+        with open(os.path.join(sub, 'metrics_summary.json')) as f:
+            nds = json.load(f)['nd_score']
+        if sorted(det) != sorted(tokens) or not 0.0 <= nds <= 1.0:
+            raise AssertionError(f'test: tokens {sorted(det)}, want '
+                                 f'{sorted(tokens)}; NDS {nds}')
+        say(f'eval test: {sum(len(v) for v in det.values())} boxes over '
+            f'{len(det)} tokens, in-repo NDS {nds:.4f}')
+
+        run('predict', tst, lambda ld: trainer.predict(ld, state))
+        seg_dir = os.path.join(trainer.workdir, 'lidarseg_submit',
+                               'lidarseg', 'test')
+        bins = sorted(os.listdir(seg_dir))
+        want_bins = sorted(f'lidar_{t}_lidarseg.bin' for t in tokens)
+        if bins != want_bins:
+            raise AssertionError(f'predict: {bins}, want {want_bins}')
+        for b in tst:
+            for i in valid_rows(b):
+                t = b['meta']['lidar_token'][i]
+                lab = np.fromfile(os.path.join(seg_dir, f'{t}_lidarseg.bin'),
+                                  np.uint8)
+                if (len(lab) != b['num_points'][i]
+                        or not ((lab >= 1) & (lab <= 16)).all()):
+                    raise AssertionError(f'predict {t}: {len(lab)} labels '
+                                         f'in {lab.min()}..{lab.max()}')
+        say(f'eval predict: {len(bins)} lidarseg bins, num_points labels '
+            f'in 1..16 each')
+
+        run('vis', tst, lambda ld: trainer.test(ld, state, vis=True))
+        pkls = sorted(os.listdir(os.path.join(trainer.workdir,
+                                              'visualization')))
+        if pkls != [f'{i}.pkl' for i in range(len(tokens))]:
+            raise AssertionError(f'vis: {pkls}')
+        say(f'eval vis: {len(pkls)} pickles')
+    return results
+
+
 def probe_phase(card):
     """The probe slice through its entry point, `tools/gather_probe.py`
     (`main`): the vmem, layouts and dma sub-commands and the PROBE_SCALE
@@ -1294,6 +1569,11 @@ REPLACES = dict(
                    'scripts/perf_r4_dma_scale.py:184')
 
 
+def eval_launches(ev, kernel):
+    """A kernel's launches in each call of the eval phase."""
+    return {label: r['launched'][kernel] for label, r in ev.items()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1306,6 +1586,7 @@ def main():
     launched = slice_phase(card)['full']
     train = train_phase(card)
     tl = train['launched']
+    ev = eval_phase(card)
     probes, pl = probe_phase(card)
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                     ('jax', 'jaxlib', 'flax', 'optax', 'vampire_tpu'))
@@ -1326,6 +1607,7 @@ def main():
         'launches': launched['lift'],
         'train_launches': tl['lift'],
         'per': 'frame',
+        'eval_launches': eval_launches(ev, 'lift'),
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -1341,6 +1623,7 @@ def main():
         'replaces': 'vampire_tpu/ops/pallas_tables.py:73',
         'launches': launched['corner_table'],
         'train_launches': tl['corner_table'],
+        'eval_launches': eval_launches(ev, 'corner_table'),
         'max_abs_err': k['corner_table']['max_abs_err'],
         'ms': k['corner_table']['bfloat16']['ms'],
         'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
@@ -1363,6 +1646,7 @@ def main():
         'replaces': 'vampire_tpu/core/rendering.py:100',
         'launches': launched['rays'],
         'train_launches': tl['rays'],
+        'eval_launches': eval_launches(ev, 'rays'),
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
@@ -1380,6 +1664,7 @@ def main():
         'per': 'frame',
         'ctas': k['lift_bwd']['ctas'],
         'live_ctas': k['lift_bwd']['live_ctas'],
+        'eval_launches': eval_launches(ev, 'lift_bwd'),
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
@@ -1394,6 +1679,7 @@ def main():
         'source': f'{csrc}/corner_table.cu',
         'replaces': 'vampire_tpu/ops/pallas_tables.py:214',
         'launches': tl['corner_table_bwd'],
+        'eval_launches': eval_launches(ev, 'corner_table_bwd'),
         'max_abs_err': k['corner_table_bwd']['max_abs_err'],
         'ms': k['corner_table_bwd']['bfloat16']['ms'],
         'plain_ms': k['corner_table_bwd']['bfloat16']['plain_ms'],
@@ -1409,6 +1695,7 @@ def main():
         'source': f'{csrc}/rays.cu',
         'replaces': 'vampire_tpu/core/rendering.py:155',
         'launches': tl['rays_bwd'],
+        'eval_launches': eval_launches(ev, 'rays_bwd'),
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
         'plain_ms': k['rays_bwd']['plain_ms'],
@@ -1430,7 +1717,9 @@ def main():
                     stream='random', W=176,
                     also=('dma', dict(tpu_kernel='k_s2'))),
     ], 'train_step_ms': train['step_ms'],
-        'train_peak_gb': train['peak_gb']}), flush=True)
+        'train_peak_gb': train['peak_gb'],
+        'eval_ms_per_row': {k: v['ms_per_row'] for k, v in ev.items()},
+        'validate_peak_gb': ev['validate']['peak_gb']}), flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -360,7 +360,17 @@ def test_trainer_finetune_restarts_the_optimizer():
 
 
 def test_fit_with_a_val_loader_raises():
+    """`fit` validates after the epoch (check_val_every_n_epoch=1 here) and
+    an error of the validation propagates: a val batch without
+    occ_semantics raises out of `fit`, after the epoch's checkpoint."""
+    cfg = _tiny_fp32(max_epochs=1, check_val_every_n_epoch=1)
+    train = [synthetic_batch(cfg, batch_size=1, n_points=128, seed=3,
+                             mode='train')]
+    val = {k: v for k, v in synthetic_batch(
+        cfg, batch_size=1, n_points=128, seed=4, mode='val').items()
+        if k != 'occ_semantics'}
     with tempfile.TemporaryDirectory() as d:
-        tr = Trainer(_tiny_fp32(), workdir=d, device='cpu')
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tr.fit([{}], val_loader=[{}])
+        tr = Trainer(cfg, workdir=d, device='cpu')
+        with pytest.raises(KeyError, match='occ_semantics'):
+            tr.fit(train, val_loader=[val])
+        assert tr.saved_epochs() == [0]

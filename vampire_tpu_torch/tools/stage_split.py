@@ -164,7 +164,9 @@ def main(argv=None):
     for outputs in ('metrics', None):
         srv = InferenceServer(cfg, device='cuda', dtype=torch.bfloat16,
                               outputs=outputs, seed=0)
-        chip_smoke.calibrate_batchnorm_(srv, calib)
+        chip_smoke.calibrate_batchnorm_(
+            srv.model, srv.to_device({k: v[None] for k, v in calib.items()}),
+            srv.camera_renders)
         time_stages(srv.model, lambda: srv.forward(batch),
                     f'{"metrics" if outputs else "full-render"} forward()',
                     'forward')

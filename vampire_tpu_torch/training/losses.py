@@ -19,6 +19,10 @@ from ..configs import HeadConfig
 from ..models.centerpoint_head import detection_loss
 from ..ops.lovasz import ce_lovasz, ce_lovasz_compact
 
+# ImageNet statistics of the normalized images, RGB, in [0, 1] units
+_RGB_MEAN = (0.485, 0.456, 0.406)
+_RGB_STD = (0.229, 0.224, 0.225)
+
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
               beta: float = 1.0) -> torch.Tensor:
@@ -29,6 +33,14 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mf = mask.to(torch.float32)
     return torch.sum(x * mf) / torch.clamp(torch.sum(mf), min=1.0)
+
+
+def denormalize_images(imgs: torch.Tensor) -> torch.Tensor:
+    """Normalized (B, N, H, W, 3) -> [0, 1] rgb (base_exp.py:608-616): one
+    fp32 multiply, then one add, as the JAX package rounds them."""
+    std = torch.tensor(_RGB_STD, dtype=torch.float32, device=imgs.device)
+    mean = torch.tensor(_RGB_MEAN, dtype=torch.float32, device=imgs.device)
+    return imgs.to(torch.float32) * std + mean
 
 
 def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,

@@ -1,8 +1,8 @@
 """Confusion-matrix IoU metrics; the port of `vampire_tpu/training/metrics.py`.
 
 `confusion_update` accumulates on the device; `JaccardIndex` and
-`format_iou_report` are the host side the trainer's epoch report uses
-(numpy, copied because the JAX module imports jax).
+`format_iou_report` are the host side of the trainer's train and validation
+reports (numpy, copied because the JAX module imports jax).
 """
 from __future__ import annotations
 
@@ -36,6 +36,21 @@ class JaccardIndex:
 
     def reset(self):
         self.conf = np.zeros((self.num_classes, self.num_classes), np.float64)
+
+    def update(self, preds: np.ndarray, labels: np.ndarray,
+               valid: Optional[np.ndarray] = None):
+        """Count (labels, preds) pairs where `valid` holds and the label is
+        not ignore_index."""
+        preds = np.asarray(preds).reshape(-1)
+        labels = np.asarray(labels).reshape(-1)
+        mask = np.ones(labels.shape, bool)
+        if valid is not None:
+            mask &= np.asarray(valid).reshape(-1)
+        if self.ignore_index is not None:
+            mask &= labels != self.ignore_index
+        preds, labels = preds[mask], labels[mask]
+        np.add.at(self.conf, (labels.astype(np.int64),
+                              preds.astype(np.int64)), 1.0)
 
     def update_confusion(self, conf: np.ndarray):
         conf = np.asarray(conf, np.float64)

@@ -1,10 +1,16 @@
-"""The training step; the port of `vampire_tpu/training/train_step.py`.
+"""The training and eval steps; the port of
+`vampire_tpu/training/train_step.py`.
 
-One step: the forward in train mode (BN on batch statistics outside the
-frozen stem, camera renders on, the lift and ray kernels with their
+One train step: the forward in train mode (BN on batch statistics outside
+the frozen stem, camera renders on, the lift and ray kernels with their
 backward kernels), all task losses, backward, global-norm clipping,
 AdamW, the optional EMA, and the two train-IoU confusion matrices. The BN
 running statistics move during the forward, as flax's mutable batch_stats.
+
+The eval steps run the metrics graph (no camera renders, the lift kernel
+only) in eval mode under `torch.no_grad()`, with the weights the model
+holds. Not `inference_mode`: its tensors could not enter autograd later,
+and `Trainer.fit` trains on after validating.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..models.centerpoint_head import decode_preds
 from .losses import compute_losses
 from .metrics import confusion_update
 from .train_state import TrainState, clip_by_global_norm_, ema_update, lr_at
@@ -80,3 +87,62 @@ def build_train_step(cfg, num_devices: int = 1, with_metrics: bool = True):
         return state, logs, (conf_seg, conf_occ)
 
     return train_step
+
+
+def build_eval_step(model, cfg, lidar_seg: bool = True):
+    """Returns eval_step(batch) -> the metrics' field outputs (pts_logits,
+    occ_logits, occ_density) and, with lidar_seg=False, the boxes decoded
+    on the device under 'det' (base_exp.py:634-663). Leaves the model in
+    eval mode."""
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        model.eval()
+        with torch.no_grad():
+            fo, preds = model(batch['imgs'], split_mats(batch),
+                              points=batch['points'], lidar_seg=lidar_seg,
+                              camera_renders=False)
+            out = dict(pts_logits=fo['pts_logits'],
+                       occ_logits=fo['occ_logits'],
+                       occ_density=fo['occ_density'])
+            if not lidar_seg:
+                out['det'] = decode_preds(preds, cfg.head)
+        return out
+
+    return eval_step
+
+
+def eval_confusions(fo: Dict[str, torch.Tensor],
+                    batch: Dict[str, torch.Tensor], num_classes: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The validation confusions of one forward, on its device
+    (base_exp.py:644-658): the lidarseg argmax over classes 1..16 (+1) on
+    valid labelled points, (K - 1, K - 1); the occupancy argmax on
+    mask_camera voxels, (K, K). Rows with sample_valid False (the padding
+    of a final partial batch) count nowhere."""
+    K = num_classes
+    seg_pred = torch.argmax(fo['pts_logits'][..., 1:-1], dim=-1) + 1
+    valid = batch['point_valid'] & (batch['point_labels'] != 0)
+    occ_mask = batch['mask_camera']
+    sv = batch.get('sample_valid')
+    if sv is not None:
+        valid = valid & sv[:, None]
+        occ_mask = occ_mask & sv[:, None, None, None]
+    dev = seg_pred.device
+    conf_seg = confusion_update(torch.zeros((K - 1, K - 1), device=dev),
+                                seg_pred, batch['point_labels'], valid)
+    occ_pred = torch.argmax(fo['occ_logits'], dim=-1)
+    conf_occ = confusion_update(torch.zeros((K, K), device=dev), occ_pred,
+                                batch['occ_semantics'], occ_mask)
+    return conf_seg, conf_occ
+
+
+def build_metric_eval_step(model, cfg):
+    """Returns eval_step(batch) -> (conf_seg, conf_occ), computed on the
+    model's device: only the two (C, C) matrices need leave it."""
+    forward = build_eval_step(model, cfg, lidar_seg=True)
+
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        fo = forward(batch)
+        with torch.no_grad():
+            return eval_confusions(fo, batch, cfg.backbone.num_classes)
+
+    return eval_step

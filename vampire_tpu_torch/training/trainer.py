@@ -1,19 +1,25 @@
-"""The training loop; the port of `vampire_tpu/training/trainer.py`
-(`Trainer.__init__`, `init_state`, `fit`, checkpoints, `log_scalars` and
-the epoch-end train-IoU report).
+"""The training system; the port of `vampire_tpu/training/trainer.py`:
+`Trainer.__init__`, `init_state`, `fit` (with validation every
+check_val_every_n_epoch epochs), checkpoints, `log_scalars`, the epoch-end
+train-IoU report, `validate`, `test` (detection eval; `vis=True`: the --vis
+dumps) and `predict` (the test-split submission).
 
 One process on one device: the batch dict of numpy arrays (the JAX
-package's loader layout) goes to the device, one train step runs, and the
+package's loader layout) goes to the device, one step runs, and the
 scalars go to `<workdir>/<exp_name>/scalars.jsonl`. A checkpoint is a torch
 `state_dict` bundle (params, buffers, optimizer, step, EMA) saved after
 every epoch as `checkpoints/<epoch>.pt`; `fit` resumes from the latest.
-Validation, test, predict, image logging, the CLI and DDP are not ported
-(ROADMAP.md, Queue 1).
+With one process, the JAX package's `process_allgather` and
+`host_local_rows` are the identity and every process is the main one.
+Still raising or absent (ROADMAP.md, Queue 1): `pretrained_backbone`
+(item 10), `log_images` (item 10), the CLI (item 4) and DDP (item 6).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import pickle
 import re
 import time
 from typing import Any, Dict, Optional
@@ -22,11 +28,16 @@ import numpy as np
 import torch
 
 from ..configs import LABEL_17_NAMES
+from ..evaluation.det_evaluator import DetNuscEvaluator, apply_circle_nms
+from ..evaluation.lidarseg import lidarseg_labels, write_submission
 from ..models.vampire import Vampire, init_params_
-from ..serving.server import set_fp32_precision
+from ..serving.server import _argmax, _to_numpy, set_fp32_precision
+from ..utils.vis import tile_cameras, visualize_depth, visualize_semantic
+from .losses import denormalize_images
 from .metrics import JaccardIndex, format_iou_report
 from .train_state import TrainState, create_train_state
-from .train_step import build_train_step, init_train_confusion
+from .train_step import (build_eval_step, build_metric_eval_step,
+                         build_train_step, init_train_confusion, split_mats)
 
 DEVICE_KEYS_EXCLUDE = ('meta',)
 _TODO = 'see ROADMAP.md, Queue 1'
@@ -58,7 +69,7 @@ class Trainer:
         """Seeded random weights (a torch.Generator seeded with
         cfg.train.seed on the model's device) and a fresh optimizer. The
         torchvision-pretrained backbone of the reference recipe is not
-        ported."""
+        ported: `pretrained_backbone` raises."""
         del example_batch   # shapes come from the config
         if self.cfg.train.pretrained_backbone:
             raise NotImplementedError(f'pretrained_backbone: {_TODO}')
@@ -124,9 +135,9 @@ class Trainer:
         resume: restore the latest checkpoint of this workdir (params,
             buffers, optimizer, step) and continue at the next epoch.
         finetune_from: epoch whose weights only seed a fresh run.
+        val_loader: validated after every check_val_every_n_epoch-th epoch
+            (base_cli.py:88), its mIoUs logged.
         """
-        if val_loader is not None:
-            raise NotImplementedError(f'validation is not ported, {_TODO}')
         cfg = self.cfg
         steps_per_epoch = len(train_loader)
         if state is None:
@@ -162,6 +173,10 @@ class Trainer:
             print(f'epoch {epoch} done in {time.time() - t_ep:.1f}s')
             self._report_train_iou(conf, state.step)
             self.save_checkpoint(state, epoch)
+            if val_loader is not None and \
+                    (epoch + 1) % cfg.train.check_val_every_n_epoch == 0:
+                self.log_scalars(state.step,
+                                 self.validate(val_loader, state))
         return state
 
     def _report_train_iou(self, conf, step: int) -> None:
@@ -183,3 +198,189 @@ class Trainer:
         print(f'Current train occupancy miou is {occ_miou * 100:.3f}')
         self.log_scalars(step, {'train/mIoU': miou,
                                 'train/occ_mIoU': occ_miou})
+
+    def log_images(self, state: TrainState, dev_batch) -> None:
+        """The periodic image panels (PNG files written with PIL) are not
+        ported."""
+        raise NotImplementedError(f'log_images: {_TODO} (item 10)')
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _eval_params(self, state: TrainState, use_ema: Optional[bool] = None):
+        """The model with the weights to evaluate: the EMA when the run
+        trained with it (the reference evaluates the EMA .pth,
+        ema.py:101-117), else its own. The BN running statistics stay the
+        model's, as the JAX package evaluates EMA params with the state's
+        batch_stats. On exit the training weights are back bit for bit and
+        the model is in train mode (`ResNet.train` keeps the frozen stem in
+        eval mode)."""
+        if use_ema is None:
+            use_ema = self.cfg.train.use_ema
+        model = state.model
+        params = dict(model.named_parameters())
+        saved = None
+        try:
+            if use_ema and state.ema_params is not None:
+                saved = {k: p.detach().clone() for k, p in params.items()}
+                with torch.no_grad():
+                    for k, p in params.items():
+                        p.copy_(state.ema_params[k])
+            yield model
+        finally:
+            if saved is not None:
+                with torch.no_grad():
+                    for k, p in params.items():
+                        p.copy_(saved[k])
+            model.train()
+
+    def validate(self, val_loader, state: TrainState,
+                 use_ema: Optional[bool] = None) -> Dict[str, float]:
+        """Lidarseg + occupancy IoU over the val split (base_exp.py:634-663,
+        880-910). The confusion matrices are computed on the device; only
+        two (C, C) arrays come back per batch."""
+        cfg = self.cfg
+        val_iou = JaccardIndex(17, ignore_index=0)
+        occ_iou = JaccardIndex(cfg.backbone.num_classes)
+        with self._eval_params(state, use_ema) as model:
+            step = build_metric_eval_step(model, cfg)
+            for batch in val_loader:
+                conf_seg, conf_occ = step(self.to_device(batch))
+                val_iou.update_confusion(conf_seg.cpu().numpy())
+                occ_iou.update_confusion(conf_occ.cpu().numpy())
+        iou = val_iou.compute()[1:]
+        miou = float(np.nanmean(iou))
+        occ = occ_iou.compute()[:-1]
+        occ_miou = float(np.nanmean(occ))
+        print(format_iou_report(iou, LABEL_17_NAMES[1:-1], 'Validation'))
+        print(f'Current val miou is {miou * 100:.3f}')
+        print(format_iou_report(occ, LABEL_17_NAMES[:-1],
+                                'Validation occupancy'))
+        print(f'Current val occupancy miou is {occ_miou * 100:.3f}')
+        return {'val/mIoU': miou, 'val/occ_mIoU': occ_miou}
+
+    def _det_results(self, batch, out, results, metas) -> np.ndarray:
+        """Host circle NMS of one batch's decoded boxes and their metas,
+        appended for every row but the padding of a final partial batch;
+        returns the rows' sample_valid."""
+        B = np.asarray(batch['imgs']).shape[0]
+        sv = np.asarray(batch.get('sample_valid', np.ones(B, bool)))
+        meta = batch['meta']
+        for b in range(B):
+            if not sv[b]:
+                continue
+            results.append(apply_circle_nms(out['det'], self.cfg.head, b))
+            metas.append(dict(
+                token=meta['token'][b],
+                ego2global_rotation=meta['ego2global_rotation'][b],
+                ego2global_translation=meta['ego2global_translation'][b]))
+        return sv
+
+    def test(self, test_loader, state: TrainState, vis: bool = False,
+             use_ema: Optional[bool] = None) -> None:
+        """Detection eval: the metrics graph with the head, decode on the
+        device, host circle NMS and the submission scored by
+        `DetNuscEvaluator` (base_exp.py:665-746, 912-929): by the devkit
+        where it is installed, else by the in-repo metric against the GT of
+        `test_loader.dataset.global_gt_boxes()` where the loader has one.
+        Only the decoded boxes leave the device. With vis=True, dump
+        per-frame pickles of rendered rgb/depth/seg/bev/occ instead
+        (base_exp.py:678-708)."""
+        cfg = self.cfg
+        results, metas = [], []
+        with self._eval_params(state, use_ema) as model:
+            if vis:
+                self._test_vis(test_loader)
+                return
+            step = build_eval_step(model, cfg, lidar_seg=False)
+            for batch in test_loader:
+                out = step(self.to_device(batch))
+                self._det_results(batch, {'det': _to_numpy(out['det'])},
+                                  results, metas)
+        evaluator = DetNuscEvaluator(
+            class_names=[c for t in cfg.head.tasks for c in t],
+            output_dir=os.path.join(self.workdir, 'detection_submit'),
+            data_root=cfg.train.data_root,
+            version=cfg.train.nusc_version)
+        # devkit-free GT (in-repo NDS/mAP) from the loader's infos
+        gt = getattr(test_loader, 'dataset', None)
+        gt = gt.global_gt_boxes() if gt is not None else None
+        evaluator.evaluate(results, metas, gt_boxes=gt)
+
+    def _test_vis(self, loader) -> None:
+        """--vis dumps (base_exp.py:678-708): per-frame pickles of the input
+        tile, rendered depth/semantics, BEV maps and occ prediction, from
+        the full-render graph with the weights the model holds (`test`
+        puts the EMA in first where it evaluates with it). The argmaxes and
+        the density sum run on the device."""
+        model = self.model
+        vis_dir = os.path.join(self.workdir, 'visualization')
+        os.makedirs(vis_dir, exist_ok=True)
+        model.eval()
+        idx = 0
+        for batch in loader:
+            dev = self.to_device(batch)
+            with torch.no_grad():
+                fo, _ = model(dev['imgs'], split_mats(dev),
+                              points=dev['points'])
+                out = _to_numpy(dict(
+                    depth_preds=fo['depth_preds'],
+                    seg_preds=_argmax(fo['seg_logits_preds']),
+                    bev_seg=_argmax(fo['bev_seg_logits_preds']),
+                    bev_height=fo['bev_height_preds'],
+                    bev_density=torch.sum(fo['bev_density'], dim=1),
+                    occ=_argmax(fo['occ_logits']
+                                * fo['occ_density'][..., None])))
+            rgb = denormalize_images(
+                torch.as_tensor(np.asarray(batch['imgs']))).numpy()
+            B = rgb.shape[0]
+            sv = np.asarray(batch.get('sample_valid', np.ones(B, bool)))
+            tokens = batch['meta'].get('lidar_token', [''] * B)
+            for b in range(B):
+                if not sv[b]:
+                    continue  # padding row of the final partial batch
+                d = dict(
+                    batch_idx=idx,
+                    lidar_token=tokens[b],
+                    input_image=tile_cameras(
+                        (rgb[b] * 255).astype(np.uint8)),
+                    camera_depth=tile_cameras(np.stack(
+                        [visualize_depth(x) for x in out['depth_preds'][b]])),
+                    camera_semantics=tile_cameras(np.stack(
+                        [visualize_semantic(x) for x in out['seg_preds'][b]])),
+                    bev_semantics=visualize_semantic(out['bev_seg'][b]),
+                    bev_density=visualize_depth(out['bev_density'][b],
+                                                vmin=0, vmax=10),
+                    occ=out['occ'][b],
+                )
+                with open(os.path.join(vis_dir, f'{idx}.pkl'), 'wb') as f:
+                    pickle.dump(d, f)
+                idx += 1
+
+    def predict(self, loader, state: TrainState,
+                use_ema: Optional[bool] = None) -> None:
+        """Test-split submission: detection json + per-token lidarseg bins
+        (base_exp.py:800-849, base_cli.py:112-129). Only the decoded boxes
+        and the point logits leave the device."""
+        cfg = self.cfg
+        results, metas, seg_results = [], [], []
+        with self._eval_params(state, use_ema) as model:
+            step = build_eval_step(model, cfg, lidar_seg=False)
+            for batch in loader:
+                out = step(self.to_device(batch))
+                out = _to_numpy(dict(det=out['det'],
+                                     pts_logits=out['pts_logits']))
+                sv = self._det_results(batch, out, results, metas)
+                for b in np.flatnonzero(sv):
+                    n = int(np.asarray(batch['num_points'][b]))
+                    seg_results.append(
+                        (batch['meta']['lidar_token'][b],
+                         lidarseg_labels(out['pts_logits'][b], n)))
+        write_submission(seg_results,
+                         os.path.join(self.workdir, 'lidarseg_submit'),
+                         split='test')
+        evaluator = DetNuscEvaluator(
+            class_names=[c for t in cfg.head.tasks for c in t],
+            output_dir=os.path.join(self.workdir, 'detection_submit'),
+            data_root=cfg.train.data_root,
+            version='v1.0-test')
+        evaluator.format_bbox(results, metas)
