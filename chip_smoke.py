@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and evaluation paths and
-its row-gather probes once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and evaluation paths,
+its input pipeline and its row-gather probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -73,7 +73,33 @@ nonzero without printing a result:
                call: the lift once a row, the rays once a row on vis only,
                nothing else. Prints each call's host-clock ms a row and
                its peak memory.
-  7. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
+  7. data    - the input pipeline into the same steps: the port's
+               data/fake.py writes a nuScenes-layout tree at real scale
+               (4 train and 2 val samples, 35,000 points a cloud, Occ3D
+               at 200x200x16, 1600x900 camera geometry; no JPEG is
+               written), and its data/nuscenes.py dataset and loader read
+               it in the flagship's train-mode augmentation, the image
+               read alone replaced by SeededImages (a seeded uint8
+               256x704 image a camera: no JPEG decode and no PIL on the
+               card's machine; the line says whether PIL imports there).
+               Prints __getitem__ ms a sample in train and val mode (one
+               thread, decode excluded), the loader's samples/s with 1
+               and 4 threads and 1 and 4 spawned processes, one batch's
+               bytes and host->device time. Then `Trainer.fit` (flagship,
+               bf16, B=1) over the train loader with 4 process workers
+               (the train infos twice: 8 steps), its step median against
+               the train phase's on synthetic batches and each step's wait
+               on the loader, and peak memory; then `validate` and `test`
+               over the val loader (BN calibrated on one val frame), the
+               in-repo NDS scored against the dataset's
+               global_gt_boxes(). Checks that a loader batch has
+               synthetic_batch's keys, shapes and dtypes, that process and
+               thread workers give the same batches byte for byte, that no
+               worker imports torch, finite losses, the launches per row
+               (fit: lift 1+1 and rays 1+1 a step; validate and test: the
+               lift once a row) and the confusion totals; prints the
+               phase's wall time.
+  8. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
                layouts and dma sub-commands and its scale sub-command on
                the ray stage's 1,387,029-row tables of 256 and 176 bf16
                (depths 1, 8 and 32, issued 1 and 4 at a time, random and
@@ -101,8 +127,9 @@ one-hot product's multiply-adds at the tensor cores' peak, and
 `method_share`, that time over the kernel's.
 
 Each model kernel's entry also gives its launches in each call of the eval
-phase (`eval_launches`); the object also holds the eval calls' ms a row
-and validate's peak memory. The last three lines are a JSON object of the
+phase (`eval_launches`) and of the data phase (`data_launches`); the object
+also holds the eval calls' ms a row, validate's peak memory and the data
+phase's numbers (`data`). The last three lines are a JSON object of the
 kernels run, the card's name and power limit, and `{"ok": true, "device":
 {...}}`.
 """
@@ -115,6 +142,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
+
+import numpy as np
+
+# the loader's dataset, numpy only; its process workers (spawned) import
+# this script to find SeededImages below
+from vampire_tpu_torch.data.nuscenes import NuscDetSegDataset
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_REQUESTS = 3
@@ -144,6 +178,13 @@ N_TIMED_STEPS = 5
 # over N_TEST_FRAMES; each loader's last frame comes padded to 2 rows
 N_VAL_FRAMES = 4
 N_TEST_FRAMES = 2
+# the data phase's fake nuScenes tree: train and val samples, points a
+# cloud (scripts/perf_dataloader.py's real-scale count), loader workers;
+# the fit and the throughput runs read the train infos DATA_REPEAT times
+DATA_TRAIN, DATA_VAL = 4, 2
+DATA_POINTS = 35000
+DATA_WORKERS = 4
+DATA_REPEAT = 2
 # the probe phase's scale pairs (variant, stream) of tools/gather_probe.py
 PROBE_SCALE = [(v, s) for v in ('rows', 'dma1', 'dma8', 'dmau8', 'dma32',
                                 'dmau32') for s in ('random', 'coherent')]
@@ -1478,6 +1519,370 @@ def eval_phase(card, cfg=None, dev='cuda'):
     return results
 
 
+class SeededImages(NuscDetSegDataset):
+    """The loader's dataset with only its image read replaced: no JPEG is
+    opened or decoded. Each camera image is a uint8 (fH, fW, 3) array
+    seeded by its file name, as if already resized and cropped, and the
+    raw image size is the dataset's (W, H) = (1600, 900). In a process
+    worker it refuses to run once torch is imported: workers touch no
+    CUDA."""
+
+    def load_image(self, filename, resize_dims, crop, flip, rotate):
+        import multiprocessing
+        if (multiprocessing.parent_process() is not None
+                and 'torch' in sys.modules):
+            raise RuntimeError('a loader worker imported torch')
+        fH, fW = self.ida_aug.final_dim
+        rng = np.random.RandomState(zlib.crc32(filename.encode()))
+        return ((self.ida_aug.W, self.ida_aug.H),
+                rng.randint(0, 256, (fH, fW, 3), np.uint8))
+
+
+class TimedLoader:
+    """A loader whose iteration records, for each batch, when the consumer
+    asked for it and when it got it (host clock)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.dataset = loader.dataset
+        self.asked, self.got = [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.asked.append(t0)
+            self.got.append(time.perf_counter())
+            yield batch
+
+
+def fake_tree(root, cfg):
+    """The port's fake nuScenes tree at real scale under `root`, its JPEG
+    writes skipped (SeededImages never reads them; the random stream is
+    the same): DATA_TRAIN + DATA_VAL samples of DATA_POINTS points,
+    Occ3D labels on the config's occ grid, 1600x900 camera geometry.
+    Returns the train and val info paths."""
+    import pickle
+    from vampire_tpu_torch.data import fake
+    write = fake._write_jpeg
+    fake._write_jpeg = lambda img, path: None
+    try:
+        info = fake.make_fake_nusc(root, n_samples=DATA_TRAIN + DATA_VAL,
+                                   n_points=DATA_POINTS, seed=0,
+                                   occ_shape=cfg.backbone.occ_grid)
+    finally:
+        fake._write_jpeg = write
+    with open(info, 'rb') as f:
+        infos = pickle.load(f)
+    paths = []
+    for split, part in (('train', infos[:DATA_TRAIN]),
+                        ('val', infos[DATA_TRAIN:])):
+        paths.append(os.path.join(root, f'infos_{split}_part.pkl'))
+        with open(paths[-1], 'wb') as f:
+            pickle.dump(part, f)
+    return paths
+
+
+def decode_getitem_ms(cfg, root):
+    """Median ms of the dataset's own train-mode __getitem__, JPEG decode
+    and PIL augmentation included, over a 2-sample fake tree with real
+    1600x900 JPEGs ('smooth' images, realistic sizes) under `root`."""
+    from vampire_tpu_torch.configs import DET_CLASSES
+    from vampire_tpu_torch.data.fake import make_fake_nusc
+    tree = os.path.join(root, 'jpeg')
+    info = make_fake_nusc(tree, n_samples=2, n_points=DATA_POINTS, seed=1,
+                          image_content='smooth',
+                          occ_shape=cfg.backbone.occ_grid)
+    bc = cfg.backbone
+    ds = NuscDetSegDataset(
+        ida_aug=cfg.ida_aug, bda_aug=cfg.bda_aug,
+        classes=list(DET_CLASSES), data_root=tree,
+        info_paths=info, head_cfg=cfg.head, mode='train',
+        max_points=cfg.train.max_points, seed=0,
+        seg_bounds=(bc.x_bound_seg, bc.y_bound_seg, bc.z_bound_seg))
+    times = []
+    for i in range(6):
+        h0 = time.perf_counter()
+        ds[i % 2]
+        times.append((time.perf_counter() - h0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def same_batches(a, b):
+    """Two batch lists equal key for key, byte for byte, meta included."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if set(x) != set(y) or repr(x['meta']) != repr(y['meta']):
+            return False
+        for k in x:
+            if k != 'meta' and (x[k].dtype != y[k].dtype
+                                or not np.array_equal(x[k], y[k])):
+                return False
+    return True
+
+
+def data_phase(card, synthetic_step_ms, cfg=None, dev='cuda'):
+    """The input pipeline into the train and eval steps: a fake nuScenes
+    tree at real scale read by the port's dataset and loader (the image
+    read replaced by SeededImages), then `Trainer.fit` over the train
+    loader (process workers) and `validate` and `test` over the val loader,
+    with every launch count set to 0 just before each call and read just
+    after. Checks the batches against synthetic_batch's keys, shapes and
+    dtypes, process-worker batches against thread-worker ones byte for
+    byte, finite losses, the launches per row, the confusion totals and a
+    finite NDS. Returns the launches and the measurements."""
+    import torch
+    from vampire_tpu_torch.configs import (DET_CLASSES, flagship_config,
+                                           synthetic_batch)
+    from vampire_tpu_torch.data.nuscenes import DataLoader
+    from vampire_tpu_torch.ops import _build
+    from vampire_tpu_torch.training.train_step import split_mats
+    from vampire_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = cfg or flagship_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, max_epochs=1))
+    out = {}
+    pil = subprocess.run([sys.executable, '-c', 'import PIL'],
+                         capture_output=True).returncode == 0
+    say(f'data: camera images come from SeededImages.load_image, a seeded '
+        f'uint8 {cfg.ida_aug.final_dim} array a camera with the raw size '
+        f'({cfg.ida_aug.W}, {cfg.ida_aug.H}); no JPEG is written, read or '
+        f'decoded and no PIL resize, crop or flip runs; import PIL on this '
+        f'machine: {"works" if pil else "fails"}')
+    t0 = time.perf_counter()
+    _build.load_host_library('host')
+    say(f'data: host library (NMS, rasterizers) ready in '
+        f'{time.perf_counter() - t0:.2f} s')
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        train_info, val_info = fake_tree(root, cfg)
+        say(f'data: fake tree of {DATA_TRAIN} train and {DATA_VAL} val '
+            f'samples ({DATA_POINTS} points a cloud, Occ3D '
+            f'{cfg.backbone.occ_grid}) in {time.perf_counter() - t0:.2f} s')
+        bc = cfg.backbone
+
+        def dataset(infos, mode):
+            return SeededImages(
+                ida_aug=cfg.ida_aug, bda_aug=cfg.bda_aug,
+                classes=list(DET_CLASSES), data_root=root,
+                info_paths=infos, head_cfg=cfg.head,
+                mode=mode, max_points=cfg.train.max_points, seed=0,
+                seg_bounds=(bc.x_bound_seg, bc.y_bound_seg, bc.z_bound_seg))
+        train_ds = dataset([train_info] * DATA_REPEAT, 'train')
+        val_ds = dataset(val_info, 'val')
+
+        # __getitem__ alone, one thread, each sample twice; the first call
+        # is left out
+        for label, ds in (('train', train_ds), ('val', val_ds)):
+            times = []
+            for i in list(range(len(ds))) * 2:
+                h0 = time.perf_counter()
+                ds[i]
+                times.append((time.perf_counter() - h0) * 1e3)
+            ms = statistics.median(times[1:])
+            out[f'getitem_{label}_ms'] = ms
+            say(f'data: __getitem__ {label} mode {ms:.2f} ms a sample '
+                f'(median of {len(times) - 1}, one thread, host clock; '
+                f'image decode and PIL augmentation excluded: SeededImages) '
+                f'[{card}]')
+
+        if pil:
+            out['getitem_train_decode_ms'] = decode_getitem_ms(cfg, root)
+            say(f'data: __getitem__ train mode with the JPEG decode and PIL '
+                f'augmentation (NuscDetSegDataset.load_image, 1600x900 '
+                f'"smooth" JPEGs of data/fake.py): '
+                f'{out["getitem_train_decode_ms"]:.2f} ms a sample (median '
+                f'of 5, one thread, host clock) [{card}]')
+
+        # the loader's throughput, and its bytes by kind of worker
+        ref = None
+        rates = {}
+        for procs in (False, True):
+            for workers in (1, DATA_WORKERS):
+                kind = 'processes' if procs else 'threads'
+                loader = DataLoader(train_ds, batch_size=1, shuffle=True,
+                                    num_workers=workers, prefetch=workers,
+                                    seed=3, use_processes=procs)
+                h0 = time.perf_counter()
+                it = iter(loader)
+                batches = [next(it)]
+                first = time.perf_counter() - h0
+                batches += list(it)
+                sec = time.perf_counter() - h0
+                n = len(batches)
+                rates[f'{kind}_{workers}'] = n / sec
+                rates[f'{kind}_{workers}_after_first'] = (n - 1) / (sec - first)
+                say(f'data: loader, {workers} {kind}: {n / sec:.2f} samples/s '
+                    f'over {n} (B=1, prefetch {workers}, host clock incl. the '
+                    f'pool start; first batch after {first * 1e3:.1f} ms, '
+                    f'then {(n - 1) / (sec - first):.2f} samples/s) [{card}]')
+                if ref is None:
+                    ref = batches
+                elif not same_batches(batches, ref):
+                    raise AssertionError(f'data: {workers} {kind} give other '
+                                         f'batches than 1 thread')
+        out['loader_samples_per_s'] = rates
+        say('data: the batches of 1 and 4 threads and of 1 and 4 processes '
+            'are equal byte for byte')
+        synth = synthetic_batch(cfg, batch_size=1,
+                                n_points=cfg.train.max_points, mode='train')
+        got = ref[0]
+        bad = [k for k in synth if k not in got or got[k].shape
+               != synth[k].shape or got[k].dtype != synth[k].dtype]
+        if bad:
+            raise AssertionError(f'data: loader batch differs from '
+                                 f'synthetic_batch in {bad}')
+        out['batch_mb'] = sum(v.nbytes for k, v in got.items()
+                              if k != 'meta') / 1e6
+        say(f'data: a train batch has synthetic_batch\'s {len(synth)} keys '
+            f'with their shapes and dtypes, and '
+            f'{sorted(k for k in got if k not in synth)}; '
+            f'{out["batch_mb"]:.3f} MB of arrays')
+
+        trainer = Trainer(cfg, workdir=os.path.join(root, 'out'),
+                          device=dev)
+        state = trainer.init_state(None, len(train_ds))
+        times = []
+        for _ in range(3):
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            trainer.to_device(got)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - h0) * 1e3)
+        out['h2d_ms'] = statistics.median(times)
+        say(f'data: host->device of one train batch '
+            f'({out["batch_mb"]:.3f} MB, pageable): {out["h2d_ms"]:.2f} ms '
+            f'median of 3 [{card}]')
+        del ref, batches, got
+
+        # fit over the train loader, process workers
+        loader = TimedLoader(DataLoader(
+            train_ds, batch_size=1, shuffle=True, num_workers=DATA_WORKERS,
+            seed=0, use_processes=True))
+        if dev == 'cuda':
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h0 = time.perf_counter()
+        state = trainer.fit(loader, state=state, log_every=1)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - h0
+        launched = counts()
+        peak = (torch.cuda.max_memory_allocated() / 1e9 if dev == 'cuda'
+                else float('nan'))
+        n = len(loader)
+        per_step = dict(lift=1, corner_table=0, rays=1, lift_bwd=1,
+                        corner_table_bwd=0, rays_bwd=1)
+        if launched != {k: v * n for k, v in per_step.items()}:
+            raise AssertionError(f'data fit: kernel launches {launched} for '
+                                 f'{n} steps, want {per_step} a step')
+        with open(os.path.join(trainer.workdir, 'scalars.jsonl')) as f:
+            recs = [json.loads(ln) for ln in f]
+        steps = [r for r in recs if 'total_loss' in r]
+        if len(steps) != n or not all(np.isfinite(v) for r in steps
+                                      for v in r.values()):
+            raise AssertionError(f'data fit: {len(steps)} step logs, want '
+                                 f'{n}, all finite: {steps}')
+        step_ms = [(a - g) * 1e3 for g, a in
+                   zip(loader.got[:-1], loader.asked[1:])]
+        wait_ms = [(g - a) * 1e3 for a, g in zip(loader.asked, loader.got)]
+        out.update(fit_s=fit_s, fit_launches=launched, fit_peak_gb=peak,
+                   step_ms=statistics.median(step_ms),
+                   wait_ms=wait_ms, synthetic_step_ms=synthetic_step_ms)
+        say(f'data fit: {n} steps over the loader ({DATA_WORKERS} process '
+            f'workers) in {fit_s:.2f} s; step median {out["step_ms"]:.2f} '
+            f'ms ({", ".join(f"{t:.1f}" for t in step_ms)}; host clock '
+            f'between batches, incl. host->device and the loss read) '
+            f'against {synthetic_step_ms:.2f} ms on synthetic batches (train '
+            f'phase); waited on the loader {", ".join(f"{t:.1f}" for t in wait_ms)} '
+            f'ms a batch (the first incl. the pool start); losses '
+            + ', '.join(f'{r["total_loss"]:.4f}' for r in steps)
+            + f'; peak memory {peak:.3f} GB; kernel launches {launched} '
+            f'[{card}]')
+
+        # validate and test over the val loader
+        val_loader = DataLoader(val_ds, batch_size=1,
+                                num_workers=DATA_WORKERS, use_processes=True,
+                                drop_last=False)
+        val_batches = list(val_loader)
+        model = trainer.model
+        d = trainer.to_device(val_batches[0])
+        calibrate_batchnorm_(model, (d['imgs'], split_mats(d), d['points']))
+        model.train()
+        rows = sum(len(b['imgs']) for b in val_batches)
+        confs = []
+        for label in ('validate', 'test'):
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            val = TimedLoader(val_loader)
+            reset_counts()
+            h0 = time.perf_counter()
+            with recorded_confusions(confs):
+                if label == 'validate':
+                    miou = trainer.validate(val, state)
+                else:
+                    trainer.test(val, state)
+            if dev == 'cuda':
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - h0) * 1e3
+            launched = counts()
+            want = {k: (rows if k == 'lift' else 0) for k in launched}
+            if launched != want:
+                raise AssertionError(f'data {label}: kernel launches '
+                                     f'{launched}, want {want}')
+            out[f'{label}_ms_per_row'] = ms / rows
+            out[f'{label}_launches'] = launched
+            peak = (torch.cuda.max_memory_allocated() / 1e9
+                    if dev == 'cuda' else float('nan'))
+            if label == 'validate' and len(confs) != len(val_batches):
+                raise AssertionError(f'data validate: {len(confs)} '
+                                     f'confusion pairs')
+            first = (val.got[0] - val.asked[0]) * 1e3
+            out[f'{label}_first_batch_ms'] = first
+            say(f'data {label}: {rows} rows in {ms:.2f} ms, {ms / rows:.2f} '
+                f'ms a row (host clock incl. the loader and host work; the '
+                f'first batch, with the pool start, after {first:.1f} ms); '
+                f'peak memory {peak:.3f} GB; kernel launches {launched} '
+                f'[{card}]')
+        totals = [(int(seg.sum().item()), int(occ.sum().item()))
+                  for seg, occ in confs]
+        want = [(int((b['point_valid'] & (b['point_labels'] != 0)).sum()),
+                 int(b['mask_camera'].sum())) for b in val_batches]
+        if totals != want:
+            raise AssertionError(f'data validate: confusion totals {totals}, '
+                                 f'want the valid points and voxels {want}')
+        out['miou'] = miou
+        sub = os.path.join(trainer.workdir, 'detection_submit')
+        with open(os.path.join(sub, 'metrics_summary.json')) as f:
+            nds = json.load(f)['nd_score']
+        with open(os.path.join(sub, 'results_nusc.json')) as f:
+            tokens = sorted(json.load(f)['results'])
+        want_tokens = sorted(t for b in val_batches for t in b['meta']['token'])
+        if not np.isfinite(nds) or tokens != want_tokens:
+            raise AssertionError(f'data test: NDS {nds}, tokens {tokens}, '
+                                 f'want {want_tokens}')
+        out['nds'] = nds
+        say(f'data test: in-repo NDS {nds:.4f} against the val infos\' '
+            f'global_gt_boxes(), {len(tokens)} tokens; validate {miou}, its '
+            f'confusion totals equal the valid points and voxels {want}')
+    out['wall_s'] = time.perf_counter() - t_phase
+    say(f'data: phase wall time {out["wall_s"]:.1f} s [{card}]')
+    return out
+
+
 def probe_phase(card):
     """The probe slice through its entry point, `tools/gather_probe.py`
     (`main`): the vmem, layouts and dma sub-commands and the PROBE_SCALE
@@ -1574,6 +1979,12 @@ def eval_launches(ev, kernel):
     return {label: r['launched'][kernel] for label, r in ev.items()}
 
 
+def data_launches(data, kernel):
+    """A kernel's launches in each call of the data phase."""
+    return {label: data[f'{label}_launches'][kernel]
+            for label in ('fit', 'validate', 'test')}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1587,6 +1998,7 @@ def main():
     train = train_phase(card)
     tl = train['launched']
     ev = eval_phase(card)
+    data = data_phase(card, train['step_ms'])
     probes, pl = probe_phase(card)
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                     ('jax', 'jaxlib', 'flax', 'optax', 'vampire_tpu'))
@@ -1608,6 +2020,7 @@ def main():
         'train_launches': tl['lift'],
         'per': 'frame',
         'eval_launches': eval_launches(ev, 'lift'),
+        'data_launches': data_launches(data, 'lift'),
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -1624,6 +2037,7 @@ def main():
         'launches': launched['corner_table'],
         'train_launches': tl['corner_table'],
         'eval_launches': eval_launches(ev, 'corner_table'),
+        'data_launches': data_launches(data, 'corner_table'),
         'max_abs_err': k['corner_table']['max_abs_err'],
         'ms': k['corner_table']['bfloat16']['ms'],
         'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
@@ -1647,6 +2061,7 @@ def main():
         'launches': launched['rays'],
         'train_launches': tl['rays'],
         'eval_launches': eval_launches(ev, 'rays'),
+        'data_launches': data_launches(data, 'rays'),
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
@@ -1665,6 +2080,7 @@ def main():
         'ctas': k['lift_bwd']['ctas'],
         'live_ctas': k['lift_bwd']['live_ctas'],
         'eval_launches': eval_launches(ev, 'lift_bwd'),
+        'data_launches': data_launches(data, 'lift_bwd'),
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
@@ -1680,6 +2096,7 @@ def main():
         'replaces': 'vampire_tpu/ops/pallas_tables.py:214',
         'launches': tl['corner_table_bwd'],
         'eval_launches': eval_launches(ev, 'corner_table_bwd'),
+        'data_launches': data_launches(data, 'corner_table_bwd'),
         'max_abs_err': k['corner_table_bwd']['max_abs_err'],
         'ms': k['corner_table_bwd']['bfloat16']['ms'],
         'plain_ms': k['corner_table_bwd']['bfloat16']['plain_ms'],
@@ -1696,6 +2113,7 @@ def main():
         'replaces': 'vampire_tpu/core/rendering.py:155',
         'launches': tl['rays_bwd'],
         'eval_launches': eval_launches(ev, 'rays_bwd'),
+        'data_launches': data_launches(data, 'rays_bwd'),
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
         'plain_ms': k['rays_bwd']['plain_ms'],
@@ -1719,7 +2137,14 @@ def main():
     ], 'train_step_ms': train['step_ms'],
         'train_peak_gb': train['peak_gb'],
         'eval_ms_per_row': {k: v['ms_per_row'] for k, v in ev.items()},
-        'validate_peak_gb': ev['validate']['peak_gb']}), flush=True)
+        'validate_peak_gb': ev['validate']['peak_gb'],
+        'data': {k: data[k] for k in (
+            'getitem_train_ms', 'getitem_val_ms', 'loader_samples_per_s',
+            'batch_mb', 'h2d_ms', 'step_ms', 'synthetic_step_ms', 'wait_ms',
+            'fit_peak_gb', 'validate_ms_per_row', 'test_ms_per_row',
+            'validate_first_batch_ms', 'test_first_batch_ms', 'nds',
+            'wall_s', 'getitem_train_decode_ms') if k in data}}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -138,7 +138,7 @@ def test_failed_host_nms_build_raises(monkeypatch, tmp_path):
     (`apply_circle_nms`); nothing falls back to the numpy loops."""
     src = tmp_path / 'csrc'
     src.mkdir()
-    (src / 'host_nms.cpp').write_text('this is not C++\n')
+    (src / 'host.cpp').write_text('this is not C++\n')
     monkeypatch.setattr(_build, 'CSRC', str(src))
     monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path / 'build'))
     monkeypatch.setattr(_build, '_libs', {})

@@ -1,7 +1,8 @@
 """Every module of the PyTorch port imports with JAX, flax, optax,
-matplotlib and the JAX package `vampire_tpu` blocked: the port depends on
-none of them, and keeps its own copies of what it needs from
-`vampire_tpu`."""
+matplotlib, PIL and the JAX package `vampire_tpu` blocked: the port depends
+on none of them when a module is imported (PIL is imported only inside the
+functions that decode or write images), and keeps its own copies of what it
+needs from `vampire_tpu`."""
 import os
 import subprocess
 import sys
@@ -10,7 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r'''
 import importlib, pkgutil, sys
-BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'matplotlib', 'vampire_tpu')
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'matplotlib', 'vampire_tpu',
+           'PIL')
 for name in BLOCKED:
     sys.modules[name] = None
 import vampire_tpu_torch
@@ -31,7 +33,8 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     # core/3, models/6, ops/8 (_build, lift, tables, rays, lovasz, nms,
-    # target_assign, gather_probe), serving/1, training/5, tools/2, data/2
-    # (synthetic, transforms), evaluation/3 (nusc_metric, det_evaluator,
-    # lidarseg), utils/1 (vis), configs, weights, and the 9 packages
-    assert int(proc.stdout.strip()) >= 42, proc.stdout
+    # target_assign, gather_probe), serving/1, training/5, tools/2, data/4
+    # (synthetic, transforms, fake, nuscenes), evaluation/3 (nusc_metric,
+    # det_evaluator, lidarseg), utils/1 (vis), exps/5 (the experiment
+    # entries), configs, weights, cli, and the 10 packages
+    assert int(proc.stdout.strip()) >= 51, proc.stdout

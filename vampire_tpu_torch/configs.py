@@ -2,7 +2,8 @@
 
 The port's own copy of the JAX package's `vampire_tpu/configs.py`: the same
 classes, fields and defaults, so that `dataclasses.asdict` of either
-package's `flagship_config()` is the same dict (tests/test_torch_host.py).
+package's `flagship_config()` or `ablation_config(name)` is the same dict
+(tests/test_torch_host.py, tests/test_torch_cli.py).
 The port reads these fields only, and never checks a config's class, so
 the JAX package's config instances work in it too. Several fields are knobs
 of the JAX package's TPU lowering (`lift_sampler`, `lift_chunk`,
@@ -17,13 +18,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 # image / augmentation (the reference's base_exp.py:29-38, 93-120)
 H, W = 900, 1600
 FINAL_DIM: Tuple[int, int] = (256, 704)
 RESIZE_LIM: Tuple[float, float] = (0.386, 0.55)
 SAMPLE_FACTOR = 4
+
+IMG_MEAN = (123.675, 116.28, 103.53)  # RGB order after BGR->RGB (to_rgb=True)
+IMG_STD = (58.395, 57.12, 57.375)
 
 CAM_NAMES = (
     'CAM_FRONT_LEFT', 'CAM_FRONT', 'CAM_FRONT_RIGHT',
@@ -275,6 +279,27 @@ def flagship_config() -> VampireConfig:
     return VampireConfig(
         backbone=BackboneConfig(variant='lss_inpaintor'),
         train=TrainConfig(loss_weights=(1.0, 1.0, 0.0, 0.0, 0.0)),
+    )
+
+
+def ablation_config(name: str) -> VampireConfig:
+    """The reference's ablation experiments
+    (src/exps/nuscenes/ablation/*.py). The port's `FieldBackbone` runs only
+    the lss_inpaintor variant; the bilinear, lss and vampire2 presets
+    raise when their model is built (ROADMAP.md, Queue 1 item 6)."""
+    presets: Dict[str, Tuple[str, Tuple[float, ...]]] = {
+        'bilinear': ('bilinear', (0., 0., 0., 0., 0.)),
+        'lss': ('lss', (0., 0., 0., 0., 0.)),
+        'lss_inpaintor': ('lss_inpaintor', (0., 0., 0., 0., 0.)),
+        'lss_inpaintor_depth': ('lss_inpaintor', (1., 0., 0., 0., 0.)),
+        'lss_inpaintor_depth_semantic': ('lss_inpaintor', (1., 1., 0., 0., 0.)),
+        'vampire2': ('vampire2', (1., 1., 0., 0., 0.)),
+    }
+    variant, weights = presets[name]
+    return VampireConfig(
+        backbone=BackboneConfig(variant=variant),
+        train=TrainConfig(exp_name=f'vampire2_r50_256x704_24e_{name}',
+                          loss_weights=tuple(weights)),
     )
 
 

@@ -1,11 +1,14 @@
-// Host NMS of the detection head's decoded boxes.
+// The port's host C++: NMS of the detection head's decoded boxes, and the
+// input pipeline's two label rasterizers.
 //
-// The port's own copy of the three NMS routines of the JAX package's
-// vampire_tpu/csrc/vampire_host.cpp (the reference runs them as numba
-// kernels after a device->host round trip, bev_depth_head.py:426-463).
-// vampire_tpu_torch/ops/nms.py builds it with the host C++ compiler into
-// build/vampire_tpu_torch/ at first use and loads it with ctypes; the numpy
-// loops beside the bindings are the plain versions the tests hold it to.
+// The port's own copy of the NMS routines and rasterizers of the JAX
+// package's vampire_tpu/csrc/vampire_host.cpp (the reference runs the NMS as
+// numba kernels after a device->host round trip, bev_depth_head.py:426-463,
+// and the rasterizers in its dataset's depth_transform and get_bev_seg_map).
+// vampire_tpu_torch/ops/
+// nms.py builds it with the host C++ compiler into build/vampire_tpu_torch/
+// at first use and loads it with ctypes; the numpy loops beside the bindings
+// are the plain versions the tests hold it to.
 
 #include <algorithm>
 #include <cmath>
@@ -76,6 +79,47 @@ int size_aware_circle_nms(const float* dets, int n, float thresh_scale,
     }
   }
   return kept;
+}
+
+// Sparse depth/label rasterization (nusc_det_seg_dataset.py:178-231):
+// points sorted by descending depth are written in order, so the NEAREST
+// point wins each pixel; ties keep their input order (stable sort). A
+// coordinate is truncated toward zero, as (int) does.
+// uvdl: n rows of (u, v, depth, label).
+void rasterize_depth(const float* uvdl, int n, int h, int w,
+                     float* depth_out, float* label_out) {
+  std::vector<int> order(n);
+  std::iota(order.begin(), order.end(), 0);
+  std::stable_sort(order.begin(), order.end(), [&](int a, int b) {
+    return uvdl[a * 4 + 2] > uvdl[b * 4 + 2];  // farthest first
+  });
+  for (int k = 0; k < n; ++k) {
+    const float* p = uvdl + order[k] * 4;
+    int u = (int)p[0], v = (int)p[1];
+    if (u < 0 || u >= w || v < 0 || v >= h) continue;
+    depth_out[v * w + u] = p[2];
+    label_out[v * w + u] = p[3];
+  }
+}
+
+// BEV seg/height raster, highest point wins (nusc_det_seg_dataset.py:233-265):
+// points sorted by ascending z are written in order, so the HIGHEST wins.
+// xyzl: n rows of (ix, iy, z, label); grid (gh, gw) indexed [iy, ix].
+void rasterize_bev(const float* xyzl, int n, int gh, int gw,
+                   float* seg_out, float* height_out, float* mask_out) {
+  std::vector<int> order(n);
+  std::iota(order.begin(), order.end(), 0);
+  std::stable_sort(order.begin(), order.end(), [&](int a, int b) {
+    return xyzl[a * 4 + 2] < xyzl[b * 4 + 2];  // lowest first
+  });
+  for (int k = 0; k < n; ++k) {
+    const float* p = xyzl + order[k] * 4;
+    int ix = (int)p[0], iy = (int)p[1];
+    if (ix < 0 || ix >= gw || iy < 0 || iy >= gh) continue;
+    seg_out[iy * gw + ix] = p[3];
+    height_out[iy * gw + ix] = p[2];
+    mask_out[iy * gw + ix] = 1.f;
+  }
 }
 
 // Rotated-rectangle NMS (mmdet3d nms_gpu semantics: greedy by score,

@@ -1,1 +1,2 @@
-"""Synthetic nuScenes-shaped inputs."""
+"""The host input pipeline: the nuScenes dataset and loader, its
+transforms, the fake tree, and synthetic inputs."""

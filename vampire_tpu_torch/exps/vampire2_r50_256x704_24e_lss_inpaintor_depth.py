@@ -1,0 +1,11 @@
+"""Experiment entry: vampire2_r50_256x704_24e_lss_inpaintor_depth
+(reference src/exps/nuscenes/ablation/vampire2_r50_256x704_24e_lss_inpaintor_depth.py).
+
+Run: python -m vampire_tpu_torch.exps.vampire2_r50_256x704_24e_lss_inpaintor_depth [cli args]
+"""
+import sys
+
+from ..cli import main
+
+if __name__ == '__main__':
+    main(['--exp', 'lss_inpaintor_depth'] + sys.argv[1:])

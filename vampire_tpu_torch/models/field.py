@@ -52,7 +52,7 @@ def block_major_voxels(c: BackboneConfig) -> np.ndarray:
         raise NotImplementedError(
             f'only the block-compacted lift is ported (lift_block={blk}, '
             f'lift_block_topk={c.lift_block_topk}, grid {Y}x{X}); the dense '
-            f'lift waits, {_TODO}')
+            f'lift waits, {_TODO} item 6')
     vox = G.make_voxel_coords(c.x_bound_seg, c.y_bound_seg, c.z_bound_seg)
     v6 = vox.reshape(Z, Y // blk, blk, X // blk, blk, 4)
     v6 = v6.transpose(1, 3, 0, 2, 4, 5)
@@ -113,7 +113,7 @@ class FieldBackbone(nn.Module):
         if c.variant != 'lss_inpaintor':
             raise NotImplementedError(
                 f'variant {c.variant!r}: only lss_inpaintor is ported, '
-                f'{_TODO}')
+                f'{_TODO} item 6')
         self.cfg = c
         self.dtype = dtype
         # dtype of the field the point queries and the camera rays sample
@@ -305,7 +305,7 @@ class FieldBackbone(nn.Module):
         if c.ray_et_fracs:
             raise NotImplementedError(
                 f'ray_et_fracs={c.ray_et_fracs}: the early-term ray sampler '
-                f'is not ported, {_TODO}')
+                f'is not ported, {_TODO} item 7')
         geom = G.get_geometry(self.frustum, mats['sensor2ego'],
                               mats['intrin'], mats['ida'], mats.get('bda'))
         coords, valid, delta = ray_inputs(geom, c)
@@ -356,7 +356,7 @@ class FieldBackbone(nn.Module):
         if imgs.dim() != 5:
             raise NotImplementedError(
                 f'imgs of shape {tuple(imgs.shape)}: only (B, N, H, W, 3) '
-                f'is ported; the multi-sweep input waits, {_TODO}')
+                f'is ported; the multi-sweep input waits, {_TODO} item 6')
         B, N, H, W, _ = imgs.shape
         x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
         feats = self.img_neck(self.img_backbone(x.to(self.dtype)))

@@ -2,8 +2,9 @@
 
 One `.cu` per CUDA library: `lift`, `corner_table`, `rays`, `gather_probe`.
 `build(names)` starts one nvcc per library not built yet, all together.
-One `.cpp` per host library: `host_nms`, which `load_host_library` builds
-with the host C++ compiler (`c++`) on any machine.
+One `.cpp` per host library: `host` (the NMS and the rasterizers), which
+`load_host_library` builds with the host C++ compiler (`c++`) on any
+machine.
 
 `nvcc` compiles `vampire_tpu_torch/csrc/<name>.cu` for `sm_90a` into
 `build/vampire_tpu_torch/<name>-<hash>.so` under the repository root; the

@@ -1,12 +1,13 @@
-"""Host NMS of the decoded boxes, and the per-sample post-processing that
-the server runs after `decode_preds`.
+"""Host NMS of the decoded boxes, the per-sample post-processing that the
+server runs after `decode_preds`, and the input pipeline's rasterizers.
 
-`circle_nms`, `size_aware_circle_nms` and `rotated_nms` call the C++
-library `csrc/host_nms.cpp`, built with the host C++ compiler into
-build/vampire_tpu_torch/ at first use (`_build.load_host_library`). A failed
-build raises: the serving path never falls back. The numpy loops beside
-them (`*_reference`) are the plain versions, which the tests hold the C++
-to; both are copies of the JAX package's `vampire_tpu/ops/nms.py`.
+`circle_nms`, `size_aware_circle_nms`, `rotated_nms`, `rasterize_depth`
+and `rasterize_bev` call the C++ library `csrc/host.cpp`, built with the
+host C++ compiler into build/vampire_tpu_torch/ at first use
+(`_build.load_host_library`). A failed build raises: nothing falls back.
+The numpy loops beside them (`*_reference`) are the plain versions, which
+the tests hold the C++ to; both are copies of the JAX package's
+`vampire_tpu/ops/nms.py`.
 `apply_circle_nms` is the copy of `vampire_tpu/evaluation/
 det_evaluator.py::apply_circle_nms`.
 """
@@ -24,7 +25,7 @@ _I32P = ctypes.POINTER(ctypes.c_int)
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load_host_library('host_nms')
+    lib = _build.load_host_library('host')
     lib.circle_nms.restype = ctypes.c_int
     lib.circle_nms.argtypes = [_F32P, ctypes.c_int, ctypes.c_float,
                                ctypes.c_int, _I32P]
@@ -34,6 +35,12 @@ def _lib() -> ctypes.CDLL:
     lib.rotated_nms.restype = ctypes.c_int
     lib.rotated_nms.argtypes = [_F32P, _F32P, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_int, _I32P]
+    lib.rasterize_depth.restype = None
+    lib.rasterize_depth.argtypes = [_F32P, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, _F32P, _F32P]
+    lib.rasterize_bev.restype = None
+    lib.rasterize_bev.argtypes = [_F32P, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, _F32P, _F32P, _F32P]
     return lib
 
 
@@ -205,6 +212,72 @@ def rotated_nms_reference(boxes: np.ndarray, scores: np.ndarray,
             if not suppressed[j] and _rect_iou_np(boxes[i], boxes[j]) > thresh:
                 suppressed[j] = True
     return np.asarray(keep[:post_max_size], np.int64)
+
+
+def _rows4(a: np.ndarray) -> np.ndarray:
+    a = _f32(a)
+    if a.ndim != 2 or a.shape[1] != 4:
+        raise ValueError(f'expected (N, 4) rows, got {a.shape}')
+    return a
+
+
+def rasterize_depth(uvdl: np.ndarray, h: int, w: int):
+    """(N, 4) [u, v, depth, label] -> (depth (h, w), label (h, w)) fp32;
+    the nearest point wins each pixel (depth_transform,
+    nusc_det_seg_dataset.py:178-231)."""
+    uvdl = _rows4(uvdl)
+    depth = np.zeros((h, w), np.float32)
+    label = np.zeros((h, w), np.float32)
+    if uvdl.shape[0]:
+        _lib().rasterize_depth(_ptr(uvdl, _F32P), uvdl.shape[0], h, w,
+                               _ptr(depth, _F32P), _ptr(label, _F32P))
+    return depth, label
+
+
+def rasterize_depth_reference(uvdl: np.ndarray, h: int, w: int):
+    """Plain numpy version of `rasterize_depth`: farthest point first (a
+    stable sort keeps ties in input order), coordinates truncated toward
+    zero."""
+    uvdl = _rows4(uvdl)
+    depth = np.zeros((h, w), np.float32)
+    label = np.zeros((h, w), np.float32)
+    for k in np.argsort(-uvdl[:, 2], kind='stable'):
+        u, v = int(uvdl[k, 0]), int(uvdl[k, 1])
+        if 0 <= u < w and 0 <= v < h:
+            depth[v, u] = uvdl[k, 2]
+            label[v, u] = uvdl[k, 3]
+    return depth, label
+
+
+def rasterize_bev(xyzl: np.ndarray, gh: int, gw: int):
+    """(N, 4) [ix, iy, z, label] -> (seg, height, mask), each (gh, gw)
+    fp32; the highest point wins each cell (get_bev_seg_map,
+    nusc_det_seg_dataset.py:233-265)."""
+    xyzl = _rows4(xyzl)
+    seg = np.zeros((gh, gw), np.float32)
+    height = np.zeros((gh, gw), np.float32)
+    mask = np.zeros((gh, gw), np.float32)
+    if xyzl.shape[0]:
+        _lib().rasterize_bev(_ptr(xyzl, _F32P), xyzl.shape[0], gh, gw,
+                             _ptr(seg, _F32P), _ptr(height, _F32P),
+                             _ptr(mask, _F32P))
+    return seg, height, mask
+
+
+def rasterize_bev_reference(xyzl: np.ndarray, gh: int, gw: int):
+    """Plain numpy version of `rasterize_bev`: lowest point first (stable),
+    coordinates truncated toward zero."""
+    xyzl = _rows4(xyzl)
+    seg = np.zeros((gh, gw), np.float32)
+    height = np.zeros((gh, gw), np.float32)
+    mask = np.zeros((gh, gw), np.float32)
+    for k in np.argsort(xyzl[:, 2], kind='stable'):
+        ix, iy = int(xyzl[k, 0]), int(xyzl[k, 1])
+        if 0 <= ix < gw and 0 <= iy < gh:
+            seg[iy, ix] = xyzl[k, 3]
+            height[iy, ix] = xyzl[k, 2]
+            mask[iy, ix] = 1.0
+    return seg, height, mask
 
 
 def apply_circle_nms(decoded_tasks: List[dict], cfg, batch_index: int

@@ -60,10 +60,10 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
     if lw[2] != 0.0:
         raise NotImplementedError(
             f'loss_weights[2] = {lw[2]}: the rgb loss needs ms_ssim, which '
-            f'is not ported; see ROADMAP.md, Queue 1')
+            f'is not ported; see ROADMAP.md, Queue 1 item 8')
     if batch['imgs'].dim() == 6:
         raise NotImplementedError('multi-frame batches are not ported; see '
-                                  'ROADMAP.md, Queue 1')
+                                  'ROADMAP.md, Queue 1 item 6')
 
     det_loss = detection_loss(det_preds, batch, head_cfg, num_devices)
     logs['detection_loss'] = det_loss

@@ -12,7 +12,8 @@ every epoch as `checkpoints/<epoch>.pt`; `fit` resumes from the latest.
 With one process, the JAX package's `process_allgather` and
 `host_local_rows` are the identity and every process is the main one.
 Still raising or absent (ROADMAP.md, Queue 1): `pretrained_backbone`
-(item 10), `log_images` (item 10), the CLI (item 4) and DDP (item 6).
+(item 9), `log_images` (item 9) and DDP (item 5). The CLI (`cli.py`) drives
+it over the loaders of `data/nuscenes.py`.
 """
 from __future__ import annotations
 
@@ -72,7 +73,8 @@ class Trainer:
         ported: `pretrained_backbone` raises."""
         del example_batch   # shapes come from the config
         if self.cfg.train.pretrained_backbone:
-            raise NotImplementedError(f'pretrained_backbone: {_TODO}')
+            raise NotImplementedError(f'pretrained_backbone: {_TODO} '
+                                      '(item 9)')
         g = torch.Generator(device=self.device)
         g.manual_seed(self.cfg.train.seed)
         init_params_(self.model, g)
@@ -202,7 +204,7 @@ class Trainer:
     def log_images(self, state: TrainState, dev_batch) -> None:
         """The periodic image panels (PNG files written with PIL) are not
         ported."""
-        raise NotImplementedError(f'log_images: {_TODO} (item 10)')
+        raise NotImplementedError(f'log_images: {_TODO} (item 9)')
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
