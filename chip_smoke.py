@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and evaluation paths,
-its input pipeline and its row-gather probes once on one NVIDIA GPU.
+its input pipeline, its other field variants and its row-gather probes
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,9 @@ nonzero without printing a result:
                the lift over a frame's 6 cameras in one launch (D=86,
                h=64, w=176, C=16, K=264, Q=1280, G=1024; camera_rig
                geometry, torch.topk selection) in fp32 and bf16, also with
-               every selected block selected by two cameras; the corner
+               every selected block selected by two cameras, and the same
+               in its depth-less mode (`lift_bilinear`: the bilinear
+               variant's frame, no depth, z > 0 validity); the corner
                table of a (22, 20, 256, 256) field in fp32 and bf16, which
                must be byte-identical and launched on its plan's staging
                route (its plan and the route the kernel's C entry reports
@@ -28,7 +31,8 @@ nonzero without printing a result:
                samples of camera_rig geometry through the bf16 channels-last
                field (voxel stride 24) of a synthetic field whose rays end
                partly opaque. Then the three backward kernels: the lift's
-               per frame in fp32 and bf16 (the same two cases), the corner
+               per frame in fp32 and bf16 (the same two cases, and its
+               depth-less mode, d feat only), the corner
                table's from an fp32
                and a bf16 (21, 257, 257, 176) cotangent (byte-identical;
                timed beside a one-hot conv_transpose3d),
@@ -99,7 +103,22 @@ nonzero without printing a result:
                (fit: lift 1+1 and rays 1+1 a step; validate and test: the
                lift once a row) and the confusion totals; prints the
                phase's wall time.
-  8. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
+  8. variants - the vampire2, lss and bilinear presets (ablation_config)
+               at full width, bf16, B=1: each serves 3 requests on each
+               graph as the slice phase does (the bilinear's lift through
+               the depth-less kernel), takes the train phase's step-0
+               gradient check and `fit` over 2 batches plus 3 timed
+               steps, and one `validate` row (launches, confusion
+               totals). Then flagship_config() with sweep_idxes=(0,): loader
+               batches of the data phase's fake tree (a key frame and a
+               sweep, 12 views) through the gradient check, one train step
+               (launches, peak memory) and one metrics request against
+               plain=True; and flagship_config() with lift_block=0 (the
+               dense lift) through one metrics request against plain=True
+               and against the block-compacted model with the same weights
+               on the same inputs (equal where the top-K drops no live
+               block).
+  9. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
                layouts and dma sub-commands and its scale sub-command on
                the ray stage's 1,387,029-row tables of 256 and 176 bf16
                (depths 1, 8 and 32, issued 1 and 4 at a time, random and
@@ -127,9 +146,12 @@ one-hot product's multiply-adds at the tensor cores' peak, and
 `method_share`, that time over the kernel's.
 
 Each model kernel's entry also gives its launches in each call of the eval
-phase (`eval_launches`) and of the data phase (`data_launches`); the object
-also holds the eval calls' ms a row, validate's peak memory and the data
-phase's numbers (`data`). The last three lines are a JSON object of the
+phase (`eval_launches`), of the data phase (`data_launches`) and of the
+variants phase (`variant_launches`; the depth-less lift's entries give the
+bilinear variant's); the object also holds the eval calls' ms a row,
+validate's peak memory, the data phase's numbers (`data`) and the variants
+phase's request, step and validate times and peak memory (`variants`,
+`sweeps`, `dense`). The last three lines are a JSON object of the
 kernels run, the card's name and power limit, and `{"ok": true, "device":
 {...}}`.
 """
@@ -185,16 +207,29 @@ DATA_TRAIN, DATA_VAL = 4, 2
 DATA_POINTS = 35000
 DATA_WORKERS = 4
 DATA_REPEAT = 2
+# the variants phase: the ablation presets served, trained and validated
+# at full width, each over this many fit steps and timed steps
+VARIANTS = ('vampire2', 'lss', 'bilinear')
+N_VARIANT_BATCHES = 2
+N_VARIANT_TIMED = 3
 # the probe phase's scale pairs (variant, stream) of tools/gather_probe.py
 PROBE_SCALE = [(v, s) for v in ('rows', 'dma1', 'dma8', 'dmau8', 'dma32',
                                 'dmau32') for s in ('random', 'coherent')]
 PROBE_SCALE += [('copy', 'static'), ('copy', 'permuted')]
 # step 0's gradients, per parameter tensor, |g - g_ref| / |g_ref| in the L2
 # norm. In fp32 compute, kernels vs plain versions in both directions: the
-# two lifts differ in the last fp32 bits, which flip the bf16 rounding of
-# the sample_dtype copy of the field that the point queries and the rays
-# read (median 1.3e-3, max 3.1e-3 measured on an H100); allow 1e-2.
+# two lifts differ in the last fp32 bits, and the train-mode network moves
+# the gradients by far more (median 1.2e-3, max 3.2e-3 measured on an H100
+# at the flagship, the same with an fp32 copy of the field for the point
+# queries and the rays, so the copy's bf16 roundings are not the cause; a
+# kernel path run twice differs by 1.2e-5); allow 1e-2.
 TRAIN_GRAD_RTOL = 1e-2
+# The same for the ablation presets of the variants phase. lss measured
+# median 5.6e-4, and 1.15e-2 and 1.29e-2 in the two tensors of
+# head.task5.vel_conv0 (the next 1.1e-3): with every loss weight 0 the
+# preset trains on the task losses alone, and that head's small gradient
+# moves most; allow 3e-2.
+VARIANT_GRAD_RTOL = 3e-2
 # In bf16 compute, the backward kernels vs their plain versions behind the
 # same kernel forward: only the order of the fp32 atomics differs, which
 # flips bf16 roundings of the gradients downstream (two kernel runs differ
@@ -239,18 +274,30 @@ def build_phase():
 
 
 def counts():
-    """The launch counts of the six kernel wrappers."""
+    """The launch counts of the six kernel wrappers, the lift's two in
+    each of its modes."""
     from vampire_tpu_torch.ops import lift, rays, tables
     return dict(lift=lift.LAUNCHES, corner_table=tables.LAUNCHES,
                 rays=rays.LAUNCHES, lift_bwd=lift.BWD_LAUNCHES,
                 corner_table_bwd=tables.BWD_LAUNCHES,
-                rays_bwd=rays.BWD_LAUNCHES)
+                rays_bwd=rays.BWD_LAUNCHES,
+                lift_bilinear=lift.BILINEAR_LAUNCHES,
+                lift_bilinear_bwd=lift.BILINEAR_BWD_LAUNCHES)
 
 
 def reset_counts():
     from vampire_tpu_torch.ops import lift, rays, tables
     lift.LAUNCHES = tables.LAUNCHES = rays.LAUNCHES = 0
     lift.BWD_LAUNCHES = tables.BWD_LAUNCHES = rays.BWD_LAUNCHES = 0
+    lift.BILINEAR_LAUNCHES = lift.BILINEAR_BWD_LAUNCHES = 0
+
+
+def lift_keys(cfg):
+    """The launch-count keys of the lift kernels a config's model runs,
+    forward and backward: the depth-less mode for the bilinear variant."""
+    if cfg.backbone.variant == 'bilinear':
+        return 'lift_bilinear', 'lift_bilinear_bwd'
+    return 'lift', 'lift_bwd'
 
 
 def hbm_ms(*tensors_or_bytes):
@@ -325,7 +372,8 @@ def paired_ids(ids):
 def lift_check(card, bc, dev):
     """The frame lift kernel against its plain version over all 6 cameras in
     one call, in fp32 and bf16, on the frame and on `paired_ids`; times per
-    frame."""
+    frame. A bilinear `bc` runs the depth-less mode (depth None) on the
+    bilinear lift's geometry (z > 0 valid, z = 0)."""
     import torch
     from vampire_tpu_torch.ops import lift
 
@@ -333,12 +381,19 @@ def lift_check(card, bc, dev):
     (depth, feat, ids, coords, valid), (G, Q, C, K, n_valid) = \
         lift_cameras(bc, dev)
     D, h, w = depth.shape[1:]
-    say(f'lift: depth (6,{D},{h},{w}) feat (6,{h},{w},{C}) K={K} Q={Q} '
-        f'G={G}, {n_valid} valid queries; one launch a frame')
+    what = 'lift'
+    if bc.variant == 'bilinear':
+        what = 'lift_bilinear'
+        say(f'{what}: no depth, feat (6,{h},{w},{C}) K={K} Q={Q} G={G}, '
+            f'{n_valid} valid queries; one launch a frame')
+    else:
+        say(f'{what}: depth (6,{D},{h},{w}) feat (6,{h},{w},{C}) K={K} '
+            f'Q={Q} G={G}, {n_valid} valid queries; one launch a frame')
 
     result = dict(max_abs_err=0.0)
     for dt in (torch.float32, torch.bfloat16):
-        dep, fea = depth.to(dt), feat.to(dt)
+        dep = None if what == 'lift_bilinear' else depth.to(dt)
+        fea = feat.to(dt)
         name = str(dt).replace('torch.', '')
         for case, ii in (('frame', ids), ('paired cameras', paired_ids(ids))):
             got = lift.lift_frame_accumulate(dep, fea, ii, coords, valid, G)
@@ -349,15 +404,15 @@ def lift_check(card, bc, dev):
             scale = want[0].abs().max().item()
             dmis = int((got[1] != want[1]).sum())
             tol = KERNEL_RTOL * max(1.0, scale)
-            say(f'lift {name} {case}: max abs err {err:.3e} (max |ref| '
+            say(f'{what} {name} {case}: max abs err {err:.3e} (max |ref| '
                 f'{scale:.3e}, tol {tol:.1e}); denom mismatches {dmis} of '
                 f'{want[1].numel()}')
             if not err <= tol:
-                raise AssertionError(f'lift kernel {name} {case} disagrees '
+                raise AssertionError(f'{what} kernel {name} {case} disagrees '
                                      f'with the plain version: {err} > {tol}')
             # an exact cancellation to 0 can flip one count; allow 1e-6
             if dmis > 1e-6 * want[1].numel():
-                raise AssertionError(f'lift kernel {name} {case}: {dmis} '
+                raise AssertionError(f'{what} kernel {name} {case}: {dmis} '
                                      f'denominator counts differ')
             result['max_abs_err'] = max(result['max_abs_err'], err)
             del got, want
@@ -366,8 +421,9 @@ def lift_check(card, bc, dev):
         plain = cuda_ms(lambda: lift.lift_frame_accumulate_reference(
             dep, fea, ids, coords, valid, G), 5)
         # the frame's inputs read once, numer and denom written once
-        bound = hbm_ms(dep, fea, ids, coords, valid, 2 * G * Q * C * 4)
-        say(f'lift {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
+        bound = hbm_ms(*[t for t in (dep, fea) if t is not None], ids,
+                       coords, valid, 2 * G * Q * C * 4)
+        say(f'{what} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
             f'frame, bound {bound:.4f} ms (share {bound / ms:.3f}) [{card}]')
         result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     return result
@@ -601,7 +657,8 @@ def check_grad(what, got, want, rtol):
 def lift_bwd_check(card, bc, dev):
     """The frame lift backward kernel against its plain version over all 6
     cameras in one call, from a random d numer (G, Q, C) fp32, in fp32 and
-    bf16, on the frame and on `paired_ids`; times per frame."""
+    bf16, on the frame and on `paired_ids`; times per frame. A bilinear `bc`
+    runs the depth-less mode (d feat only)."""
     import torch
     from vampire_tpu_torch.ops import lift
 
@@ -616,22 +673,28 @@ def lift_bwd_check(card, bc, dev):
     rows[ids[..., None].expand(-1, -1, Q)[valid > 0],
          torch.arange(Q, device=dev).expand_as(valid)[valid > 0]] = True
     n_rows = int(rows.sum())
-    say(f'lift_bwd: {ids.numel()} CTAs, one a (camera, selected block), '
+    what = 'lift_bilinear_bwd' if bc.variant == 'bilinear' else 'lift_bwd'
+    say(f'{what}: {ids.numel()} CTAs, one a (camera, selected block), '
         f'{live} with a valid query; every CTA adds straight into device '
         f'memory (float4 reductions); {n_valid} valid queries read '
         f'{n_rows} d numer rows')
     result = dict(max_abs_err=0.0, ctas=ids.numel(), live_ctas=live)
     for dt in (torch.float32, torch.bfloat16):
-        dep, fea = depth.to(dt), feat.to(dt)
+        dep = None if what == 'lift_bilinear_bwd' else depth.to(dt)
+        fea = feat.to(dt)
         name = str(dt).replace('torch.', '')
         for case, ii in (('frame', ids), ('paired cameras', paired_ids(ids))):
             got = lift.lift_frame_backward(dep, fea, ii, coords, valid, g)
             want = lift.lift_frame_backward_reference(dep, fea, ii, coords,
                                                       valid, g)
             torch.cuda.synchronize()
-            for what, a, b in (('d depth', got[0], want[0]),
+            if dep is None and got[0] is not None:
+                raise AssertionError(f'{what}: a d depth without a depth')
+            for grad, a, b in (('d depth', got[0], want[0]),
                                ('d feat', got[1], want[1])):
-                err = check_grad(f'lift_bwd {name} {case} {what}', a, b,
+                if b is None:
+                    continue
+                err = check_grad(f'{what} {name} {case} {grad}', a, b,
                                  BWD_RTOL)
                 result['max_abs_err'] = max(result['max_abs_err'], err)
             del got, want
@@ -641,10 +704,15 @@ def lift_bwd_check(card, bc, dev):
             dep, fea, ids, coords, valid, g), 3)
         # what the valid queries read (their coords and d numer rows; the
         # kernel skips the others), the rest of the frame's inputs, fp32
-        # d depth and d feat written
-        bound = hbm_ms(dep, fea, ids, valid, n_valid * 3 * 4, n_rows * C * 4,
-                       dep.numel() * 4, fea.numel() * 4)
-        say(f'lift_bwd {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
+        # d depth and d feat written; the depth-less d feat needs neither
+        # depth nor the features' values
+        if dep is None:
+            bound = hbm_ms(ids, valid, n_valid * 3 * 4, n_rows * C * 4,
+                           fea.numel() * 4)
+        else:
+            bound = hbm_ms(dep, fea, ids, valid, n_valid * 3 * 4,
+                           n_rows * C * 4, dep.numel() * 4, fea.numel() * 4)
+        say(f'{what} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
             f'frame, bound {bound:.4f} ms (share {bound / ms:.3f}) [{card}]')
         result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
     return result
@@ -745,13 +813,19 @@ def ray_bwd_check(card, bc, dev, args):
 
 
 def kernel_phase(card, bc=None, dev='cuda'):
+    """Every kernel against its plain version at the flagship's shapes (`bc`,
+    the flagship backbone by default); the lift's depth-less mode at the
+    bilinear variant's (the same backbone as the bilinear variant)."""
     from vampire_tpu_torch.configs import flagship_config
     bc = bc or flagship_config().backbone
+    bil = dataclasses.replace(bc, variant='bilinear')
     out = dict(lift=lift_check(card, bc, dev),
+               lift_bilinear=lift_check(card, bil, dev),
                corner_table=table_check(card, bc, dev))
     args = ray_field(bc, dev)
     out['rays'] = ray_check(card, bc, dev, args)
     out['lift_bwd'] = lift_bwd_check(card, bc, dev)
+    out['lift_bilinear_bwd'] = lift_bwd_check(card, bil, dev)
     out['corner_table_bwd'] = table_bwd_check(card, bc, dev)
     out['rays_bwd'] = ray_bwd_check(card, bc, dev, args)
     return out
@@ -783,9 +857,11 @@ def calibrate_batchnorm_(model, inputs, camera_renders=False):
     say(f'calibrated {len(bns)} BatchNorm layers on one synthetic frame')
 
 
-def serve_path(card, server, calib, samples, label):
-    """Calibrate, start and warm `server`, then serve `samples` with every
-    launch count set to 0 just before; returns (outputs, launch counts)."""
+def serve_path(card, server, calib, samples, label, warm=None):
+    """Calibrate, start and warm `server` (also on the sample `warm`, where
+    the requests' shapes are not the example's), then serve `samples` with
+    every launch count set to 0 just before; returns (outputs, launch
+    counts, the median request ms on the host clock)."""
     import torch
     t0 = time.perf_counter()
     calibrate_batchnorm_(server.model,
@@ -797,6 +873,8 @@ def serve_path(card, server, calib, samples, label):
     outs, lat = [], []
     try:
         server.warmup()
+        if warm is not None:
+            server.infer(warm)
         say(f'{label}: model built and BN calibrated in {t1 - t0:.1f} s, '
             f'warmup request {time.perf_counter() - t1:.1f} s')
         reset_counts()
@@ -818,7 +896,7 @@ def serve_path(card, server, calib, samples, label):
             f'(host clock), incl. host NMS [{card}]')
     say(f'{label}: kernel launches during the {len(samples)} requests: '
         f'{launched}')
-    return outs, launched
+    return outs, launched, statistics.median(h for _, h in lat)
 
 
 def check_launches(label, launched, per_request):
@@ -889,6 +967,9 @@ def partly_opaque_density(model, imgs, mats, points=None):
         model(imgs, mats, points=points, camera_renders=False)
     finally:
         hook.remove()
+    if mats['sensor2ego'].dim() == 5:     # multi-sweep: the key frame's
+        mats = dict(mats, **{k: mats[k][:, 0]
+                             for k in ('sensor2ego', 'intrin', 'ida')})
     geom = G.get_geometry(bb.frustum, mats['sensor2ego'], mats['intrin'],
                           mats['ida'], mats.get('bda'))
     coords, valid, delta = (t[0] for t in ray_inputs(geom, bc))
@@ -974,13 +1055,18 @@ def check_against_plain(label, server, sample, served, keys,
             head.bias.copy_(saved[1])
 
 
-def slice_phase(card, cfg=None, dev='cuda'):
+def slice_phase(card, cfg=None, dev='cuda', label=''):
+    """N_REQUESTS requests on each graph of `cfg` (the flagship's by
+    default) through InferenceServer, checked as the docstring of this
+    script says. Returns the launch counts of each graph and its median
+    request ms (host clock)."""
     import numpy as np
     import torch
     from vampire_tpu_torch.configs import flagship_config, synthetic_batch
     from vampire_tpu_torch.serving import InferenceServer
 
     cfg = cfg or flagship_config()
+    lk = lift_keys(cfg)[0]
     frames = []
     for i in range(N_REQUESTS + 1):
         b = synthetic_batch(cfg, batch_size=1,
@@ -998,17 +1084,17 @@ def slice_phase(card, cfg=None, dev='cuda'):
     _, Yd, Xd = bc.grid_zyx('det')
     metric = dict(occ_logits=(gx, gy, gz, Kc), occ_density=(gx, gy, gz),
                   pts_logits=(P, Kc))
-    launched = {}
+    launched, ms = {}, {}
 
     # the metrics graph: no corner table, no rays
     server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
                              outputs='metrics', seed=0)
-    outs, launched['metrics'] = serve_path(card, server, calib, samples,
-                                           'metrics')
-    check_launches('metrics', launched['metrics'],
-                   dict(lift=1, corner_table=0, rays=0))
-    check_outputs('metrics', outs, metric, cfg)
-    check_against_plain('metrics', server, samples[0], outs[0], metric)
+    name = f'{label}metrics'
+    outs, launched['metrics'], ms['metrics'] = serve_path(
+        card, server, calib, samples, name)
+    check_launches(name, launched['metrics'], {lk: 1})
+    check_outputs(name, outs, metric, cfg)
+    check_against_plain(name, server, samples[0], outs[0], metric)
     del server, outs
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -1016,16 +1102,19 @@ def slice_phase(card, cfg=None, dev='cuda'):
     # the full-render graph: one ray launch per frame, no corner table
     server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
                              outputs=None, seed=0)
-    outs, launched['full'] = serve_path(card, server, calib, samples,
-                                        'full-render')
-    check_launches('full-render', launched['full'],
-                   dict(lift=1, corner_table=0, rays=1))
-    check_outputs('full-render', outs,
+    name = f'{label}full-render'
+    outs, launched['full'], ms['full'] = serve_path(card, server, calib,
+                                                    samples, name)
+    check_launches(name, launched['full'], {lk: 1, 'rays': 1})
+    check_outputs(name, outs,
                   dict(metric, depth_preds=(N, H, W), seg_preds=(N, H, W),
                        bev_seg=(Yd, Xd)), cfg)
-    check_against_plain('full-render', server, samples[0], outs[0], metric,
+    check_against_plain(name, server, samples[0], outs[0], metric,
                         ('rgb_preds', 'seg_logits_preds', 'depth_preds'))
-    return launched
+    del server, outs
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return dict(launched, ms=ms)
 
 
 @contextlib.contextmanager
@@ -1133,10 +1222,12 @@ def opaque_step_grads(card, trainer, batch, label, runs):
     return grads
 
 
-def train_grad_check(card, cfg, trainer, batch, dev):
+def train_grad_check(card, cfg, trainer, batch, dev,
+                     rtol=TRAIN_GRAD_RTOL):
     """Step 0's gradients per trainable parameter tensor, under
     `partly_opaque_density`: (1) in fp32 compute (a second Trainer from the
-    same seed), through the kernels against the same step with plain=True;
+    same seed), through the kernels against the same step with plain=True
+    within `rtol`;
     (2) in `trainer`'s bf16 compute, through the backward kernels against
     their plain versions behind the same kernel forward. The kernel path
     runs twice in each, to show the run-to-run spread of its atomics."""
@@ -1151,8 +1242,7 @@ def train_grad_check(card, cfg, trainer, batch, dev):
             [(False, False), (False, False), (True, False)])
         del tr32
     fp32 = compare_grads(card, 'train step 0 gradients, fp32, kernels vs '
-                         'plain versions', kern, plain, again,
-                         TRAIN_GRAD_RTOL)
+                         'plain versions', kern, plain, again, rtol)
     del kern, again, plain
     kern, again, plain_bwd = opaque_step_grads(
         card, trainer, batch, 'train bf16',
@@ -1163,11 +1253,13 @@ def train_grad_check(card, cfg, trainer, batch, dev):
     return dict(fp32=fp32, bf16_backward=bf16)
 
 
-def train_phase(card, cfg=None, dev='cuda'):
-    """`Trainer.fit` over a list loader of N_TRAIN_BATCHES flagship training
-    batches for one epoch, after the step-0 gradient check; then
-    N_TIMED_STEPS more steps are timed. Returns the launch counts of the
-    fit and the measurements."""
+def train_phase(card, cfg=None, dev='cuda', n_batches=N_TRAIN_BATCHES,
+                n_timed=N_TIMED_STEPS, label='train',
+                grad_rtol=TRAIN_GRAD_RTOL):
+    """`Trainer.fit` over a list loader of n_batches training batches of
+    `cfg` (the flagship's by default) for one epoch, after the step-0
+    gradient check; then n_timed more steps are timed. Returns the launch
+    counts of the fit and the measurements."""
     import numpy as np
     import torch
     from vampire_tpu_torch.configs import flagship_config, synthetic_batch
@@ -1182,16 +1274,17 @@ def train_phase(card, cfg=None, dev='cuda'):
     loader = [synthetic_batch(cfg, batch_size=1,
                               n_points=cfg.train.max_points, seed=10 + i,
                               mode='train')
-              for i in range(N_TRAIN_BATCHES)]
+              for i in range(n_batches)]
     with tempfile.TemporaryDirectory() as wd:
         trainer = Trainer(cfg, workdir=wd, device=dev)
         state = trainer.init_state(loader[0], len(loader))
         model = trainer.model
-        say(f'train: {cfg.train.compute_dtype} Trainer built, '
+        say(f'{label}: {cfg.train.compute_dtype} Trainer built, '
             f'{sum(p.numel() for p in state.trainable())} trainable '
-            f'parameters, {N_TRAIN_BATCHES} batches made, in '
+            f'parameters, {n_batches} batches made, in '
             f'{time.perf_counter() - t0:.1f} s')
-        grad = train_grad_check(card, cfg, trainer, loader[0], dev)
+        grad = train_grad_check(card, cfg, trainer, loader[0], dev,
+                                grad_rtol)
         stem = model.backbone.img_backbone.stem
         stem0 = {k: v.clone() for k, v in stem.state_dict().items()}
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1211,37 +1304,36 @@ def train_phase(card, cfg=None, dev='cuda'):
         with open(os.path.join(trainer.workdir, 'scalars.jsonl')) as f:
             recs = [json.loads(ln) for ln in f]
         saved = trainer.saved_epochs()
-    say(f'train: fit over {N_TRAIN_BATCHES} steps in {fit_s:.2f} s (host '
+    say(f'{label}: fit over {n_batches} steps in {fit_s:.2f} s (host '
         f'clock, incl. the epoch report and checkpoint); kernel launches '
         f'{launched}')
-    want = dict(lift=1, corner_table=0, rays=1, lift_bwd=1,
-                corner_table_bwd=0, rays_bwd=1)
-    want = {k: n * N_TRAIN_BATCHES for k, n in want.items()}
+    want = {k: (n_batches if k in lift_keys(cfg) + ('rays', 'rays_bwd')
+                else 0) for k in launched}
     if launched != want:
-        raise AssertionError(f'train: kernel launches {launched}, want '
-                             f'{want} for {N_TRAIN_BATCHES} steps')
+        raise AssertionError(f'{label}: kernel launches {launched}, want '
+                             f'{want} for {n_batches} steps')
     steps = [r for r in recs if 'total_loss' in r]
-    if len(steps) != N_TRAIN_BATCHES or saved != [0]:
-        raise AssertionError(f'train: {len(steps)} step logs, checkpoints '
+    if len(steps) != n_batches or saved != [0]:
+        raise AssertionError(f'{label}: {len(steps)} step logs, checkpoints '
                              f'{saved}')
     for r in steps:
         if not all(np.isfinite(v) for v in r.values()):
-            raise AssertionError(f'train: non-finite log {r}')
-        say(f'train step {r["step"]}: total_loss {r["total_loss"]:.4f}, '
+            raise AssertionError(f'{label}: non-finite log {r}')
+        say(f'{label} step {r["step"]}: total_loss {r["total_loss"]:.4f}, '
             f'grad_norm {r["grad_norm"]:.4f}, '
             + ', '.join(f'{k} {v:.4f}' for k, v in sorted(r.items())
                         if k.endswith('_loss') and k != 'total_loss'))
     for k, v in stem.state_dict().items():
         if not torch.equal(v, stem0[k]):
-            raise AssertionError(f'train: the frozen stem changed ({k})')
+            raise AssertionError(f'{label}: the frozen stem changed ({k})')
     still = [n for n, p in model.named_parameters()
              if p.requires_grad and torch.equal(p.detach(), before[n])]
     unmoved = [n for n in still if n in nonzero]
-    say(f'train: {len(before) - len(still)} parameter tensors moved; '
+    say(f'{label}: {len(before) - len(still)} parameter tensors moved; '
         f'unchanged: the frozen stem and {still} (no nonzero gradient in '
-        f'any step)' if not unmoved else f'train: {unmoved} did not move')
+        f'any step)' if not unmoved else f'{label}: {unmoved} did not move')
     if unmoved:
-        raise AssertionError(f'train: {unmoved} had gradients but did not '
+        raise AssertionError(f'{label}: {unmoved} had gradients but did not '
                              f'move')
 
     # more steps, timed: host clock around each step ending in a
@@ -1250,7 +1342,7 @@ def train_phase(card, cfg=None, dev='cuda'):
     conf = init_train_confusion(cfg, trainer.device)
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(N_TIMED_STEPS):
+    for i in range(n_timed):
         torch.cuda.synchronize()
         h0 = time.perf_counter()
         state, logs, conf = step(state, trainer.to_device(
@@ -1259,8 +1351,9 @@ def train_phase(card, cfg=None, dev='cuda'):
         times.append((time.perf_counter() - h0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 1e9
     ms = statistics.median(times)
-    say(f'train step (flagship, B=1, {cfg.train.compute_dtype}): median '
-        f'{ms:.2f} ms over {N_TIMED_STEPS} steps '
+    say(f'{label} step ({cfg.backbone.variant}, B=1, '
+        f'{cfg.train.compute_dtype}): median {ms:.2f} ms over {n_timed} '
+        f'steps '
         f'({", ".join(f"{t:.1f}" for t in times)}), peak memory '
         f'{peak:.3f} GB [{card}]')
     return dict(launched=launched, grad=grad, step_ms=ms, peak_gb=peak)
@@ -1784,7 +1877,8 @@ def data_phase(card, synthetic_step_ms, cfg=None, dev='cuda'):
                 else float('nan'))
         n = len(loader)
         per_step = dict(lift=1, corner_table=0, rays=1, lift_bwd=1,
-                        corner_table_bwd=0, rays_bwd=1)
+                        corner_table_bwd=0, rays_bwd=1, lift_bilinear=0,
+                        lift_bilinear_bwd=0)
         if launched != {k: v * n for k, v in per_step.items()}:
             raise AssertionError(f'data fit: kernel launches {launched} for '
                                  f'{n} steps, want {per_step} a step')
@@ -1880,6 +1974,270 @@ def data_phase(card, synthetic_step_ms, cfg=None, dev='cuda'):
             f'confusion totals equal the valid points and voxels {want}')
     out['wall_s'] = time.perf_counter() - t_phase
     say(f'data: phase wall time {out["wall_s"]:.1f} s [{card}]')
+    return out
+
+
+def validate_row(card, cfg, dev, label):
+    """One `Trainer.validate` row of `cfg` (bf16, BN calibrated on the
+    frame), with every launch count set to 0 just before: the lift once
+    (the depth-less mode for bilinear), nothing else; the confusion totals
+    equal the valid points and the masked voxels. Returns the launches and
+    the row's ms (host clock)."""
+    import torch
+    from vampire_tpu_torch.training.train_step import split_mats
+    from vampire_tpu_torch.training.trainer import Trainer
+
+    classes = [c for t in cfg.head.tasks for c in t]
+    frame = eval_frame(cfg, 40, f'{label}0')
+    confs = []
+    with tempfile.TemporaryDirectory() as wd:
+        trainer = Trainer(cfg, workdir=wd, device=dev)
+        state = trainer.init_state(None, 1)
+        d = trainer.to_device(frame)
+        calibrate_batchnorm_(trainer.model,
+                             (d['imgs'], split_mats(d), d['points']))
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        reset_counts()
+        h0 = time.perf_counter()
+        with recorded_confusions(confs):
+            miou = trainer.validate(EvalLoader([frame], classes), state)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - h0) * 1e3
+        launched = counts()
+    want = {k: int(k == lift_keys(cfg)[0]) for k in launched}
+    if launched != want:
+        raise AssertionError(f'{label} validate: kernel launches {launched}, '
+                             f'want {want}')
+    pts = int((frame['point_valid'] & (frame['point_labels'] != 0)).sum())
+    vox = int(frame['mask_camera'].sum())
+    got = [(int(seg.sum().item()), int(occ.sum().item()))
+           for seg, occ in confs]
+    if got != [(pts, vox)]:
+        raise AssertionError(f'{label} validate: confusion totals {got}, '
+                             f'want {[(pts, vox)]}')
+    say(f'{label} validate: one row in {ms:.2f} ms (host clock incl. the '
+        f'host work), confusion totals {got[0]} equal the valid points and '
+        f'masked voxels; {miou}; kernel launches {launched} [{card}]')
+    return dict(launched=launched, ms=ms)
+
+
+def sweep_batches(cfg):
+    """The first train-mode and the first val-mode loader batch (B=1) of
+    the fake tree (`fake_tree`, SeededImages) with cfg's sweep_idxes."""
+    from vampire_tpu_torch.configs import DET_CLASSES
+    from vampire_tpu_torch.data.nuscenes import DataLoader
+    bc = cfg.backbone
+    out = []
+    with tempfile.TemporaryDirectory() as root:
+        infos = fake_tree(root, cfg)
+        for info, mode in zip(infos, ('train', 'val')):
+            ds = SeededImages(
+                ida_aug=cfg.ida_aug, bda_aug=cfg.bda_aug,
+                classes=list(DET_CLASSES), data_root=root, info_paths=info,
+                head_cfg=cfg.head, mode=mode,
+                sweep_idxes=cfg.train.sweep_idxes,
+                max_points=cfg.train.max_points, seed=0,
+                seg_bounds=(bc.x_bound_seg, bc.y_bound_seg, bc.z_bound_seg))
+            loader = DataLoader(ds, batch_size=1, num_workers=1, seed=0,
+                                drop_last=False)
+            out.append(next(iter(loader)))
+    return out
+
+
+def sweep_phase(card, cfg=None, dev='cuda'):
+    """flagship_config() with sweep_idxes=(0,): a key frame and one sweep
+    frame, 12 views, from loader batches of the fake tree. Step 0's
+    gradients against plain=True (fp32) and the backward kernels against
+    their plain versions (bf16), as `train_grad_check`; one bf16 train step
+    with its launches (the lift and the rays once each way), finite logs
+    and peak memory; one metrics-graph request with its launches (the lift
+    once), its outputs and request 0 against plain=True."""
+    import numpy as np
+    import torch
+    from vampire_tpu_torch.configs import flagship_config
+    from vampire_tpu_torch.serving import InferenceServer
+    from vampire_tpu_torch.serving.server import INPUT_KEYS
+    from vampire_tpu_torch.training.train_step import (build_train_step,
+                                                       init_train_confusion)
+    from vampire_tpu_torch.training.trainer import Trainer
+
+    cfg = cfg or flagship_config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, sweep_idxes=(0,), max_epochs=1))
+    t0 = time.perf_counter()
+    train_b, val_b = sweep_batches(cfg)
+    shape = train_b['imgs'].shape
+    if shape[:3] != (1, 2, 6) or val_b['imgs'].shape[:3] != (1, 2, 6):
+        raise AssertionError(f'sweeps: loader imgs {shape}, '
+                             f'{val_b["imgs"].shape}; want (1, 2, 6, ...)')
+    say(f'sweeps: loader batches of imgs {shape} (key frame and sweep 0, '
+        f'12 views) in {time.perf_counter() - t0:.1f} s')
+    out = {}
+    with tempfile.TemporaryDirectory() as wd:
+        trainer = Trainer(cfg, workdir=wd, device=dev)
+        state = trainer.init_state(train_b, 1)
+        out['grad'] = train_grad_check(card, cfg, trainer, train_b, dev)
+        step = build_train_step(cfg)
+        conf = init_train_confusion(cfg, trainer.device)
+        b = trainer.to_device(train_b)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        h0 = time.perf_counter()
+        state, logs, conf = step(state, b, conf)
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        out['step_ms'] = (time.perf_counter() - h0) * 1e3
+        out['step_launches'] = launched = counts()
+        out['peak_gb'] = (torch.cuda.max_memory_allocated() / 1e9
+                          if dev == 'cuda' else float('nan'))
+        del trainer, state, step, b
+    want = {k: int(k in ('lift', 'lift_bwd', 'rays', 'rays_bwd'))
+            for k in launched}
+    if launched != want or not all(np.isfinite(v.item())
+                                   for v in logs.values()):
+        raise AssertionError(f'sweeps step: launches {launched}, want '
+                             f'{want}; logs {logs}')
+    say(f'sweeps step (flagship, F=2, B=1, bf16): {out["step_ms"]:.2f} ms '
+        f'(host clock, one step after the gradient check), total_loss '
+        f'{logs["total_loss"].item():.4f}, peak memory '
+        f'{out["peak_gb"]:.3f} GB; kernel launches {launched} [{card}]')
+    if dev == 'cuda':
+        torch.cuda.empty_cache()
+
+    sample = {k: np.asarray(val_b[k])[0] for k in INPUT_KEYS}
+    bc = cfg.backbone
+    gx, gy, gz = bc.occ_grid
+    metric = dict(occ_logits=(gx, gy, gz, bc.num_classes),
+                  occ_density=(gx, gy, gz),
+                  pts_logits=(cfg.train.max_points, bc.num_classes))
+    server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
+                             outputs='metrics', seed=0)
+    outs, launched, out['request_ms'] = serve_path(
+        card, server, sample, [sample], 'sweeps metrics', warm=sample)
+    want = {k: int(k == 'lift') for k in launched}
+    if launched != want:
+        raise AssertionError(f'sweeps request: launches {launched}, want '
+                             f'{want}')
+    out['request_launches'] = launched
+    check_outputs('sweeps metrics', outs, metric, cfg)
+    check_against_plain('sweeps metrics', server, sample, outs[0], metric)
+    return out
+
+
+def dense_phase(card, cfg=None, dev='cuda'):
+    """flagship_config() with lift_block=0 (the dense lift: every block
+    selected by every camera): one metrics-graph request through
+    InferenceServer, its launches (the lift once), its outputs and request
+    0 against plain=True; then the same inputs through the flagship's
+    block-compacted model with the same weights and BN statistics, whose
+    outputs must agree (the top-K covers every live block of this rig:
+    `lift_dropped_blocks` must be 0)."""
+    import numpy as np
+    import torch
+    from vampire_tpu_torch.configs import flagship_config, synthetic_batch
+    from vampire_tpu_torch.models.vampire import Vampire
+    from vampire_tpu_torch.serving import InferenceServer
+
+    cfg = cfg or flagship_config()
+    dense = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, lift_block=0))
+    frames = []
+    for i in (0, N_REQUESTS):
+        b = synthetic_batch(cfg, batch_size=1,
+                            n_points=cfg.train.max_points, seed=i,
+                            mode='val')
+        frames.append({k: np.asarray(b[k])[0] for k in
+                       ('imgs', 'sensor2ego', 'intrin', 'ida', 'bda',
+                        'points')})
+    sample, calib = frames
+    bc = cfg.backbone
+    gx, gy, gz = bc.occ_grid
+    metric = dict(occ_logits=(gx, gy, gz, bc.num_classes),
+                  occ_density=(gx, gy, gz),
+                  pts_logits=(cfg.train.max_points, bc.num_classes))
+    server = InferenceServer(dense, device=dev, dtype=torch.bfloat16,
+                             outputs='metrics', seed=0)
+    if server.model.backbone.lift_compact:
+        raise AssertionError('dense: lift_block=0 built the compacted lift')
+    outs, launched, ms = serve_path(card, server, calib, [sample],
+                                    'dense metrics')
+    want = {k: int(k == 'lift') for k in launched}
+    if launched != want:
+        raise AssertionError(f'dense request: launches {launched}, want '
+                             f'{want}')
+    check_outputs('dense metrics', outs, metric, cfg)
+    check_against_plain('dense metrics', server, sample, outs[0], metric)
+    compact = Vampire(cfg.backbone, cfg.head, dtype=torch.bfloat16,
+                      device=dev)
+    compact.load_state_dict(server.model.state_dict())
+    compact.eval()
+    diag = {}
+    with torch.inference_mode():
+        imgs, mats, points = server.to_device(
+            {k: v[None] for k, v in sample.items()})
+        kw = dict(points=points, lidar_seg=True, camera_renders=False)
+        fo_c, _ = compact(imgs, mats, diagnostics=diag, **kw)
+        fo_d, _ = server.model(imgs, mats, **kw)
+    dropped = int(diag['lift_dropped_blocks'])
+    errs = {}
+    for k in metric:
+        ref = fo_c[k].float()
+        errs[k] = (fo_d[k].float() - ref).abs().max().item()
+        tol = KERNEL_RTOL * max(1.0, ref.abs().max().item())
+        if dropped or not errs[k] <= tol:
+            raise AssertionError(f'dense vs compacted lift {k}: max abs err '
+                                 f'{errs[k]} (tol {tol}), {dropped} live '
+                                 f'blocks dropped by the top-K')
+    say(f'dense metrics request vs the flagship\'s block-compacted forward '
+        f'on the same inputs and weights: max abs err {errs} (the top-K '
+        f'dropped {dropped} live blocks) [{card}]')
+    return dict(launched=launched, request_ms=ms, max_abs_err=errs,
+                dropped=dropped)
+
+
+def preset(name, cfg=None):
+    """`ablation_config(name)`; with `cfg`, the same preset on cfg's widths
+    (its backbone with the preset's variant, its train config with the
+    preset's name and loss weights)."""
+    from vampire_tpu_torch.configs import ablation_config
+    want = ablation_config(name)
+    if cfg is None:
+        return want
+    return dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone,
+                                          variant=want.backbone.variant),
+        train=dataclasses.replace(cfg.train, exp_name=want.train.exp_name,
+                                  loss_weights=want.train.loss_weights))
+
+
+def variants_phase(card, cfg=None, dev='cuda'):
+    """The vampire2, lss and bilinear presets (`ablation_config`) at full
+    width, bf16, B=1: N_REQUESTS requests on each graph (`slice_phase`,
+    BN calibrated, request 0 against plain=True), the step-0 gradient
+    check and `fit` over N_VARIANT_BATCHES steps plus N_VARIANT_TIMED timed
+    ones (`train_phase`), and one validate row (`validate_row`); then the
+    multi-sweep step and request (`sweep_phase`) and the dense-lift
+    request (`dense_phase`), all at the flagship's widths (`cfg`'s, given
+    one). Returns each one's launches and times."""
+    out = {}
+    for name in VARIANTS:
+        t0 = time.perf_counter()
+        vcfg = preset(name, cfg)
+        out[name] = dict(
+            serve=slice_phase(card, vcfg, dev, label=f'{name} '),
+            train=train_phase(card, vcfg, dev, N_VARIANT_BATCHES,
+                              N_VARIANT_TIMED, label=f'{name} train',
+                              grad_rtol=VARIANT_GRAD_RTOL),
+            validate=validate_row(card, vcfg, dev, name))
+        out[name]['wall_s'] = time.perf_counter() - t0
+        say(f'{name}: served, trained and validated in '
+            f'{out[name]["wall_s"]:.1f} s [{card}]')
+    out['sweeps'] = sweep_phase(card, cfg, dev)
+    out['dense'] = dense_phase(card, cfg, dev)
     return out
 
 
@@ -1979,6 +2337,21 @@ def eval_launches(ev, kernel):
     return {label: r['launched'][kernel] for label, r in ev.items()}
 
 
+def variant_launches(var, kernel):
+    """A kernel's launches in each run of the variants phase: per variant
+    its metrics and full-render requests, its fit and its validate row;
+    the multi-sweep step and request; the dense-lift request."""
+    out = {name: dict(metrics=var[name]['serve']['metrics'][kernel],
+                      full=var[name]['serve']['full'][kernel],
+                      fit=var[name]['train']['launched'][kernel],
+                      validate=var[name]['validate']['launched'][kernel])
+           for name in VARIANTS}
+    out['sweeps'] = dict(step=var['sweeps']['step_launches'][kernel],
+                         request=var['sweeps']['request_launches'][kernel])
+    out['dense'] = var['dense']['launched'][kernel]
+    return out
+
+
 def data_launches(data, kernel):
     """A kernel's launches in each call of the data phase."""
     return {label: data[f'{label}_launches'][kernel]
@@ -1999,6 +2372,7 @@ def main():
     tl = train['launched']
     ev = eval_phase(card)
     data = data_phase(card, train['step_ms'])
+    var = variants_phase(card)
     probes, pl = probe_phase(card)
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                     ('jax', 'jaxlib', 'flax', 'optax', 'vampire_tpu'))
@@ -2009,7 +2383,9 @@ def main():
     # their backwards. The corner table's is a pad and one strided copy, its
     # backward's a one-hot conv_transpose3d (ops/tables.py, yardsticks no
     # path calls). The corner-table pair is off the model's path (0
-    # launches there) and checked in the kernel phase only.
+    # launches there) and checked in the kernel phase only; on the bilinear
+    # lift the depth-less lift kernels take its place.
+    bil = var['bilinear']
     print(json.dumps({'kernels': [{
         'name': 'lift_accumulate',
         'route': 'cuda',
@@ -2021,6 +2397,7 @@ def main():
         'per': 'frame',
         'eval_launches': eval_launches(ev, 'lift'),
         'data_launches': data_launches(data, 'lift'),
+        'variant_launches': variant_launches(var, 'lift'),
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -2062,6 +2439,7 @@ def main():
         'train_launches': tl['rays'],
         'eval_launches': eval_launches(ev, 'rays'),
         'data_launches': data_launches(data, 'rays'),
+        'variant_launches': variant_launches(var, 'rays'),
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
@@ -2081,6 +2459,7 @@ def main():
         'live_ctas': k['lift_bwd']['live_ctas'],
         'eval_launches': eval_launches(ev, 'lift_bwd'),
         'data_launches': data_launches(data, 'lift_bwd'),
+        'variant_launches': variant_launches(var, 'lift_bwd'),
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
@@ -2089,6 +2468,45 @@ def main():
         'library_ms': None,
         'fp32_ms': k['lift_bwd']['float32']['ms'],
         'fp32_plain_ms': k['lift_bwd']['float32']['plain_ms'],
+    }, {
+        'name': 'lift_bilinear',
+        'route': 'cuda',
+        'source': f'{csrc}/lift.cu',
+        'replaces': 'vampire_tpu/ops/pallas_tables.py:73',
+        'replaces_on': 'the bilinear lift, with the row gather over the '
+                       'table (vampire_tpu/core/sampling.py:287-332)',
+        'launches': bil['serve']['full']['lift_bilinear'],
+        'metrics_launches': bil['serve']['metrics']['lift_bilinear'],
+        'train_launches': bil['train']['launched']['lift_bilinear'],
+        'validate_launches': bil['validate']['launched']['lift_bilinear'],
+        'per': 'frame',
+        'max_abs_err': k['lift_bilinear']['max_abs_err'],
+        'ms': k['lift_bilinear']['bfloat16']['ms'],
+        'plain_ms': k['lift_bilinear']['bfloat16']['plain_ms'],
+        'bound_ms': k['lift_bilinear']['bfloat16']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
+        'fp32_ms': k['lift_bilinear']['float32']['ms'],
+        'fp32_plain_ms': k['lift_bilinear']['float32']['plain_ms'],
+    }, {
+        'name': 'lift_bilinear_backward',
+        'route': 'cuda',
+        'source': f'{csrc}/lift.cu',
+        'replaces': 'vampire_tpu/ops/pallas_tables.py:214',
+        'replaces_on': 'the bilinear lift\'s training',
+        'launches': bil['train']['launched']['lift_bilinear_bwd'],
+        'serve_launches': bil['serve']['full']['lift_bilinear_bwd'],
+        'per': 'frame',
+        'ctas': k['lift_bilinear_bwd']['ctas'],
+        'live_ctas': k['lift_bilinear_bwd']['live_ctas'],
+        'max_abs_err': k['lift_bilinear_bwd']['max_abs_err'],
+        'ms': k['lift_bilinear_bwd']['bfloat16']['ms'],
+        'plain_ms': k['lift_bilinear_bwd']['bfloat16']['plain_ms'],
+        'bound_ms': k['lift_bilinear_bwd']['bfloat16']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
+        'fp32_ms': k['lift_bilinear_bwd']['float32']['ms'],
+        'fp32_plain_ms': k['lift_bilinear_bwd']['float32']['plain_ms'],
     }, {
         'name': 'corner_table_backward',
         'route': 'cuda',
@@ -2114,6 +2532,7 @@ def main():
         'launches': tl['rays_bwd'],
         'eval_launches': eval_launches(ev, 'rays_bwd'),
         'data_launches': data_launches(data, 'rays_bwd'),
+        'variant_launches': variant_launches(var, 'rays_bwd'),
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
         'plain_ms': k['rays_bwd']['plain_ms'],
@@ -2143,7 +2562,17 @@ def main():
             'batch_mb', 'h2d_ms', 'step_ms', 'synthetic_step_ms', 'wait_ms',
             'fit_peak_gb', 'validate_ms_per_row', 'test_ms_per_row',
             'validate_first_batch_ms', 'test_first_batch_ms', 'nds',
-            'wall_s', 'getitem_train_decode_ms') if k in data}}),
+            'wall_s', 'getitem_train_decode_ms') if k in data},
+        'variants': {name: dict(
+            request_ms=var[name]['serve']['ms'],
+            step_ms=var[name]['train']['step_ms'],
+            peak_gb=var[name]['train']['peak_gb'],
+            validate_ms=var[name]['validate']['ms'],
+            wall_s=var[name]['wall_s']) for name in VARIANTS},
+        'sweeps': {k: var['sweeps'][k] for k in (
+            'step_ms', 'peak_gb', 'request_ms')},
+        'dense': {k: var['dense'][k] for k in (
+            'request_ms', 'max_abs_err', 'dropped')}}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,8 +1,8 @@
 """The port's CLI (`vampire_tpu_torch/cli.py`) against the JAX package's:
 the argument parser (the same namespace for the same argv, but for the
-port's `--device`), the `ablation_config` presets, the flags that reach
-code the port does not have yet (each raises and names its ROADMAP.md
-item), and `--debug` end to end on a fake nuScenes tree at `tiny_config`
+port's `--device`), the `ablation_config` presets, the flags of the
+ROADMAP.md items (the items still open raise and name themselves; item 6's
+run), and `--debug` end to end on a fake nuScenes tree at `tiny_config`
 on the CPU: fit for one epoch, then `-v`, `-t` (the in-repo NDS/mAP), `-p`
 (the lidarseg bins) and `-t --vis` (the pickles)."""
 import dataclasses
@@ -17,7 +17,8 @@ from vampire_tpu import configs as jcfg
 from vampire_tpu_torch import cli
 from vampire_tpu_torch import configs as tcfg
 from vampire_tpu_torch.data.fake import make_fake_nusc
-from vampire_tpu_torch.data.synthetic import tiny_config
+from vampire_tpu_torch.data.synthetic import synthetic_batch, tiny_config
+from vampire_tpu_torch.training.trainer import Trainer
 
 ARGVS = [
     [],
@@ -80,17 +81,58 @@ def tree(tmp_path_factory):
     (['--debug', '--pretrained-backbone', 'r50.pth'], 'item 9'),
 ])
 def test_flags_of_unported_code_raise(tree, tmp_path, argv, item):
-    """Each raises NotImplementedError naming the ROADMAP.md item: the
-    device count at once, the other variants when their model is built,
-    the sweeps at the first multi-frame forward, the pretrained backbone at
-    init. --sweep-idxes -v restores a checkpoint of the same tree first."""
+    """The flags of the ROADMAP.md items. Those of the open items raise
+    NotImplementedError naming the item: the device count at once, the
+    pretrained backbone at init. Item 6's are ported and run to their end:
+    --sweep-idxes fits for one epoch on 12-view batches, and -v restores a
+    checkpoint of the same tree first, then validates on them; an --exp
+    of the bilinear, lss and vampire2 experiments resolves its config
+    (`cli.experiment_config`) and, at tiny_config's widths with that
+    variant and those loss weights (--debug would take tiny_config whole),
+    runs init_state and one fit step with finite losses."""
     common = ['--device', 'cpu', '-b', '1', '--max-epochs', '1',
               '--data-root', str(tree), '--workdir', str(tmp_path),
               '--num-workers', '1']
+    if item != 'item 6':
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(common + argv)
+        return
+    if '--exp' in argv:
+        cfg = cli.experiment_config(cli.build_argparser().parse_args(
+            common + argv))
+        want = tcfg.ablation_config(argv[1])
+        assert cfg.backbone == want.backbone
+        assert cfg.train.loss_weights == want.train.loss_weights
+        tiny = tiny_config()
+        tiny = dataclasses.replace(
+            tiny,
+            backbone=dataclasses.replace(tiny.backbone,
+                                         variant=cfg.backbone.variant),
+            train=dataclasses.replace(tiny.train,
+                                      exp_name=cfg.train.exp_name,
+                                      loss_weights=cfg.train.loss_weights,
+                                      max_epochs=1))
+        batch = synthetic_batch(tiny, batch_size=1, n_points=64, seed=0,
+                                mode='train')
+        trainer = Trainer(tiny, workdir=str(tmp_path), device='cpu')
+        state = trainer.init_state(batch, 1)
+        state = trainer.fit([batch], state=state, log_every=1)
+        assert state.step == 1
+        rows = [json.loads(ln) for ln in (
+            tmp_path / cfg.train.exp_name / 'scalars.jsonl').read_text()
+            .splitlines()]
+        losses = [r['total_loss'] for r in rows if 'total_loss' in r]
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        return
     if '-v' in argv:
         cli.main(common + ['--debug', '--no-resume'])
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(common + argv)
+    cli.main(common + argv)
+    exp = tmp_path / tiny_config().train.exp_name
+    rows = [json.loads(ln) for ln in
+            (exp / 'scalars.jsonl').read_text().splitlines()]
+    losses = [r['total_loss'] for r in rows if 'total_loss' in r]
+    assert losses and all(np.isfinite(v) for v in losses)
+    assert (exp / 'checkpoints' / '0.pt').exists()
 
 
 def test_cli_debug_end_to_end(tree, tmp_path):

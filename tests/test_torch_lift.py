@@ -290,3 +290,151 @@ def test_kernels_read_8_byte_aligned_bf16_feat_on_gpu():
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
+
+@pytest.mark.parametrize('n_cams', [1, 6])
+def test_bilinear_lift_matches_jax(n_cams):
+    """The bilinear variant's lift (depth None: the plain version of the
+    depth-less mode) against the JAX bilinear `_lift_compact`, which samples
+    each camera's depth-1 feature volume through its corner table; one
+    camera alone and six, two batch elements, camera_rig(seed=3). The
+    raw features' slope across a pixel is O(1) where the depth-weighted
+    ones' is ~1/D, so the geometry's reassociated 4x4 products move a
+    sample more than in test_lift_matches_jax: 1e-4 absolute (measured
+    2.4e-5 for values O(1))."""
+    bc = dataclasses.replace(tiny_config().backbone, variant='bilinear')
+    mats = {k: v[:, :n_cams] if v.ndim == 4 else v
+            for k, v in camera_rig(2, 6, bc.final_dim, seed=3).items()}
+    _, feat = _inputs(bc)
+    feat = np.ascontiguousarray(feat[:, :n_cams])
+    jax = pytest.importorskip('jax')
+    import jax.numpy as jnp
+    from vampire_tpu.models.field import FieldBackbone as JaxFieldBackbone
+    m = JaxFieldBackbone(bc, dtype=jnp.float32)
+    args = (None, jnp.asarray(feat),
+            {k: jnp.asarray(v) for k, v in mats.items()})
+    v = jax.jit(lambda: m.init(jax.random.PRNGKey(0), *args,
+                               method='_lift'))()
+    want = np.asarray(jax.jit(lambda: m.apply(v, *args, method='_lift'))())
+    fb = FieldBackbone(bc)
+    before = (lift.LAUNCHES, lift.BILINEAR_LAUNCHES)
+    got = fb.lift(None, torch.from_numpy(feat),
+                  {k: torch.from_numpy(v) for k, v in mats.items()})
+    got = got.permute(0, 2, 3, 4, 1).numpy()
+    assert (lift.LAUNCHES, lift.BILINEAR_LAUNCHES) == before
+    assert fb.lift_compact and got.shape == want.shape
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _bilinear_case(device, dtype, **kw):
+    """`_frame_case` with the bilinear lift's coords: z = 0."""
+    t, G = _frame_case(device, dtype, **kw)
+    t['coords'][..., 2] = 0.0
+    return t, G
+
+
+def test_bilinear_plain_is_the_lss_plain_with_ones_depth():
+    """With z = 0 and a depth of ones at D = 1, the depth mode's plain
+    version computes the depth-less one's terms in the same order: equal
+    bit for bit, forward (numer and denom) and backward (d feat)."""
+    t, G = _bilinear_case('cpu', torch.float32)
+    args = [t[k] for k in ('feat', 'ids', 'coords', 'valid')]
+    N, _, H, W = t['depth'].shape
+    ones = torch.ones(N, 1, H, W)
+    got = lift.bilinear_lift_frame_accumulate_reference(*args, G)
+    want = lift.lift_frame_accumulate_reference(ones, *args, G)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].abs().max() > 0.1
+    d_feat = lift.bilinear_lift_frame_backward_reference(*args, t['g_numer'])
+    _, want = lift.lift_frame_backward_reference(ones, *args, t['g_numer'])
+    assert torch.equal(d_feat, want) and d_feat.abs().max() > 0.1
+
+
+def test_bilinear_plain_backward_is_the_forward_transpose():
+    """The depth-less plain backward equals autograd through the plain
+    forward's numerator (the same sums in fp32: 1e-6), ids out of range
+    dropped as in the forward; `lift_frame(None, ...)` returns no depth
+    gradient."""
+    t, G = _bilinear_case('cpu', torch.float32)
+    t['ids'][2, 1] = G
+    feat = t['feat'].clone().requires_grad_(True)
+    args = [t[k] for k in ('ids', 'coords', 'valid')]
+    numer, denom = lift.lift_frame(None, feat, *args, G)
+    assert not denom.requires_grad
+    (got,) = torch.autograd.grad(numer, feat, t['g_numer'])
+    ref = lift.bilinear_lift_frame_accumulate_reference(
+        feat, *args, G)[0]
+    (auto,) = torch.autograd.grad(ref, feat, t['g_numer'])
+    want = lift.bilinear_lift_frame_backward_reference(t['feat'], *args,
+                                                      t['g_numer'])
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(want.numpy(), auto.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_bilinear_wrappers_check_and_run_the_plain_versions_on_the_cpu():
+    """depth=None passes the wrappers' checks (D = 1), runs the depth-less
+    plain versions on CPU tensors and counts no launch; a feat of another
+    dtype still raises."""
+    t, G = _bilinear_case('cpu', torch.float32)
+    args = [t[k] for k in ('feat', 'ids', 'coords', 'valid')]
+    N, H, W, C = t['feat'].shape
+    K, Q = t['valid'].shape[1:]
+    assert lift._check(None, *args, G) == (N, 1, H, W, C, K, Q, G)
+    before = (lift.BILINEAR_LAUNCHES, lift.BILINEAR_BWD_LAUNCHES,
+              lift.LAUNCHES, lift.BWD_LAUNCHES)
+    got = lift.lift_frame_accumulate(None, *args, G)
+    want = lift.bilinear_lift_frame_accumulate_reference(*args, G)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    d_depth, d_feat = lift.lift_frame_backward(None, *args, t['g_numer'])
+    assert d_depth is None and torch.equal(
+        d_feat, lift.bilinear_lift_frame_backward_reference(*args,
+                                                           t['g_numer']))
+    assert (lift.BILINEAR_LAUNCHES, lift.BILINEAR_BWD_LAUNCHES,
+            lift.LAUNCHES, lift.BWD_LAUNCHES) == before
+    with pytest.raises(TypeError):
+        lift._check(None, t['feat'].double(), *args[1:], G)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bilinear_kernel_matches_plain_on_gpu(dtype):
+    """The depth-less mode of both frame kernels (depth None) vs the plain
+    versions on the same card and inputs, one launch each, counted apart
+    from the depth mode: 16 channels (four lanes a query, V = 4), 8 and 5
+    (a lane a channel); cameras 0 and 1 select the same blocks; ids out of
+    range; coords up to 0.3 past the image on each side, and one camera's
+    first block wholly outside it (its samples read zeros). Forward: the
+    same values summed in fp32 in the same order, only FMA contraction
+    differs: 1e-5, counts exact. Backward: fp32 atomics in another order:
+    1e-5 of the largest d feat."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    for seed, C, G, K, Q, spare in ((0, 16, 20, 12, 1280, 2),
+                                    (1, 8, 9, 9, 300, 0),
+                                    (2, 5, 30, 7, 77, 3)):
+        t, _ = _bilinear_case('cuda', dtype, seed=seed, N=6, C=C, G=G, K=K,
+                              Q=Q, spare=spare)
+        t['ids'][3, 0] = G
+        t['ids'][4, 2] = -1
+        t['coords'][5, 0, :, :2] = 1.5          # a block past the image
+        t['valid'][5, 0] = 1.0
+        args = [t[k] for k in ('feat', 'ids', 'coords', 'valid')]
+        before = (lift.BILINEAR_LAUNCHES, lift.BILINEAR_BWD_LAUNCHES,
+                  lift.LAUNCHES, lift.BWD_LAUNCHES)
+        numer, denom = lift.lift_frame_accumulate(None, *args, G)
+        d_depth, d_feat = lift.lift_frame_backward(None, *args, t['g_numer'])
+        assert d_depth is None
+        assert (lift.BILINEAR_LAUNCHES, lift.BILINEAR_BWD_LAUNCHES,
+                lift.LAUNCHES, lift.BWD_LAUNCHES) == (
+                    before[0] + 1, before[1] + 1, before[2], before[3])
+        want = lift.bilinear_lift_frame_accumulate_reference(*args, G)
+        want_d = lift.bilinear_lift_frame_backward_reference(*args,
+                                                            t['g_numer'])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(numer, want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(denom, want[1], rtol=0, atol=0)
+        assert not numer[G - spare:].any() and not denom[G - spare:].any()
+        assert (d_feat - want_d).abs().max().item() <= \
+            1e-5 * want_d.abs().max().item()

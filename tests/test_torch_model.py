@@ -271,31 +271,46 @@ def _tiny_bc(**kw):
                                 dict(lift_block=0),
                                 dict(lift_block_topk=0)])
 def test_unported_configs_raise(kw):
-    """Variants other than lss_inpaintor and the dense lift wait for later
-    slices (ROADMAP.md) and say so instead of computing something else."""
-    from vampire_tpu_torch.models.field import FieldBackbone
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        FieldBackbone(_tiny_bc(**kw))
+    """The configs that waited for ROADMAP.md Queue 1 item 6 (the other
+    variants, the dense lift) are ported now and no longer raise: each
+    builds and runs the full-render forward with finite outputs of the
+    flagship's shapes (tests/test_torch_variants.py holds them to JAX)."""
+    cfg = tiny_config()
+    tm = Vampire(_tiny_bc(**kw), cfg.head).eval()
+    b = synthetic_batch(cfg, batch_size=1, n_points=8, seed=0, mode='val')
+    with torch.inference_mode():
+        fo, _ = tm(torch.from_numpy(b['imgs']),
+                   {k: torch.from_numpy(b[k]) for k in MATS},
+                   points=torch.from_numpy(b['points']))
+    assert tm.backbone.lift_compact == ('lift_block' not in kw
+                                        and 'lift_block_topk' not in kw)
+    gx, gy, gz = cfg.backbone.occ_grid
+    assert fo['occ_logits'].shape == (1, gx, gy, gz,
+                                      cfg.backbone.num_classes)
+    for k in ALL_KEYS:
+        assert torch.isfinite(fo[k]).all(), k
 
 
 @pytest.mark.parametrize('case', ['camera_renders', 'multi_sweep'])
 def test_unported_inputs_raise(case):
-    """The multi-sweep 6-D input waits for a later slice (ROADMAP.md) and
-    says so. The camera renders are ported: camera_renders=True, the
-    default, returns the three x4-upsampled renders."""
+    """Both inputs that once waited are ported. The camera renders:
+    camera_renders=True, the default, returns the three x4-upsampled
+    renders. The multi-sweep 6-D input (ROADMAP.md Queue 1 item 6): a
+    (B, 2, N, ...) batch runs and renders the key frame's N cameras, with
+    the same checks (tests/test_torch_variants.py holds it to JAX)."""
     cfg = tiny_config()
     tm = Vampire(cfg.backbone, cfg.head).eval()
     b = synthetic_batch(cfg, batch_size=1, n_points=8, seed=0, mode='val')
     imgs = torch.from_numpy(b['imgs'])
     mats = {k: torch.from_numpy(b[k]) for k in MATS}
     if case == 'multi_sweep':
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tm(imgs[:, None], mats)
-        return
+        imgs = torch.stack([imgs, imgs.flip(2)], dim=1)
+        mats = dict(mats, **{k: torch.stack([mats[k]] * 2, dim=1)
+                             for k in ('sensor2ego', 'intrin', 'ida')})
     with torch.inference_mode():
         fo, _ = tm(imgs, mats)
     bc = cfg.backbone
-    N, (H, W), K = imgs.shape[1], bc.final_dim, bc.num_classes
+    N, (H, W), K = b['imgs'].shape[1], bc.final_dim, bc.num_classes
     assert fo['rgb_preds'].shape == (1, N, H, W, 3)
     assert fo['seg_logits_preds'].shape == (1, N, H, W, K)
     assert fo['depth_preds'].shape == (1, N, H, W)

@@ -9,11 +9,12 @@ Usage:
 
 The flags and modes are the JAX CLI's. `--device` (default `cuda`) takes
 the place of the JAX device mesh: the port runs one process on one device.
-`--debug` runs `tiny_config()` on the CPU. Flags that reach code the port
-does not have yet raise and name the ROADMAP.md item that ports it:
-`--num-devices` above 1 (item 5); the bilinear, lss and vampire2
-experiments (their model, item 6); a non-empty `--sweep-idxes` (the
-multi-sweep forward, item 6); `--pretrained-backbone` (item 9).
+`--debug` runs `tiny_config()` on the CPU. Every ablation experiment runs
+(`--exp bilinear|lss|lss_inpaintor|...|vampire2`), and so does a non-empty
+`--sweep-idxes` (multi-sweep batches: the sweep frames' views join the key
+frame's in the lift). Flags that reach code the port does not have yet
+raise and name the ROADMAP.md item that ports it: `--num-devices` above 1
+(item 5); `--pretrained-backbone` (item 9).
 
 Defaults mirror the reference trainer config (base_cli.py:69-92): bf16
 compute with fp32 islands (the reference uses fp16 AMP), grad clip 35, val
@@ -64,10 +65,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--sweep-idxes', default=None,
                    help='comma-separated temporal sweep-frame indexes into '
                         'the infos\' cam_sweeps history (e.g. "0" or "0,2"); '
-                        'enables multi-sweep temporal fusion, which the '
-                        'port\'s model does not run yet (ROADMAP.md, Queue 1 '
-                        'item 6). Default: the experiment config\'s '
-                        'sweep_idxes')
+                        'enables multi-sweep temporal fusion. Default: the '
+                        'experiment config\'s sweep_idxes')
     p.add_argument('--device', default='cuda',
                    help='the torch device to run on (--debug: cpu)')
     return p
@@ -78,24 +77,18 @@ def _parse_sweep_idxes(s):
     return tuple(int(t) for t in s.split(',') if t.strip()) if s else ()
 
 
-def main(argv=None):
-    args = build_argparser().parse_args(argv)
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(
-            f'--num-devices {args.num_devices}: the port runs on one device; '
-            'multi-GPU waits, see ROADMAP.md, Queue 1 item 5')
-    from .configs import DET_CLASSES, ablation_config, flagship_config
-    from .data.nuscenes import DataLoader, NuscDetSegDataset
+def experiment_config(args):
+    """The run's VampireConfig from parsed arguments: tiny_config() with
+    --debug, else the --exp preset, with the train fields the flags set."""
+    from .configs import ablation_config, flagship_config
     from .data.synthetic import tiny_config
-    from .training.trainer import Trainer
-
     if args.debug:
         cfg = tiny_config()
     elif args.exp == 'flagship':
         cfg = flagship_config()
     else:
         cfg = ablation_config(args.exp)
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+    return dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train,
         batch_size_per_device=args.batch_size_per_device,
         max_epochs=args.max_epochs,
@@ -107,6 +100,18 @@ def main(argv=None):
         **({'sweep_idxes': _parse_sweep_idxes(args.sweep_idxes)}
            if args.sweep_idxes is not None else {})))
 
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.num_devices is not None and args.num_devices > 1:
+        raise NotImplementedError(
+            f'--num-devices {args.num_devices}: the port runs on one device; '
+            'multi-GPU waits, see ROADMAP.md, Queue 1 item 5')
+    from .configs import DET_CLASSES
+    from .data.nuscenes import DataLoader, NuscDetSegDataset
+    from .training.trainer import Trainer
+
+    cfg = experiment_config(args)
     trainer = Trainer(cfg, workdir=args.workdir,
                       device='cpu' if args.debug else args.device)
     data_root = args.data_root

@@ -284,9 +284,9 @@ def flagship_config() -> VampireConfig:
 
 def ablation_config(name: str) -> VampireConfig:
     """The reference's ablation experiments
-    (src/exps/nuscenes/ablation/*.py). The port's `FieldBackbone` runs only
-    the lss_inpaintor variant; the bilinear, lss and vampire2 presets
-    raise when their model is built (ROADMAP.md, Queue 1 item 6)."""
+    (src/exps/nuscenes/ablation/*.py): the bilinear, lss and
+    lss_inpaintor field variants and the depth and semantic loss terms.
+    The port's `FieldBackbone` builds every one."""
     presets: Dict[str, Tuple[str, Tuple[float, ...]]] = {
         'bilinear': ('bilinear', (0., 0., 0., 0., 0.)),
         'lss': ('lss', (0., 0., 0., 0., 0.)),

@@ -154,6 +154,22 @@ def get_pixel(voxel_coords: torch.Tensor, sensor2ego: torch.Tensor,
     return pts[..., :3]
 
 
+def rotate_occ_coords(occ_coords: torch.Tensor,
+                      bda: torch.Tensor) -> torch.Tensor:
+    """Apply bda's 3x3 rotation to the Occ3D grid, in fp32 (the `vampire2`
+    variant's occ queries).
+
+    Args:
+      occ_coords: (X, Y, Z, 3).
+      bda: (B, 4, 4).
+    Returns:
+      (B, X, Y, Z, 3).
+    """
+    rot = bda[:, :3, :3].to(torch.float32)
+    return torch.einsum('bij,xyzj->bxyzi', rot,
+                        occ_coords.to(torch.float32))
+
+
 def normalize_coords(xyz: torch.Tensor, x_bound, y_bound,
                      z_bound) -> torch.Tensor:
     """Map ego xyz into the field grid's [-1, 1]^3 (grid_sample convention)."""

@@ -6,6 +6,9 @@ Port of the serving-path half of `vampire_tpu/core/sampling.py`:
     `depth (x) feat` with zeros padding, fp32 weights and accumulation. It is
     the exact fp32 lift sampler and the plain version of the CUDA lift kernel
     (`ops/lift.py`).
+  * `sample_bilinear`: the 2-D bilinear sample of a feature map with zeros
+    padding, fp32 weights and sums: the `bilinear` variant's lift sampler
+    and the plain version of the lift kernel's depth-less mode.
   * `grid_sample_3d`: `F.grid_sample` on a channels-first volume, returning
     channels-last samples like the JAX sampler.
   * `make_sample_matrix` / `apply_sample_matrices`: static-grid sampling as
@@ -95,6 +98,33 @@ def sample_outer_product(depth_vol: torch.Tensor, feat: torch.Tensor,
                 s = s + wz * dflat[zi[dz] * H * W + pix].to(torch.float32)
             fv = fflat[pix].to(torch.float32)
             out = out + fv * (w2d * s)[:, None]
+    return out.reshape(*lead, C)
+
+
+def sample_bilinear(feat: torch.Tensor, coords: torch.Tensor,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear sample of a (H, W, C) feature map at the (x, y) of coords
+    (..., 3) (z is not read), zeros padding.
+
+    The JAX package samples a depth-1 volume (1, H, W, C) at z = 0 through
+    its corner table: the z0 corner weighs 1 and the z1 corner lies outside,
+    so the sample is these four pixel corners. The terms and their order
+    are `sample_outer_product`'s with a depth of ones at D = 1 and z = 0.
+
+    Returns (..., C) fp32.
+    """
+    H, W, C = feat.shape
+    lead = coords.shape[:-1]
+    c = coords.reshape(-1, coords.shape[-1])
+    xi, xw, xm = _prep_axis(c[:, 0], W, align_corners)
+    yi, yw, ym = _prep_axis(c[:, 1], H, align_corners)
+    fflat = feat.reshape(H * W, C)
+    out = torch.zeros((c.shape[0], C), dtype=torch.float32, device=c.device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            w2d = torch.where(ym[dy] & xm[dx], yw[dy] * xw[dx], 0.0)
+            fv = fflat[yi[dy] * W + xi[dx]].to(torch.float32)
+            out = out + fv * w2d[:, None]
     return out.reshape(*lead, C)
 
 

@@ -77,6 +77,26 @@
 // The reductions' order, hence the last bits of the sums, changes from run
 // to run. Valid == 0 queries pass no gradient and are skipped.
 //
+// Depth-less mode (`depth` null, the `bilinear` field variant): the same two
+// kernels with DEPTH = false sample the features alone, a 2-D bilinear
+// sample with zeros padding at the query's (x, y) (its z is not read):
+//
+//   v[n,k,q,:] = sum_p w2d[p] * feat[n, pix_p, :] * valid[n,k,q]
+//
+// and the backward writes d feat only (d feat[n, pix_p, c] += w2d[p] gv[c];
+// no depth is read and no d depth is written). It replaces, on the bilinear
+// lift, the JAX package's corner table of each camera's depth-1 feature
+// volume and the row gather over it (vampire_tpu/ops/pallas_tables.py:73
+// `_corner_table_pallas`, sampling.py:287-332), and in training the table's
+// VJP (pallas_tables.py:214 `_corner_table_bwd_impl`): with D = 1 the z0
+// corner weighs 1 and the z1 corner lies outside the volume, so the table
+// row's 8 corners reduce to these 4 pixels. The design is the depth mode's
+// (one launch a frame, output-stationary, numer and denom written once, no
+// atomics forward); only the depth reads, the z weights and the d depth
+// reductions go. What bounds it is what bounds the depth mode less the
+// depth: the numer and denom writes and the frame's coords, validity, ids
+// and features read once.
+//
 // The kernels allocate nothing; the caller owns every buffer.
 
 #include <cuda_bf16.h>
@@ -124,9 +144,15 @@ __device__ __forceinline__ void load_channels(const __nv_bfloat16* p,
 
 // One axis of torch grid_sample, align_corners=False, zeros padding:
 // clamped corner indices, weights zeroed where the corner is out of bounds.
+// The coordinate rounds as the plain version's, step by step: a fused
+// multiply-add would move x by up to an ulp of the image width, which moves
+// the fractional weights by ~1e-5 (measured: 4.1e-5 on the bilinear lift's
+// O(5) sums against the plain version, on an H100).
 __device__ __forceinline__ void prep_axis(float coord, int size, int idx[2],
                                           float w[2]) {
-  const float x = ((coord + 1.0f) * size - 1.0f) / 2.0f;
+  const float x = __fsub_rn(__fmul_rn(__fadd_rn(coord, 1.0f),
+                                      static_cast<float>(size)),
+                            1.0f) / 2.0f;
   const float x0 = floorf(x);
   const float w1 = x - x0;
   const int i0 = static_cast<int>(x0);
@@ -146,20 +172,24 @@ struct Taps {
   float xw[2], yw[2], zw[2];
 };
 
+// DEPTH = false (depth-less mode) reads no z and leaves zi, zw unset.
+template <bool DEPTH>
 __device__ __forceinline__ Taps taps(const float* c, int D, int H, int W) {
   Taps t;
   prep_axis(c[0], W, t.xi, t.xw);
   prep_axis(c[1], H, t.yi, t.yw);
-  prep_axis(c[2], D, t.zi, t.zw);
+  if constexpr (DEPTH) prep_axis(c[2], D, t.zi, t.zw);
   return t;
 }
 
 // Pixel corner p = 2 dy + dx's weight: w2d * (0 + zw0 * depth[z0, pix] +
-// zw1 * depth[z1, pix]), the plain version's order.
-template <typename T>
+// zw1 * depth[z1, pix]), the plain version's order; w2d alone in the
+// depth-less mode.
+template <bool DEPTH, typename T>
 __device__ __forceinline__ float corner_weight(const T* dep, const Taps& t,
                                                int p, int plane, int W) {
   const int dy = p >> 1, dx = p & 1;
+  if constexpr (!DEPTH) return t.yw[dy] * t.xw[dx];
   const int pix = t.yi[dy] * W + t.xi[dx];
   float s = 0.0f;
 #pragma unroll
@@ -171,10 +201,11 @@ __device__ __forceinline__ float corner_weight(const T* dep, const Taps& t,
 
 // Forward. grid (ceil(Q / (qpc * kRounds)), G). Thread: query lq = tid / L
 // of each run, channels lane * V ... + V (L = C / V lanes a query, qpc =
-// kThreads / L queries a run). C = 16 runs V = 4 with SPLIT: lane p of a
-// query computes pixel corner p's weight and the four lanes share them;
-// any other C runs V = 1, a lane a channel.
-template <typename T, int V, bool SPLIT>
+// kThreads / L queries a run). C = 16 runs V = 4, with SPLIT in the depth
+// mode: lane p of a query computes pixel corner p's weight and the four
+// lanes share them (a depth-less weight is one product: every lane takes
+// all four); any other C runs V = 1, a lane a channel.
+template <typename T, int V, bool SPLIT, bool DEPTH>
 __global__ void __launch_bounds__(kThreads)
 lift_frame_kernel(const T* __restrict__ depth, const T* __restrict__ feat,
                   const int64_t* __restrict__ ids,
@@ -212,20 +243,22 @@ lift_frame_kernel(const T* __restrict__ depth, const T* __restrict__ feat,
       const int k = slot[n];
       if (k < 0) continue;
       const int64_t t = (static_cast<int64_t>(n) * K + k) * Q + q;
-      const Taps tp = taps(coords + t * 3, D, H, W);
+      const Taps tp = taps<DEPTH>(coords + t * 3, D, H, W);
       const float vmask = valid[t];
-      const T* dep = depth + n * dstride;
+      const T* dep = DEPTH ? depth + n * dstride : nullptr;
       const T* fe = feat + n * fstride + lane * V;
       float wk[4];
       if constexpr (SPLIT) {
-        const float mine = corner_weight(dep, tp, lane, plane, W);
+        const float mine = corner_weight<DEPTH>(dep, tp, lane, plane, W);
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
           wk[p] = __shfl_sync(0xffffffffu, mine, (threadIdx.x & 28) | p);
         }
       } else {
 #pragma unroll
-        for (int p = 0; p < 4; ++p) wk[p] = corner_weight(dep, tp, p, plane, W);
+        for (int p = 0; p < 4; ++p) {
+          wk[p] = corner_weight<DEPTH>(dep, tp, p, plane, W);
+        }
       }
       float s[V];
 #pragma unroll
@@ -263,8 +296,9 @@ lift_frame_kernel(const T* __restrict__ depth, const T* __restrict__ feat,
 
 // Backward. grid (K, N), kBwdThreads threads. L lanes a query in the
 // scatter (a power of two >= C / V, at most 32), V channels a lane (V = 4:
-// float4 reductions into d feat).
-template <typename T, int V>
+// float4 reductions into d feat). DEPTH = false reads no depth and no
+// features and writes no d depth.
+template <typename T, int V, bool DEPTH>
 __global__ void __launch_bounds__(kBwdThreads)
 lift_frame_backward_kernel(const T* __restrict__ depth,
                            const T* __restrict__ feat,
@@ -281,9 +315,10 @@ lift_frame_backward_kernel(const T* __restrict__ depth,
   if (gid < 0 || gid >= G) return;
   const int64_t t0 = (static_cast<int64_t>(n) * K + k) * Q;
   const int plane = H * W;
-  const T* dep = depth + static_cast<int64_t>(n) * D * plane;
+  const T* dep = DEPTH ? depth + static_cast<int64_t>(n) * D * plane
+                      : nullptr;
   const T* fe = feat + static_cast<int64_t>(n) * plane * C;
-  float* dd = d_depth + static_cast<int64_t>(n) * D * plane;
+  float* dd = DEPTH ? d_depth + static_cast<int64_t>(n) * D * plane : nullptr;
   float* df = d_feat + static_cast<int64_t>(n) * plane * C;
   const float* gq = g_numer + gid * Q * C;
   const int lane = threadIdx.x & 31;
@@ -304,9 +339,11 @@ lift_frame_backward_kernel(const T* __restrict__ depth,
     if (q < Q) {
       vm = valid[t0 + q];
       if (vm != 0.0f) {
-        tp = taps(coords + (t0 + q) * 3, D, H, W);
+        tp = taps<DEPTH>(coords + (t0 + q) * 3, D, H, W);
 #pragma unroll
-        for (int p = 0; p < 4; ++p) wk[p] = corner_weight(dep, tp, p, plane, W);
+        for (int p = 0; p < 4; ++p) {
+          wk[p] = corner_weight<DEPTH>(dep, tp, p, plane, W);
+        }
       }
     }
     const unsigned live = __ballot_sync(0xffffffffu, vm != 0.0f);
@@ -328,10 +365,12 @@ lift_frame_backward_kernel(const T* __restrict__ depth,
       for (int d = 0; d < 2; ++d) {
         yi[d] = __shfl_sync(0xffffffffu, tp.yi[d], src);
         xi[d] = __shfl_sync(0xffffffffu, tp.xi[d], src);
-        zi[d] = __shfl_sync(0xffffffffu, tp.zi[d], src);
         yw[d] = __shfl_sync(0xffffffffu, tp.yw[d], src);
         xw[d] = __shfl_sync(0xffffffffu, tp.xw[d], src);
-        zw[d] = __shfl_sync(0xffffffffu, tp.zw[d], src);
+        if constexpr (DEPTH) {
+          zi[d] = __shfl_sync(0xffffffffu, tp.zi[d], src);
+          zw[d] = __shfl_sync(0xffffffffu, tp.zw[d], src);
+        }
       }
 #pragma unroll
       for (int p = 0; p < 4; ++p) swk[p] = __shfl_sync(0xffffffffu, wk[p], src);
@@ -348,17 +387,19 @@ lift_frame_backward_kernel(const T* __restrict__ depth,
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         const int pix = yi[p >> 1] * W + xi[p & 1];
-        float part = 0.0f;
-        if (act) {
-          float f[V];
-          load_channels<V>(fe + pix * C + c0, f);
+        if constexpr (DEPTH) {
+          float part = 0.0f;
+          if (act) {
+            float f[V];
+            load_channels<V>(fe + pix * C + c0, f);
 #pragma unroll
-          for (int c = 0; c < V; ++c) part = part + f[c] * gv[c];
+            for (int c = 0; c < V; ++c) part = part + f[c] * gv[c];
+          }
+          for (int o = L >> 1; o > 0; o >>= 1) {
+            part += __shfl_xor_sync(0xffffffffu, part, o);
+          }
+          dwk[p] = part;
         }
-        for (int o = L >> 1; o > 0; o >>= 1) {
-          part += __shfl_xor_sync(0xffffffffu, part, o);
-        }
-        dwk[p] = part;
         if (act && swk[p] != 0.0f) {
           float* out = df + pix * C + c0;
           if constexpr (V == 4) {
@@ -372,7 +413,7 @@ lift_frame_backward_kernel(const T* __restrict__ depth,
         }
       }
       // the query's 8 d depth adds, spread over its lanes
-      if (j < nlive) {
+      if (DEPTH && j < nlive) {
         for (int i = li; i < 8; i += L) {
           const int p = i >> 1, dz = i & 1;
           const float w2d = yw[p >> 1] * xw[p & 1];
@@ -402,11 +443,17 @@ int launch(const void* depth, const void* feat, const void* ids,
   const float* vp = static_cast<const float*>(valid);
   float* np_ = static_cast<float*>(numer);
   float* dn = static_cast<float*>(denom);
-  if (C == 16) {
-    lift_frame_kernel<T, 4, true><<<grid, kThreads, 0, s>>>(
+  if (dp != nullptr && C == 16) {
+    lift_frame_kernel<T, 4, true, true><<<grid, kThreads, 0, s>>>(
+        dp, fp, ip, cp, vp, np_, dn, N, D, H, W, C, K, Q);
+  } else if (dp != nullptr) {
+    lift_frame_kernel<T, 1, false, true><<<grid, kThreads, 0, s>>>(
+        dp, fp, ip, cp, vp, np_, dn, N, D, H, W, C, K, Q);
+  } else if (C == 16) {
+    lift_frame_kernel<T, 4, false, false><<<grid, kThreads, 0, s>>>(
         dp, fp, ip, cp, vp, np_, dn, N, D, H, W, C, K, Q);
   } else {
-    lift_frame_kernel<T, 1, false><<<grid, kThreads, 0, s>>>(
+    lift_frame_kernel<T, 1, false, false><<<grid, kThreads, 0, s>>>(
         dp, fp, ip, cp, vp, np_, dn, N, D, H, W, C, K, Q);
   }
   return static_cast<int>(cudaGetLastError());
@@ -431,11 +478,17 @@ int launch_backward(const void* depth, const void* feat, const void* ids,
   const float* gp = static_cast<const float*>(g_numer);
   float* ddp = static_cast<float*>(d_depth);
   float* dfp = static_cast<float*>(d_feat);
-  if (V == 4) {
-    lift_frame_backward_kernel<T, 4><<<grid, kBwdThreads, 0, s>>>(
+  if (dp != nullptr && V == 4) {
+    lift_frame_backward_kernel<T, 4, true><<<grid, kBwdThreads, 0, s>>>(
+        dp, fp, ip, cp, vp, gp, ddp, dfp, D, H, W, C, K, Q, G, L);
+  } else if (dp != nullptr) {
+    lift_frame_backward_kernel<T, 1, true><<<grid, kBwdThreads, 0, s>>>(
+        dp, fp, ip, cp, vp, gp, ddp, dfp, D, H, W, C, K, Q, G, L);
+  } else if (V == 4) {
+    lift_frame_backward_kernel<T, 4, false><<<grid, kBwdThreads, 0, s>>>(
         dp, fp, ip, cp, vp, gp, ddp, dfp, D, H, W, C, K, Q, G, L);
   } else {
-    lift_frame_backward_kernel<T, 1><<<grid, kBwdThreads, 0, s>>>(
+    lift_frame_backward_kernel<T, 1, false><<<grid, kBwdThreads, 0, s>>>(
         dp, fp, ip, cp, vp, gp, ddp, dfp, D, H, W, C, K, Q, G, L);
   }
   return static_cast<int>(cudaGetLastError());
@@ -444,7 +497,8 @@ int launch_backward(const void* depth, const void* feat, const void* ids,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each returns the CUDA error code
-// of the launch: 0 on success.
+// of the launch: 0 on success. A null `depth` (and, backward, `d_depth`)
+// selects the depth-less mode, where D is not read.
 extern "C" int lift_frame_f32(const void* depth, const void* feat,
                               const void* ids, const void* coords,
                               const void* valid, void* numer, void* denom,

@@ -1,8 +1,9 @@
 """Experiment entry: vampire2_r50_256x704_24e_bilinear
 (reference src/exps/nuscenes/ablation/vampire2_r50_256x704_24e_bilinear.py).
 
-The port's model runs only the lss_inpaintor variant: this experiment raises
-when its model is built (ROADMAP.md, Queue 1 item 6).
+The bilinear variant: no depth head; each camera's features are lifted by
+a 2-D bilinear sample (the depth-less mode of the lift kernel) and refined
+by one conv and a softplus.
 
 Run: python -m vampire_tpu_torch.exps.vampire2_r50_256x704_24e_bilinear [cli args]
 """

@@ -1,8 +1,8 @@
 """Experiment entry: vampire2_r50_256x704_24e_lss
 (reference src/exps/nuscenes/ablation/vampire2_r50_256x704_24e_lss.py).
 
-The port's model runs only the lss_inpaintor variant: this experiment raises
-when its model is built (ROADMAP.md, Queue 1 item 6).
+The lss variant: the depth-softmax lift refined by one conv and a softplus
+(no Unet3D inpaintor).
 
 Run: python -m vampire_tpu_torch.exps.vampire2_r50_256x704_24e_lss [cli args]
 """

@@ -1,11 +1,17 @@
 """The image -> field backbone; the port of `vampire_tpu/models/field.py`
-(`FieldBackbone`).
+(`FieldBackbone`), in its four variants: `lss_inpaintor` (the flagship),
+`vampire2` (the default), `lss` and `bilinear`.
 
 Cameras are encoded by ResNet + SECONDFPN, lifted through the depth softmax
-into one ego voxel field by the block-compacted lift (whose inner step is the
-CUDA kernel of `ops/lift.py`), refined by the Unet3D, and queried for the
-Occ3D grid, the LiDAR points, the BEV column renders and the BEV feature of
-the detection head. With `camera_renders=True` (the default, as in the JAX
+(`bilinear`: the features alone, no depth head) into one ego voxel field by
+the block-compacted lift, or the dense lift with every block selected
+(`lift_block=0` or `lift_block_topk=0`), whose inner step is the CUDA kernel
+of `ops/lift.py`, refined by the Unet3D (`lss` and `bilinear`: one conv and
+a softplus), and queried for the Occ3D grid (`vampire2`: rotated by bda),
+the LiDAR points, the BEV column renders and the BEV feature of the
+detection head. A (B, F, N, H, W, 3) multi-sweep input folds its F frames
+into the view axis of the encoder and the lift; the renders and queries use
+the key frame (frame 0). With `camera_renders=True` (the default, as in the JAX
 package) the fused field [sdf | seg | rgb] is also copied channels-last in
 bf16 once per frame, and the camera rays are rendered from that copy
 (`ops/rays.py`); the ray renders are upsampled x4. The JAX package reads
@@ -24,7 +30,7 @@ outputs, the density, queries and rendering are fp32.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,21 +44,38 @@ from ..ops import lift as lift_ops
 from ..ops import rays as ray_ops
 from .resnet import Conv2d, ResNet
 from .second_fpn import SECONDFPN
-from .unet3d import Conv3d, Unet3D
+from .unet3d import Conv3d, ConvSoftplus3D, Unet3D
 
 _TODO = 'see ROADMAP.md, Queue 1'
+VARIANTS = ('vampire2', 'lss', 'lss_inpaintor', 'bilinear')
+# the per-view matrices, which a multi-sweep input carries per frame
+VIEW_KEYS = ('sensor2ego', 'intrin', 'ida')
 
 
-def block_major_voxels(c: BackboneConfig) -> np.ndarray:
-    """(G, Q, 4) voxel centers, block-major: G = (Y/blk)*(X/blk) blocks of
-    Q = Z*blk*blk voxels, each block a (Z, blk, blk) column."""
+def lift_layout(c: BackboneConfig) -> Tuple[int, bool]:
+    """(block size, compact) of the lift. The block-compacted lift, as the
+    JAX package runs it, where lift_block and lift_block_topk are set and
+    the block divides the (Y, X) plane; else the dense lift, as every block
+    selected by every camera at the largest of 8, 4, 2 and 1 that divides
+    Y and X and keeps the block count under the kernel's 2^16."""
+    _, Y, X = c.grid_zyx('seg')
     blk = c.lift_block
+    if blk and c.lift_block_topk and not Y % blk and not X % blk:
+        return blk, True
+    for blk in (8, 4, 2, 1):
+        if not Y % blk and not X % blk and (Y // blk) * (X // blk) < 2 ** 16:
+            return blk, False
+    raise ValueError(f'the dense lift of a {Y}x{X} plane needs over 2^16 '
+                     f'blocks, more than the lift kernel takes')
+
+
+def block_major_voxels(c: BackboneConfig,
+                       blk: Optional[int] = None) -> np.ndarray:
+    """(G, Q, 4) voxel centers, block-major: G = (Y/blk)*(X/blk) blocks of
+    Q = Z*blk*blk voxels, each block a (Z, blk, blk) column; blk defaults to
+    the lift's (`lift_layout`)."""
+    blk = blk or lift_layout(c)[0]
     Z, Y, X = c.grid_zyx('seg')
-    if not blk or Y % blk or X % blk or not c.lift_block_topk:
-        raise NotImplementedError(
-            f'only the block-compacted lift is ported (lift_block={blk}, '
-            f'lift_block_topk={c.lift_block_topk}, grid {Y}x{X}); the dense '
-            f'lift waits, {_TODO} item 6')
     vox = G.make_voxel_coords(c.x_bound_seg, c.y_bound_seg, c.z_bound_seg)
     v6 = vox.reshape(Z, Y // blk, blk, X // blk, blk, 4)
     v6 = v6.transpose(1, 3, 0, 2, 4, 5)
@@ -64,14 +87,22 @@ def coords_valid(pix: torch.Tensor, c: BackboneConfig):
     """Per-camera pixel coords -> (normalized lift coords, fp32 validity).
 
     The coords are clipped to [-2, 2] and sampled with align_corners=False.
+    The `bilinear` variant samples the depth-1 feature volume: a voxel is
+    valid in front of the camera (z > 0, no depth window) and its norm_z is 0.
     """
     fH, fW = c.final_dim
     x, y, z = pix[..., 0], pix[..., 1], pix[..., 2]
-    valid = ((x > -0.5) & (x < fW - 0.5) & (y > -0.5) & (y < fH - 0.5)
-             & (z > c.d_bound[0]) & (z < c.d_bound[1])).to(torch.float32)
     norm_x = 2.0 * (x / (fW - 1.0)) - 1.0
     norm_y = 2.0 * (y / (fH - 1.0)) - 1.0
-    norm_z = 2.0 * ((z - c.d_bound[0]) / (c.d_bound[1] - c.d_bound[0])) - 1.0
+    if c.variant == 'bilinear':
+        z_valid = z > 0.0
+        norm_z = torch.zeros_like(norm_x)
+    else:
+        z_valid = (z > c.d_bound[0]) & (z < c.d_bound[1])
+        norm_z = 2.0 * ((z - c.d_bound[0])
+                        / (c.d_bound[1] - c.d_bound[0])) - 1.0
+    valid = ((x > -0.5) & (x < fW - 0.5) & (y > -0.5) & (y < fH - 0.5)
+             & z_valid).to(torch.float32)
     coords = torch.stack([norm_x, norm_y, norm_z], dim=-1)
     return torch.clamp(coords, -2.0, 2.0), valid
 
@@ -110,10 +141,8 @@ class FieldBackbone(nn.Module):
                  device=None):
         super().__init__()
         c = cfg
-        if c.variant != 'lss_inpaintor':
-            raise NotImplementedError(
-                f'variant {c.variant!r}: only lss_inpaintor is ported, '
-                f'{_TODO} item 6')
+        if c.variant not in VARIANTS:
+            raise ValueError(f'variant {c.variant!r}: one of {VARIANTS}')
         self.cfg = c
         self.dtype = dtype
         # dtype of the field the point queries and the camera rays sample
@@ -130,7 +159,8 @@ class FieldBackbone(nn.Module):
                 name, torch.as_tensor(np.ascontiguousarray(a), device=device),
                 persistent=False)
 
-        buf('voxel_coords_bm', block_major_voxels(c))
+        self.lift_block, self.lift_compact = lift_layout(c)
+        buf('voxel_coords_bm', block_major_voxels(c, self.lift_block))
         buf('norm_voxel_coords', G.make_norm_voxel_coords(
             c.x_bound_seg, c.y_bound_seg, c.z_bound_seg).transpose(3, 0, 1, 2))
         buf('bev_mids', G.make_bev_mids(c.z_bound_det))
@@ -146,13 +176,18 @@ class FieldBackbone(nn.Module):
                 'zeros'))
         occ_c = G.make_occ_coords(c.occ_pc_range, c.occ_voxel_size,
                                   c.occ_grid)
-        occ_n = dict(x=occ_c[:, 0, 0, 0], y=occ_c[0, :, 0, 1],
-                     z=occ_c[0, 0, :, 2])
-        for i, ax in enumerate('zyx'):
-            n = _norm1d(occ_n[ax], getattr(c, f'{ax}_bound_seg'))
-            for pad in ('border', 'zeros'):
-                buf(f'occ_mat_{pad}_{ax}', S.make_sample_matrix(
-                    n, (Zs, Ys, Xs)[i], True, pad))
+        if c.variant == 'vampire2':
+            # the occ grid is rotated by each frame's bda: sampled points
+            buf('occ_coords', occ_c)
+        else:
+            # the static occ grid: separable interpolation matrices
+            occ_n = dict(x=occ_c[:, 0, 0, 0], y=occ_c[0, :, 0, 1],
+                         z=occ_c[0, 0, :, 2])
+            for i, ax in enumerate('zyx'):
+                n = _norm1d(occ_n[ax], getattr(c, f'{ax}_bound_seg'))
+                for pad in ('border', 'zeros'):
+                    buf(f'occ_mat_{pad}_{ax}', S.make_sample_matrix(
+                        n, (Zs, Ys, Xs)[i], True, pad))
 
         kw = dict(device=device)
         self.img_backbone = ResNet(depth=c.img_backbone_depth,
@@ -163,17 +198,23 @@ class FieldBackbone(nn.Module):
                                   c.img_neck_upsample_strides, dtype=dtype,
                                   **kw)
         cimg = c.img_out_channels
-        self.mapping_along_depth = Conv2d(cimg, c.depth_channels, 3, 1, 1,
-                                          bias=False, compute_dtype=dtype,
-                                          **kw)
+        if c.variant != 'bilinear':
+            self.mapping_along_depth = Conv2d(cimg, c.depth_channels, 3, 1,
+                                              1, bias=False,
+                                              compute_dtype=dtype, **kw)
         self.channel_lower = Conv2d(cimg, mid, 3, 1, 1, bias=False,
                                     compute_dtype=dtype, **kw)
-        self.base_conv = Unet3D(mid + (3 if c.cat_pos else 0), mid,
-                                dtype=dtype, **kw)
+        base = (Unet3D if c.variant in ('vampire2', 'lss_inpaintor')
+                else ConvSoftplus3D)
+        self.base_conv = base(mid + (3 if c.cat_pos else 0), mid,
+                              dtype=dtype, **kw)
         self.density_conv = Conv3d(mid, 1, bias=True, compute_dtype=dtype,
                                    **kw)
         self.seg_conv = Conv3d(mid, K, bias=True, compute_dtype=dtype, **kw)
         self.rgb_conv = Conv3d(mid, 3, bias=True, compute_dtype=dtype, **kw)
+        if c.variant == 'bilinear':
+            self.feature_conv = Conv3d(mid, mid, bias=True,
+                                       compute_dtype=dtype, **kw)
         self.density_beta = nn.Parameter(
             torch.tensor(0.1, dtype=torch.float32, device=device))
         cv = mid + (K if c.cat_seg else 0)
@@ -185,40 +226,51 @@ class FieldBackbone(nn.Module):
         return R.density(x, self.cfg.density_mode, self.density_beta,
                          self.cfg.sdf_bias)
 
-    def lift(self, depth: torch.Tensor, feat: torch.Tensor,
-             mats: Dict[str, torch.Tensor],
-             plain: bool = False) -> torch.Tensor:
-        """Block-compacted masked-mean lift.
+    def lift(self, depth: Optional[torch.Tensor], feat: torch.Tensor,
+             mats: Dict[str, torch.Tensor], plain: bool = False,
+             diagnostics: Optional[dict] = None) -> torch.Tensor:
+        """Block-major masked-mean lift.
 
-        depth: (B, N, D, h, w) depth distribution; feat: (B, N, h, w, C).
-        Each camera selects its top-K (Y, X) blocks by valid-query count and
+        depth: (B, N, D, h, w) depth distribution, None for `bilinear`;
+        feat: (B, N, h, w, C). The compacted lift: each camera selects its
+        top-K (Y, X) blocks by valid-query count. The dense lift: every
+        camera selects every block, in block order, which sums each voxel's
+        cameras in camera order as the JAX dense loop does. Then
         `ops.lift.lift_frame` (one launch of the lift kernel a frame,
         `plain`: its plain version; differentiable) sums the frame's samples
-        into block-major (G, Q, C) accumulators. Returns (B, C, Z, Y, X)
-        fp32.
+        into block-major (G, Q, C) accumulators. With a `diagnostics` dict,
+        the compacted lift puts there `lift_dropped_blocks`: the blocks that
+        hold a valid query and that the top-K dropped, summed over (B, N),
+        the JAX package's sown diagnostic. Returns (B, C, Z, Y, X) fp32.
         """
         c = self.cfg
         Z, Y, X = c.grid_zyx('seg')
-        blk = c.lift_block
+        blk = self.lift_block
         B, N = feat.shape[:2]
-        C = feat.shape[-1]
-        GY, GX = Y // blk, X // blk
-        Gn, Q = GY * GX, Z * blk * blk
-        topk = min(c.lift_block_topk, Gn)
+        Gn, Q = (Y // blk) * (X // blk), Z * blk * blk
         # geometry straight from the block-major voxel constant:
         # coords (B, N, G, Q, 3), validity (B, N, G, Q)
         pix = G.get_pixel(self.voxel_coords_bm[:, :, None],
                           mats['sensor2ego'], mats['intrin'], mats['ida'],
                           mats.get('bda'))[..., 0, :]
         coords, valid = coords_valid(pix, c)
-        ids = torch.topk(valid.sum(-1), topk, dim=-1).indices   # (B, N, K)
-        sel = ids[..., None]
-        coords = torch.gather(coords, 2, sel[..., None].expand(
-            -1, -1, -1, Q, 3))                               # (B, N, K, Q, 3)
-        valid = torch.gather(valid, 2, sel.expand(-1, -1, -1, Q))
+        if self.lift_compact:
+            counts = valid.sum(-1)                           # (B, N, G)
+            top = torch.topk(counts, min(c.lift_block_topk, Gn), dim=-1)
+            ids = top.indices                                # (B, N, K)
+            if diagnostics is not None:
+                diagnostics['lift_dropped_blocks'] = torch.sum(
+                    (counts > 0).sum(-1) - (top.values > 0).sum(-1))
+            sel = ids[..., None]
+            coords = torch.gather(coords, 2, sel[..., None].expand(
+                -1, -1, -1, Q, 3))                           # (B, N, K, Q, 3)
+            valid = torch.gather(valid, 2, sel.expand(-1, -1, -1, Q))
+        else:
+            ids = torch.arange(Gn, device=feat.device).expand(B, N, Gn)
         accs = [lift_ops.lift_frame(
-            depth[b].contiguous(), feat[b].contiguous(), ids[b].contiguous(),
-            coords[b].contiguous(), valid[b].contiguous(), Gn, plain)
+            None if depth is None else depth[b].contiguous(),
+            feat[b].contiguous(), ids[b].contiguous(), coords[b].contiguous(),
+            valid[b].contiguous(), Gn, plain)
             for b in range(B)]
         return self._masked_mean(accs)
 
@@ -226,7 +278,7 @@ class FieldBackbone(nn.Module):
         """The lift's masked mean: per batch element its block-major (G, Q,
         C) (numer, denom) -> numer / (denom + 1e-6) as (B, C, Z, Y, X)."""
         Z, Y, X = self.cfg.grid_zyx('seg')
-        blk = self.cfg.lift_block
+        blk = self.lift_block
         C = accs[0][0].shape[-1]
         out = torch.stack([n / (d + 1e-6) for n, d in accs])
         out = out.reshape(len(accs), Y // blk, X // blk, Z, blk, blk, C)
@@ -252,17 +304,35 @@ class FieldBackbone(nn.Module):
         pts_sdf = samp[..., 0] * G.inrange_mask(norm).to(torch.float32)
         return pts_logits, pts_sdf
 
-    def _query_occ(self, seg_vol, sdf_vol):
-        """Occ3D grid queries on the static grid: (B, X, Y, Z, K), (B, X, Y, Z)."""
+    def _query_occ(self, seg_vol, sdf_vol, bda=None):
+        """Occ3D grid queries: (B, X, Y, Z, K), (B, X, Y, Z). On the static
+        grid through separable matrices; for `vampire2` on the grid rotated
+        by bda (None: the static grid) through `grid_sample`, border
+        padding for the logits and zeros for the density."""
+        c = self.cfg
         dens = self._density(sdf_vol)
-        occ_logits = S.apply_sample_matrices(
-            seg_vol, [getattr(self, f'occ_mat_border_{a}') for a in 'zyx'],
-            (2, 3, 4))                                   # (B, K, Z', Y', X')
-        occ_density = S.apply_sample_matrices(
-            dens, [getattr(self, f'occ_mat_zeros_{a}') for a in 'zyx'],
-            (2, 3, 4))[:, 0]                             # (B, Z', Y', X')
-        return (occ_logits.permute(0, 4, 3, 2, 1),
-                torch.tanh(occ_density.permute(0, 3, 2, 1)))
+        if c.variant != 'vampire2':
+            occ_logits = S.apply_sample_matrices(
+                seg_vol,
+                [getattr(self, f'occ_mat_border_{a}') for a in 'zyx'],
+                (2, 3, 4))                               # (B, K, Z', Y', X')
+            occ_density = S.apply_sample_matrices(
+                dens, [getattr(self, f'occ_mat_zeros_{a}') for a in 'zyx'],
+                (2, 3, 4))[:, 0]                         # (B, Z', Y', X')
+            return (occ_logits.permute(0, 4, 3, 2, 1),
+                    torch.tanh(occ_density.permute(0, 3, 2, 1)))
+        if bda is not None:
+            occ = G.rotate_occ_coords(self.occ_coords, bda)  # (B, X, Y, Z, 3)
+        else:
+            occ = self.occ_coords[None].expand(seg_vol.shape[0], -1, -1, -1,
+                                               -1)
+        norm = G.normalize_coords(occ, c.x_bound_seg, c.y_bound_seg,
+                                  c.z_bound_seg)
+        occ_logits = S.grid_sample_3d(seg_vol, norm, align_corners=True,
+                                      padding_mode='border')
+        occ_density = S.grid_sample_3d(dens, norm, align_corners=True,
+                                       padding_mode='zeros')[..., 0]
+        return occ_logits, torch.tanh(occ_density)
 
     def _render_bev(self, fused, base_vol):
         """BEV column renders over the det grid, z flipped (sky -> ground).
@@ -328,15 +398,24 @@ class FieldBackbone(nn.Module):
     def forward(self, imgs: torch.Tensor, mats: Dict[str, torch.Tensor],
                 points: Optional[torch.Tensor] = None,
                 camera_renders: bool = True,
-                plain: bool = False) -> Dict[str, Optional[torch.Tensor]]:
+                plain: bool = False,
+                diagnostics: Optional[dict] = None
+                ) -> Dict[str, Optional[torch.Tensor]]:
         """Forward in the module's mode: `model.train()` is the JAX
         package's train=True (BN on batch statistics outside the frozen
         stem), `eval()` its train=False. The forward is differentiable: the
         two kernels' ops carry their backward kernels.
 
         Args:
-          imgs: (B, N, H, W, 3) normalized images (channels-last).
-          mats: 'sensor2ego'/'intrin'/'ida' (B, N, 4, 4) and 'bda' (B, 4, 4).
+          imgs: (B, N, H, W, 3) normalized images (channels-last), or
+            (B, F, N, H, W, 3) with F frames, frame 0 the key frame (the
+            loader's multi-sweep layout): the F*N views go through the
+            encoder and the lift together (at most
+            `ops.lift.MAX_CAMERAS` of them), the camera renders use the key
+            frame's matrices. F = 1 gives the 5-D input's outputs bit for
+            bit.
+          mats: 'sensor2ego'/'intrin'/'ida' (B, N, 4, 4), or (B, F, N, 4, 4)
+            with a 6-D imgs, and 'bda' (B, 4, 4).
           points: optional (B, P, 3) padded ego-frame query points.
           camera_renders: also render the camera rays through the frame's
             field, as the JAX package does by default and as training needs;
@@ -346,6 +425,8 @@ class FieldBackbone(nn.Module):
             forward and backward, instead of the kernels. Only
             a caller comparing the two on a card sets it; on the CPU both
             are the plain versions.
+          diagnostics: a dict to receive the lift's `lift_dropped_blocks`
+            (see `lift`); None asks for nothing and costs nothing.
 
         Returns the JAX package's output dict. The camera-ray branch runs
         the dense sampler in both modes: the JAX package's train-mode
@@ -353,38 +434,51 @@ class FieldBackbone(nn.Module):
         exists because TPU scatters are slow; it is not ported.
         """
         c = self.cfg
-        if imgs.dim() != 5:
-            raise NotImplementedError(
-                f'imgs of shape {tuple(imgs.shape)}: only (B, N, H, W, 3) '
-                f'is ported; the multi-sweep input waits, {_TODO} item 6')
-        B, N, H, W, _ = imgs.shape
-        x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
+        if imgs.dim() == 6:
+            B, F, N = imgs.shape[:3]
+            imgs = imgs.reshape(B, F * N, *imgs.shape[3:])
+            lift_mats = dict(mats, **{k: mats[k].reshape(B, F * N, 4, 4)
+                                      for k in VIEW_KEYS})
+            key_mats = dict(mats, **{k: mats[k][:, 0] for k in VIEW_KEYS})
+        else:
+            lift_mats = key_mats = mats
+        B, NT, H, W, _ = imgs.shape                  # NT = F * N views
+        if NT > lift_ops.MAX_CAMERAS:
+            raise ValueError(f'{NT} views a frame (frames x cameras): the '
+                             f'lift kernel sums at most '
+                             f'{lift_ops.MAX_CAMERAS}')
+        x = imgs.reshape(B * NT, H, W, 3).permute(0, 3, 1, 2)
         feats = self.img_neck(self.img_backbone(x.to(self.dtype)))
         h, w = feats.shape[2:]
-        depth = torch.softmax(
-            self.mapping_along_depth(feats).to(torch.float32), dim=1)
-        depth = depth.to(self.dtype).reshape(B, N, -1, h, w)
+        depth = None
+        if c.variant != 'bilinear':
+            depth = torch.softmax(
+                self.mapping_along_depth(feats).to(torch.float32), dim=1)
+            depth = depth.to(self.dtype).reshape(B, NT, -1, h, w)
         low = self.channel_lower(feats).permute(0, 2, 3, 1)
-        low = low.reshape(B, N, h, w, -1)
+        low = low.reshape(B, NT, h, w, -1)
 
-        voxel_feats = self.lift(depth, low, mats, plain)          # fp32
+        voxel_feats = self.lift(depth, low, lift_mats, plain,
+                                diagnostics)                      # fp32
         if c.cat_pos:
             pos = self.norm_voxel_coords[None].expand(B, -1, -1, -1, -1)
             voxel_feats = torch.cat([voxel_feats, pos], dim=1)
         base = self.base_conv(voxel_feats.to(self.dtype))
         sdf_vol = self.density_conv(base).to(torch.float32)
         seg_vol = self.seg_conv(base).to(torch.float32)
-        rgb_vol = torch.sigmoid(self.rgb_conv(base).to(torch.float32))
+        rgb_in = self.feature_conv(base) if c.variant == 'bilinear' else base
+        rgb_vol = torch.sigmoid(self.rgb_conv(rgb_in).to(torch.float32))
         fused = torch.cat([sdf_vol, seg_vol, rgb_vol], dim=1)
 
         pts_logits = pts_sdf = None
         if points is not None:
             pts_logits, pts_sdf = self._query_points(fused, points)
-        occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol)
+        occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol,
+                                                  mats.get('bda'))
         rgb_p = seg_p = depth_p = None
         if camera_renders:
             rgb_p, seg_p, depth_p = self._render_cameras(
-                mats, self._ray_fields(fused), plain)
+                key_mats, self._ray_fields(fused), plain)
         (bev_rgb, bev_seg, bev_height, bev_density,
          vox_out) = self._render_bev(fused, base.to(torch.float32))
 

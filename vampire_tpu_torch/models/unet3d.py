@@ -1,4 +1,5 @@
-"""3D hourglass U-Net over the ego voxel grid (NCDHW); the port of
+"""3D hourglass U-Net over the ego voxel grid (NCDHW), and the `lss` and
+`bilinear` variants' one-conv `ConvSoftplus3D`; the port of
 `vampire_tpu/models/unet3d.py`.
 
 Two stacked hourglasses with skip connections, LeakyReLU(0.01), and
@@ -88,3 +89,24 @@ class Unet3D(nn.Module):
         out1 = out1 + dres
         out2, _, _ = self.hg2(out1, pre1, post1)
         return out2 + dres
+
+
+class ConvSoftplus3D(nn.Module):
+    """The `lss` and `bilinear` base_conv: a 3x3x3 conv with bias in
+    `dtype`, then Softplus(beta=100) in fp32, linear where beta * x > 20,
+    cast back: (B, Cin, Z, Y, X) -> (B, mid, Z, Y, X)."""
+
+    def __init__(self, in_channels: int, mid_channels: int,
+                 beta: float = 100.0, dtype=torch.float32, device=None):
+        super().__init__()
+        self.beta = beta
+        self.conv = Conv3d(in_channels, mid_channels, 1, bias=True,
+                           compute_dtype=dtype, device=device)
+
+    def forward(self, x):
+        y = self.conv(x)
+        xb = y.to(torch.float32) * self.beta
+        soft = torch.where(xb > 20.0, y.to(torch.float32),
+                           torch.log1p(torch.exp(torch.clamp(xb, max=20.0)))
+                           / self.beta)
+        return soft.to(y.dtype)

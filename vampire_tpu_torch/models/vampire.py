@@ -31,14 +31,17 @@ class Vampire(nn.Module):
         self.head = BEVDepthHead(head_cfg, device=device)
 
     def forward(self, imgs, mats, points=None, lidar_seg: bool = False,
-                camera_renders: bool = True, plain: bool = False):
+                camera_renders: bool = True, plain: bool = False,
+                diagnostics=None):
         """Returns (field outputs dict, per-task head preds or None).
         `lidar_seg=True` skips the detection head in eval mode only, as the
         JAX module skips it for `lidar_seg and not train`;
         `camera_renders=False` is the metrics graph; `plain` runs the
-        kernels' plain versions (see `FieldBackbone.forward`)."""
+        kernels' plain versions; `diagnostics`, a dict, receives the lift's
+        diagnostic (see `FieldBackbone.forward`)."""
         fo = self.backbone(imgs, mats, points=points,
-                           camera_renders=camera_renders, plain=plain)
+                           camera_renders=camera_renders, plain=plain,
+                           diagnostics=diagnostics)
         if lidar_seg and not self.training:
             return fo, None
         return fo, self.head(fo['bev_feature'])

@@ -25,9 +25,22 @@ the transpose of the row gather, in one launch of the second kernel of
 `csrc/lift.cu`. `denom` counts nonzero samples and takes no gradient, as in
 the JAX package.
 
+`depth=None` is the depth-less mode of the `bilinear` field variant: v is
+a 2-D bilinear sample of `feat` at the query's (x, y) (`sample_bilinear`;
+zeros padding, align_corners=False), with no depth factor, and the
+backward returns (None, d feat). On CUDA tensors it is the same two kernels
+in their depth-less mode, counted apart (`BILINEAR_LAUNCHES`,
+`BILINEAR_BWD_LAUNCHES`). It replaces, on the bilinear lift, the JAX
+package's corner table of each camera's depth-1 feature volume
+(`_corner_table_pallas`, vampire_tpu/ops/pallas_tables.py:73) with the row
+gather over it, and the table's VJP (`_corner_table_bwd_impl`, :214).
+
 The plain versions are per camera: `lift_accumulate_reference` and
 `lift_backward_reference`, looped over a frame's cameras by
-`lift_frame_accumulate_reference` and `lift_frame_backward_reference`.
+`lift_frame_accumulate_reference` and `lift_frame_backward_reference`; all
+four take `depth=None`. `bilinear_lift_frame_accumulate_reference` and
+`bilinear_lift_frame_backward_reference` are the depth-less frame versions
+by name.
 
 `lift_frame(depth, feat, ids, coords, valid, n_blocks)` is the
 differentiable op the model calls: a `torch.autograd.Function` whose forward
@@ -44,13 +57,16 @@ from typing import Tuple
 
 import torch
 
-from ..core.sampling import _prep_axis, sample_outer_product
+from ..core.sampling import _prep_axis, sample_bilinear, sample_outer_product
 from . import _build
 
 # kernel launches made by lift_frame_accumulate and by lift_frame_backward
-# (incremented at each launch only)
+# (incremented at each launch only), in the depth mode and in the depth-less
+# mode
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BILINEAR_LAUNCHES = 0
+BILINEAR_BWD_LAUNCHES = 0
 
 # the most cameras a frame may have (the forward's shared slot array)
 MAX_CAMERAS = 32
@@ -64,12 +80,14 @@ _BWD_SYMBOLS = {torch.float32: 'lift_frame_backward_f32',
 def lift_accumulate_reference(depth, feat, ids, coords, valid, numer, denom):
     """Plain torch lift of one camera (any device): adds its samples into
     the (G, Q, C) fp32 accumulators numer/denom in place and returns them.
-    depth (D, h, w), feat (h, w, C), ids (K,) distinct, coords (K, Q, 3),
-    valid (K, Q)."""
+    depth (D, h, w) or None (the depth-less mode), feat (h, w, C), ids (K,)
+    distinct, coords (K, Q, 3), valid (K, Q)."""
     K, Q = valid.shape
     C = feat.shape[-1]
-    v = sample_outer_product(depth, feat, coords.reshape(K * Q, 3),
-                             align_corners=False).reshape(K, Q, C)
+    c = coords.reshape(K * Q, 3)
+    v = (sample_bilinear(feat, c) if depth is None else
+         sample_outer_product(depth, feat, c, align_corners=False))
+    v = v.reshape(K, Q, C)
     v = v * valid[..., None]
     numer.index_add_(0, ids, v)
     denom.index_add_(0, ids, (torch.abs(v) > 0).to(torch.float32))
@@ -85,12 +103,22 @@ def lift_frame_accumulate_reference(depth, feat, ids, coords, valid,
     numer = torch.zeros((n_blocks, Q, C), dtype=torch.float32,
                         device=feat.device)
     denom = torch.zeros_like(numer)
-    for n in range(depth.shape[0]):
+    for n in range(feat.shape[0]):
         keep = (ids[n] >= 0) & (ids[n] < n_blocks)
-        lift_accumulate_reference(depth[n], feat[n], ids[n][keep],
-                                  coords[n][keep], valid[n][keep], numer,
-                                  denom)
+        lift_accumulate_reference(None if depth is None else depth[n],
+                                  feat[n], ids[n][keep], coords[n][keep],
+                                  valid[n][keep], numer, denom)
     return numer, denom
+
+
+def bilinear_lift_frame_accumulate_reference(feat, ids, coords, valid,
+                                             n_blocks):
+    """The depth-less frame lift in plain torch: the plain version of the
+    kernel's depth-less mode, `lift_frame_accumulate_reference(None, ...)`.
+    With a depth of ones at D = 1 and z = 0 (the bilinear lift's coords),
+    the depth mode's plain version computes the same terms."""
+    return lift_frame_accumulate_reference(None, feat, ids, coords, valid,
+                                           n_blocks)
 
 
 def lift_backward_reference(depth, feat, ids, coords, valid, g_numer):
@@ -98,19 +126,26 @@ def lift_backward_reference(depth, feat, ids, coords, valid, g_numer):
     one camera (any device): g_numer (G, Q, C) fp32 -> (d depth (D, h, w),
     d feat (h, w, C)), both fp32. With gv = valid * g_numer[ids] and the
     forward's weights, d feat[pix] += wk * gv and d depth[z, pix] +=
-    w2d * wz * (feat[pix] . gv), per (dy, dx) pixel corner."""
-    D, H, W = depth.shape
+    w2d * wz * (feat[pix] . gv), per (dy, dx) pixel corner. With depth None
+    (the depth-less mode) wk = w2d and d depth is None."""
+    H, W, C = feat.shape
     K, Q = valid.shape
-    C = feat.shape[-1]
     gv = (g_numer.index_select(0, ids) * valid[..., None]).reshape(K * Q, C)
     c = coords.reshape(K * Q, 3)
     xi, xw, xm = _prep_axis(c[:, 0], W, False)
     yi, yw, ym = _prep_axis(c[:, 1], H, False)
+    d_feat = torch.zeros((H * W, C), dtype=torch.float32, device=feat.device)
+    if depth is None:
+        for dy in (0, 1):
+            for dx in (0, 1):
+                w2d = torch.where(ym[dy] & xm[dx], yw[dy] * xw[dx], 0.0)
+                d_feat.index_add_(0, yi[dy] * W + xi[dx], gv * w2d[:, None])
+        return None, d_feat.reshape(H, W, C)
+    D = depth.shape[0]
     zi, zw, zm = _prep_axis(c[:, 2], D, False)
     dflat = depth.reshape(D * H * W).to(torch.float32)
     fflat = feat.reshape(H * W, C).to(torch.float32)
     d_depth = torch.zeros(D * H * W, dtype=torch.float32, device=depth.device)
-    d_feat = torch.zeros((H * W, C), dtype=torch.float32, device=depth.device)
     for dy in (0, 1):
         for dx in (0, 1):
             w2d = torch.where(ym[dy] & xm[dx], yw[dy] * xw[dx], 0.0)
@@ -128,52 +163,70 @@ def lift_backward_reference(depth, feat, ids, coords, valid, g_numer):
 
 def lift_frame_backward_reference(depth, feat, ids, coords, valid, g_numer):
     """Plain version of `lift_frame_backward` (any device): the cameras'
-    `lift_backward_reference`, stacked: (N, D, h, w), (N, h, w, C) fp32."""
+    `lift_backward_reference`, stacked: (N, D, h, w), (N, h, w, C) fp32;
+    (None, d feat) with depth None."""
     G = g_numer.shape[0]
     grads = []
-    for n in range(depth.shape[0]):
+    for n in range(feat.shape[0]):
         keep = (ids[n] >= 0) & (ids[n] < G)
         grads.append(lift_backward_reference(
-            depth[n], feat[n], ids[n][keep], coords[n][keep], valid[n][keep],
-            g_numer))
-    return (torch.stack([g[0] for g in grads]),
-            torch.stack([g[1] for g in grads]))
+            None if depth is None else depth[n], feat[n], ids[n][keep],
+            coords[n][keep], valid[n][keep], g_numer))
+    d_feat = torch.stack([g[1] for g in grads])
+    if depth is None:
+        return None, d_feat
+    return torch.stack([g[0] for g in grads]), d_feat
+
+
+def bilinear_lift_frame_backward_reference(feat, ids, coords, valid,
+                                           g_numer):
+    """The depth-less frame lift's backward in plain torch: d feat
+    (N, h, w, C) fp32, the plain version of the backward kernel's
+    depth-less mode."""
+    return lift_frame_backward_reference(None, feat, ids, coords, valid,
+                                         g_numer)[1]
 
 
 def _check(depth, feat, ids, coords, valid, n_blocks, g_numer=None):
     """The checks the wrappers make before a launch; returns the sizes
-    (N, D, H, W, C, K, Q, G)."""
-    dev = depth.device
+    (N, D, H, W, C, K, Q, G), D = 1 where depth is None."""
+    dev = feat.device
     tensors = dict(depth=depth, feat=feat, ids=ids, coords=coords,
-                   valid=valid)
-    if g_numer is not None:
-        tensors['g_numer'] = g_numer
+                   valid=valid, g_numer=g_numer)
+    tensors = {k: t for k, t in tensors.items() if t is not None}
     for name, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f'lift: {name} is on {t.device}, depth on {dev}')
+            raise ValueError(f'lift: {name} is on {t.device}, feat on {dev}')
         if not t.is_contiguous():
             raise ValueError(f'lift: {name} must be contiguous')
-    if depth.dtype not in _SYMBOLS or feat.dtype != depth.dtype:
+    if feat.dtype not in _SYMBOLS or (depth is not None
+                                      and depth.dtype != feat.dtype):
         raise TypeError(f'lift: depth/feat must both be float32 or bfloat16, '
-                        f'got {depth.dtype}/{feat.dtype}')
+                        f'got {None if depth is None else depth.dtype}/'
+                        f'{feat.dtype}')
     if ids.dtype != torch.int64:
         raise TypeError(f'lift: ids must be int64, got {ids.dtype}')
     for name in ('coords', 'valid', 'g_numer'):
         if name in tensors and tensors[name].dtype != torch.float32:
             raise TypeError(f'lift: {name} must be float32')
-    if depth.dim() != 4 or valid.dim() != 3:
-        raise ValueError(f'lift: depth {tuple(depth.shape)} must be '
-                         f'(N, D, h, w) and valid {tuple(valid.shape)} '
+    if (depth is not None and depth.dim() != 4) or feat.dim() != 4 \
+            or valid.dim() != 3:
+        raise ValueError(f'lift: depth '
+                         f'{None if depth is None else tuple(depth.shape)} '
+                         f'must be (N, D, h, w), feat {tuple(feat.shape)} '
+                         f'(N, h, w, C) and valid {tuple(valid.shape)} '
                          f'(N, K, Q)')
-    N, D, H, W = depth.shape
+    N, H, W, C = feat.shape
+    D = 1 if depth is None else depth.shape[1]
     _, K, Q = valid.shape
-    C = feat.shape[-1]
     G = int(n_blocks)
-    if (valid.shape[0] != N or feat.shape != (N, H, W, C)
+    if (valid.shape[0] != N
+            or (depth is not None and depth.shape != (N, D, H, W))
             or ids.shape != (N, K) or coords.shape != (N, K, Q, 3)
             or (g_numer is not None and g_numer.shape != (G, Q, C))):
         raise ValueError(
-            f'lift: shapes depth {tuple(depth.shape)} feat '
+            f'lift: shapes depth '
+            f'{None if depth is None else tuple(depth.shape)} feat '
             f'{tuple(feat.shape)} ids {tuple(ids.shape)} coords '
             f'{tuple(coords.shape)} valid {tuple(valid.shape)}'
             + ('' if g_numer is None else
@@ -213,32 +266,38 @@ def lift_frame_accumulate(depth: torch.Tensor, feat: torch.Tensor,
     """One frame's lift into fresh (n_blocks, Q, C) fp32 accumulators.
 
     Args:
-      depth: (N, D, h, w) depth distributions, float32 or bfloat16.
+      depth: (N, D, h, w) depth distributions, float32 or bfloat16; None
+        for the depth-less mode (the bilinear lift).
       feat: (N, h, w, C) features, same dtype as depth.
       ids: (N, K) int64, each row distinct block ids; ids outside
         [0, n_blocks) are ignored.
-      coords: (N, K, Q, 3) float32 normalized (x, y, z) sample coords.
+      coords: (N, K, Q, 3) float32 normalized (x, y, z) sample coords (z
+        unread in the depth-less mode).
       valid: (N, K, Q) float32 validity.
 
     Returns (numer, denom).
     """
-    global LAUNCHES
-    if depth.device.type == 'cpu':
+    global LAUNCHES, BILINEAR_LAUNCHES
+    if feat.device.type == 'cpu':
         return lift_frame_accumulate_reference(depth, feat, ids, coords,
                                                valid, n_blocks)
-    if depth.device.type != 'cuda':
-        raise NotImplementedError(f'lift: no kernel for {depth.device}')
+    if feat.device.type != 'cuda':
+        raise NotImplementedError(f'lift: no kernel for {feat.device}')
     N, D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid,
                                     n_blocks)
-    numer = torch.empty((G, Q, C), dtype=torch.float32, device=depth.device)
+    numer = torch.empty((G, Q, C), dtype=torch.float32, device=feat.device)
     denom = torch.empty_like(numer)
-    err = _build.launch(_kernel(_SYMBOLS[depth.dtype], 7), depth.device,
-                        depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
-                        coords.data_ptr(), valid.data_ptr(), numer.data_ptr(),
-                        denom.data_ptr(), N, D, H, W, C, K, Q, G)
+    err = _build.launch(_kernel(_SYMBOLS[feat.dtype], 7), feat.device,
+                        None if depth is None else depth.data_ptr(),
+                        feat.data_ptr(), ids.data_ptr(), coords.data_ptr(),
+                        valid.data_ptr(), numer.data_ptr(), denom.data_ptr(),
+                        N, D, H, W, C, K, Q, G)
     if err != 0:
         raise RuntimeError(f'lift: kernel launch failed with CUDA error {err}')
-    LAUNCHES += 1
+    if depth is None:
+        BILINEAR_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return numer, denom
 
 
@@ -248,32 +307,37 @@ def lift_frame_backward(depth: torch.Tensor, feat: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame's lift backward: (d depth (N, D, h, w), d feat
     (N, h, w, C)), float32, from g_numer = d numer (G, Q, C) float32 and the
-    forward's inputs (see `lift_frame_accumulate`)."""
-    global BWD_LAUNCHES
-    if depth.device.type == 'cpu':
+    forward's inputs (see `lift_frame_accumulate`); (None, d feat) with
+    depth None."""
+    global BWD_LAUNCHES, BILINEAR_BWD_LAUNCHES
+    if feat.device.type == 'cpu':
         return lift_frame_backward_reference(depth, feat, ids, coords, valid,
                                              g_numer)
-    if depth.device.type != 'cuda':
-        raise NotImplementedError(f'lift: no kernel for {depth.device}')
+    if feat.device.type != 'cuda':
+        raise NotImplementedError(f'lift: no kernel for {feat.device}')
     N, D, H, W, C, K, Q, G = _check(depth, feat, ids, coords, valid,
                                     g_numer.shape[0], g_numer)
     # one buffer for the whole frame, zeroed once; d feat starts on 16
     # bytes (the kernel adds into it four floats at a time)
-    nd = N * D * H * W
+    nd = 0 if depth is None else N * D * H * W
     off = -(-nd // 4) * 4
     grads = torch.zeros(off + N * H * W * C, dtype=torch.float32,
-                        device=depth.device)
-    d_depth = grads[:nd].view(N, D, H, W)
+                        device=feat.device)
+    d_depth = None if depth is None else grads[:nd].view(N, D, H, W)
     d_feat = grads[off:].view(N, H, W, C)
-    err = _build.launch(_kernel(_BWD_SYMBOLS[depth.dtype], 8), depth.device,
-                        depth.data_ptr(), feat.data_ptr(), ids.data_ptr(),
-                        coords.data_ptr(), valid.data_ptr(),
-                        g_numer.data_ptr(), d_depth.data_ptr(),
+    err = _build.launch(_kernel(_BWD_SYMBOLS[feat.dtype], 8), feat.device,
+                        None if depth is None else depth.data_ptr(),
+                        feat.data_ptr(), ids.data_ptr(), coords.data_ptr(),
+                        valid.data_ptr(), g_numer.data_ptr(),
+                        None if depth is None else d_depth.data_ptr(),
                         d_feat.data_ptr(), N, D, H, W, C, K, Q, G)
     if err != 0:
         raise RuntimeError(f'lift: backward kernel launch failed with CUDA '
                            f'error {err}')
-    BWD_LAUNCHES += 1
+    if depth is None:
+        BILINEAR_BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return d_depth, d_feat
 
 
@@ -299,8 +363,8 @@ class LiftFrame(torch.autograd.Function):
                else lift_frame_backward)
         d_depth, d_feat = bwd(depth, feat, ids, coords, valid,
                               g_numer.contiguous())
-        return (d_depth.to(depth.dtype), d_feat.to(feat.dtype), None, None,
-                None, None, None)
+        return (None if depth is None else d_depth.to(depth.dtype),
+                d_feat.to(feat.dtype), None, None, None, None, None)
 
 
 def lift_frame(depth, feat, ids, coords, valid, n_blocks, plain=False):
@@ -308,7 +372,8 @@ def lift_frame(depth, feat, ids, coords, valid, n_blocks, plain=False):
     accumulators.
 
     Args:
-      depth: (N, D, h, w), feat: (N, h, w, C), both float32 or bfloat16.
+      depth: (N, D, h, w), feat: (N, h, w, C), both float32 or bfloat16;
+        depth None runs the depth-less mode (the bilinear lift).
       ids: (N, K) int64, each row distinct block ids in [0, n_blocks).
       coords: (N, K, Q, 3), valid: (N, K, Q) float32, as in
         `lift_frame_accumulate`.

@@ -3,7 +3,8 @@
 
 Batch layout (channels-last, as the JAX package's data pipeline and
 `synthetic_batch` produce it), as torch tensors on the model's device:
-  imgs (B, N, H, W, 3); depth_labels, seg_labels (B, N, H, W);
+  imgs (B, N, H, W, 3); depth_labels, seg_labels (B, N, H, W), or with a
+  frame axis after B in a multi-sweep batch (frame 0 the key frame);
   bev_seg, bev_height, bev_mask (B, Y, X); points (B, P, 3),
   point_labels, point_valid (B, P); occ_semantics, occ_density_labels,
   mask_camera (B, 200, 200, 16); and the detection targets of
@@ -61,9 +62,12 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
         raise NotImplementedError(
             f'loss_weights[2] = {lw[2]}: the rgb loss needs ms_ssim, which '
             f'is not ported; see ROADMAP.md, Queue 1 item 8')
+    # a multi-sweep batch (imgs (B, F, N, H, W, 3)): the model renders the
+    # key frame only, so the camera-view terms take frame 0's labels
     if batch['imgs'].dim() == 6:
-        raise NotImplementedError('multi-frame batches are not ported; see '
-                                  'ROADMAP.md, Queue 1 item 6')
+        batch = dict(batch, imgs=batch['imgs'][:, 0],
+                     depth_labels=batch['depth_labels'][:, 0],
+                     seg_labels=batch['seg_labels'][:, 0])
 
     det_loss = detection_loss(det_preds, batch, head_cfg, num_devices)
     logs['detection_loss'] = det_loss

@@ -332,8 +332,10 @@ class Trainer:
                     bev_density=torch.sum(fo['bev_density'], dim=1),
                     occ=_argmax(fo['occ_logits']
                                 * fo['occ_density'][..., None])))
-            rgb = denormalize_images(
-                torch.as_tensor(np.asarray(batch['imgs']))).numpy()
+            imgs = np.asarray(batch['imgs'])
+            if imgs.ndim == 6:      # multi-sweep batch: dump the key frame
+                imgs = imgs[:, 0]
+            rgb = denormalize_images(torch.as_tensor(imgs)).numpy()
             B = rgb.shape[0]
             sv = np.asarray(batch.get('sample_valid', np.ones(B, bool)))
             tokens = batch['meta'].get('lidar_token', [''] * B)

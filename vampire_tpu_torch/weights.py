@@ -11,8 +11,10 @@ The port's modules keep the flax module names, so the mapping is mechanical
 
 Layouts follow the torch module found at the mapped name:
   Conv2d           HWIO -> OIHW
-  Conv3d           DHWIO -> OIDHW (Unet3D and the Conv3dZ heads, whose params
-                   are the plain 3D kernel in every JAX execution layout)
+  Conv3d           DHWIO -> OIDHW (Unet3D, the `lss` and `bilinear`
+                   ConvSoftplus3D `base_conv/conv`, and the Conv3dZ heads,
+                   `feature_conv` among them, whose params are the plain 3D
+                   kernel in every JAX execution layout)
   ConvTranspose2d  HWIO -> flip H and W -> IOHW (flax ConvTranspose applies
                    the kernel as stored, torch conv_transpose2d flipped)
 BatchNorm's `num_batches_tracked` is filled with 0.
