@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and evaluation paths,
-its input pipeline, its other field variants and its row-gather probes
-once on one NVIDIA GPU.
+its input pipeline, its other field variants, its multi-device paths and
+its row-gather probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -118,7 +118,24 @@ nonzero without printing a result:
                and against the block-compacted model with the same weights
                on the same inputs (equal where the top-K drops no live
                block).
-  9. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
+  9. multi   - the multi-device paths. `Trainer.fit` (flagship, B=1 a
+               rank, 3 steps, then 5 timed) in a world of min(cards, 2)
+               ranks that `parallel/distributed.spawn` starts over NCCL
+               (no gloo fallback; world 1 on a one-card machine), each
+               rank on its card, against two single-process runs on the
+               same global batches: step 0's loss terms and gradients
+               within SPREAD_FACTOR of the two runs' difference (bf16 at
+               world 1, where the forward is the single process's; fp32
+               above), the launches of the fit. Then a ReplicaPool of two
+               full-render InferenceServers (cuda:0 and cuda:1, or both on
+               cuda:0) serves 24 requests of 8 samples back to back, each
+               result byte for byte the single server's, against one
+               replica alone (frames/s of each); the pool launches the
+               lift and the rays once a request. Then the pool behind
+               `serve_tcp`: 8 requests through `TcpClient`, byte for byte
+               equal to `infer`'s, and the median ms a request over TCP
+               and direct.
+ 10. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
                layouts and dma sub-commands and its scale sub-command on
                the ray stage's 1,387,029-row tables of 256 and 176 bf16
                (depths 1, 8 and 32, issued 1 and 4 at a time, random and
@@ -148,10 +165,12 @@ one-hot product's multiply-adds at the tensor cores' peak, and
 Each model kernel's entry also gives its launches in each call of the eval
 phase (`eval_launches`), of the data phase (`data_launches`) and of the
 variants phase (`variant_launches`; the depth-less lift's entries give the
-bilinear variant's); the object also holds the eval calls' ms a row,
+bilinear variant's) and of the multi-device phase (`multi_launches`: rank
+0's fit, the pool's requests); the object also holds the eval calls' ms a row,
 validate's peak memory, the data phase's numbers (`data`) and the variants
 phase's request, step and validate times and peak memory (`variants`,
-`sweeps`, `dense`). The last three lines are a JSON object of the
+`sweeps`, `dense`) and the multi-device phase's world, step times, rates
+and TCP overhead (`multi`). The last three lines are a JSON object of the
 kernels run, the card's name and power limit, and `{"ok": true, "device":
 {...}}`.
 """
@@ -276,20 +295,13 @@ def build_phase():
 def counts():
     """The launch counts of the six kernel wrappers, the lift's two in
     each of its modes."""
-    from vampire_tpu_torch.ops import lift, rays, tables
-    return dict(lift=lift.LAUNCHES, corner_table=tables.LAUNCHES,
-                rays=rays.LAUNCHES, lift_bwd=lift.BWD_LAUNCHES,
-                corner_table_bwd=tables.BWD_LAUNCHES,
-                rays_bwd=rays.BWD_LAUNCHES,
-                lift_bilinear=lift.BILINEAR_LAUNCHES,
-                lift_bilinear_bwd=lift.BILINEAR_BWD_LAUNCHES)
+    from vampire_tpu_torch.ops import launch_counts
+    return launch_counts()
 
 
 def reset_counts():
-    from vampire_tpu_torch.ops import lift, rays, tables
-    lift.LAUNCHES = tables.LAUNCHES = rays.LAUNCHES = 0
-    lift.BWD_LAUNCHES = tables.BWD_LAUNCHES = rays.BWD_LAUNCHES = 0
-    lift.BILINEAR_LAUNCHES = lift.BILINEAR_BWD_LAUNCHES = 0
+    from vampire_tpu_torch.ops import reset_launch_counts
+    reset_launch_counts()
 
 
 def lift_keys(cfg):
@@ -2315,6 +2327,290 @@ def probe_entry(recs, launched, name, sub, also=None, **match):
 
 
 # the TPU kernels each probe kernel replaces (scripts/, file:line)
+# the multi-device phase: fit steps a rank, distinct samples served and
+# requests through the pool (the samples in turn), requests over TCP
+N_DIST_STEPS = 3
+N_POOL_SAMPLES = 8
+N_POOL_REQUESTS = 24
+N_TCP_REQUESTS = 8
+# The distributed step against the single process on the same global batch.
+# Step 0's loss terms are the forward's: they may differ by at most
+# SPREAD_FACTOR times what two runs of the single-process step differ by.
+# A world of one computes the same forward as one process (BatchNorm takes
+# its own statistics; every collective is exact), so that is its whole
+# allowance (0 measured on an H100). The gradients (and grad_norm)
+# go through the backward kernels' fp32 atomics, whose order varies from
+# run to run, and bf16 carries that through the network: they are held as
+# the train phase holds two such runs, within TRAIN_BWD_RTOL per tensor,
+# with the two single-process runs' spread printed beside (measured on an
+# H100: max 2.6e-2 against a spread of 2.6e-2, medians 8.4e-4 and
+# 3.9e-5). In a larger world the BN and loss sums run
+# in another order, which bf16 would turn into gradient differences of
+# tens of percent (TRAIN_BWD_RTOL's note): there the comparison runs in fp32,
+# within TRAIN_GRAD_RTOL, and 1e-5 of each loss term.
+SPREAD_FACTOR = 2.0
+
+
+def multi_phase(card, cfg=None, dev='cuda', world=None):
+    """The multi-device paths: (1) `Trainer.fit` over N_DIST_STEPS global
+    batches of B=1 a rank in a world of min(cards, 2) ranks spawned over
+    NCCL (`parallel/distributed.spawn`, `parallel/runs.trainer_run`), held
+    to two single-process runs on the same batches; (2) a ReplicaPool of
+    two InferenceServers (full-render graph, cuda:0 and cuda:1, or both on
+    cuda:0) against one of them alone, result for result; (3) the pool
+    over TCP, byte for byte. Returns the launch counts, times and rates."""
+    import gc
+    import pickle
+    import numpy as np
+    import torch
+    from vampire_tpu_torch.configs import flagship_config, synthetic_batch
+    from vampire_tpu_torch.parallel.distributed import spawn
+    from vampire_tpu_torch.parallel.runs import trainer_run
+    from vampire_tpu_torch.serving import (InferenceServer, ReplicaPool,
+                                           TcpClient, serve_tcp)
+
+    cfg = cfg or flagship_config()
+    cuda = dev == 'cuda'
+    if world is None:
+        world = min(torch.cuda.device_count(), 2)
+    if cuda and not torch.distributed.is_nccl_available():
+        raise AssertionError('multi: this torch build has no NCCL')
+    dtype = cfg.train.compute_dtype if world == 1 else 'float32'
+    say(f'multi: world {world} ({"NCCL" if cuda else "gloo"}), '
+        f'{dtype} step, B=1 a rank, {N_DIST_STEPS} steps')
+
+    # the same global batch, learning rate and detection floors
+    def sized(bs, nd):
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, max_epochs=1, compute_dtype=dtype,
+            batch_size_per_device=bs, num_devices=nd))
+    t0 = time.perf_counter()
+    rows = [synthetic_batch(cfg, batch_size=1, n_points=cfg.train.max_points,
+                            seed=40 + i, mode='train')
+            for i in range(world * N_DIST_STEPS)]
+    by_rank = [[rows[i * world + r] for i in range(N_DIST_STEPS)]
+               for r in range(world)]
+    glob = [{k: np.concatenate([rows[i * world + r][k]
+                                for r in range(world)]) for k in rows[0]}
+            for i in range(N_DIST_STEPS)]
+    with tempfile.TemporaryDirectory() as wd:
+        single = [trainer_run(sized(world, 1), [glob],
+                              os.path.join(wd, f'single{i}'), device=dev,
+                              n_timed=N_TIMED_STEPS if i == 0 else 0,
+                              num_devices=world)
+                  for i in range(2)]
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = spawn(trainer_run, world,
+                      (sized(1, world), by_rank, os.path.join(wd, 'dist'),
+                       None, None, False, False, N_TIMED_STEPS),
+                      device=dev, timeout_s=300)
+        spawn_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    say(f'multi: ranks {[r["rank"] for r in ranks]} of '
+        f'{[r["world"] for r in ranks]}, backend {r0["backend"]}, spawned '
+        f'and run in {spawn_s:.1f} s (two single-process runs before: '
+        f'{t1 - t0:.1f} s)')
+    if [r['world'] for r in ranks] != [world] * world or \
+            r0['backend'] != ('nccl' if cuda else 'gloo'):
+        raise AssertionError(f'multi: ranks ran in worlds '
+                             f'{[r["world"] for r in ranks]} over '
+                             f'{r0["backend"]}')
+
+    # step 0 against the single process, within the run-to-run spread
+    s1, s2 = single[0]['logs'][0], single[1]['logs'][0]
+    for r in ranks:
+        if r['logs'][0] != r0['logs'][0]:
+            raise AssertionError(f'multi: rank {r["rank"]} logged '
+                                 f'{r["logs"][0]}, rank 0 {r0["logs"][0]}')
+    floor = 0.0 if world == 1 else 1e-5
+    rtol = TRAIN_BWD_RTOL if world == 1 else TRAIN_GRAD_RTOL
+    for k, ref in s1.items():
+        err, spread = abs(r0['logs'][0][k] - ref), abs(s2[k] - ref)
+        tol = (rtol * abs(ref) if k == 'grad_norm'
+               else SPREAD_FACTOR * spread + floor * abs(ref))
+        if not err <= tol:
+            raise AssertionError(f'multi: step 0 {k} {r0["logs"][0][k]} vs '
+                                 f'{ref} (run to run {spread})')
+    say(f'multi: step 0 total_loss {r0["logs"][0]["total_loss"]:.6f} vs '
+        f'{s1["total_loss"]:.6f} (run to run '
+        f'{abs(s2["total_loss"] - s1["total_loss"]):.3e}), grad_norm '
+        f'{r0["logs"][0]["grad_norm"]:.4f} vs {s1["grad_norm"]:.4f} (run to '
+        f'run {abs(s2["grad_norm"] - s1["grad_norm"]):.4f})')
+    want, again, got = (r['grads'] for r in (single[0], single[1], r0))
+    if set(got) != set(want):
+        raise AssertionError(f'multi: gradients of {set(got) ^ set(want)} '
+                             f'on one side only')
+    rel, spread = {}, {}
+    for n, g in want.items():
+        ref = float(np.linalg.norm(g))
+        if ref == 0.0:
+            if np.any(got[n]):
+                raise AssertionError(f'multi: {n} has a gradient on one '
+                                     f'side only')
+            continue
+        rel[n] = float(np.linalg.norm(got[n] - g)) / ref
+        spread[n] = float(np.linalg.norm(again[n] - g)) / ref
+    worst = max(rel, key=rel.get)
+    grad = dict(median=statistics.median(rel.values()), max=rel[worst],
+                spread_median=statistics.median(spread.values()),
+                spread_max=max(spread.values()))
+    say(f'multi: step 0 gradients, world {world} vs one process ({dtype}), '
+        f'|d|/|g| per tensor over {len(rel)} tensors: median '
+        f'{grad["median"]:.3e}, max {rel[worst]:.3e} ({worst}); one process '
+        f'run twice: median {grad["spread_median"]:.3e}, max '
+        f'{grad["spread_max"]:.3e}; tol {rtol} [{card}]')
+    if not rel[worst] <= rtol:
+        raise AssertionError(f'multi: step 0 gradients differ: {worst} '
+                             f'{rel[worst]} > {rtol}')
+    lk = lift_keys(cfg)
+    fit_want = {k: (N_DIST_STEPS if k in lk + ('rays', 'rays_bwd') else 0)
+                for k in r0['launches']}
+    for label, launched in (('distributed', r0['launches']),
+                            ('single', single[0]['launches'])):
+        say(f'multi: {label} fit kernel launches {launched}')
+        if cuda and launched != fit_want:
+            raise AssertionError(f'multi: {label} fit launched {launched}, '
+                                 f'want {fit_want}')
+    for r in [single[0]] + ranks:
+        for rec in r['logs']:
+            if not all(np.isfinite(v) for v in rec.values()):
+                raise AssertionError(f'multi: non-finite log {rec}')
+    times = ', '.join(f'{t:.1f}' for t in r0['step_times'])
+    say(f'multi step ({dtype}, B=1 a rank): distributed median '
+        f'{r0["step_ms"]:.2f} ms ({times}), single process '
+        f'{single[0]["step_ms"]:.2f} ms, peak {r0["peak_gb"] or 0:.3f} / '
+        f'{single[0]["peak_gb"] or 0:.3f} GB [{card}]')
+    out = dict(world=world, backend=r0['backend'], dtype=dtype,
+               fit_launches=r0['launches'], dist_step_ms=r0['step_ms'],
+               single_step_ms=single[0]['step_ms'],
+               dist_peak_gb=r0['peak_gb'],
+               single_peak_gb=single[0]['peak_gb'],
+               grad_rel_median=grad['median'], grad_rel_max=grad['max'],
+               grad_spread_median=grad['spread_median'],
+               grad_spread_max=grad['spread_max'])
+    del single, ranks, r0, rows, by_rank, glob, want, again, got
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # the pool: two replicas against one, the full-render graph
+    keys = ('imgs', 'sensor2ego', 'intrin', 'ida', 'bda', 'points')
+    frames = [{k: np.asarray(b[k])[0] for k in keys} for b in (
+        synthetic_batch(cfg, batch_size=1, n_points=cfg.train.max_points,
+                        seed=60 + i, mode='val')
+        for i in range(N_POOL_SAMPLES + 1))]
+    samples, calib = frames[:-1], frames[-1]
+    devs = ([f'cuda:{i % world}' for i in range(2)] if cuda
+            else ['cpu', 'cpu'])
+    bf16 = torch.bfloat16
+    a = InferenceServer(cfg, devs[0], dtype=bf16, outputs=None, seed=0)
+    calibrate_batchnorm_(a.model, a.to_device({k: v[None]
+                                               for k, v in calib.items()}),
+                         a.camera_renders)
+    b = InferenceServer(cfg, devs[1], state_dict=a.model.state_dict(),
+                        dtype=bf16, outputs=None)
+    a.start().warmup()
+    b.start().warmup()
+    srv = cl = None
+    try:
+        order = [i % N_POOL_SAMPLES for i in range(N_POOL_REQUESTS)]
+
+        def back_to_back(target):
+            if cuda:
+                torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            futs = [target.submit(samples[i]) for i in order]
+            res = [f.result(timeout=300) for f in futs]
+            return res, N_POOL_REQUESTS / (time.perf_counter() - h0)
+        alone, fps1 = back_to_back(a)
+        want = alone[:N_POOL_SAMPLES]
+        pool = ReplicaPool([a, b])
+        before = a.stats['requests'], b.stats['requests']
+        reset_counts()
+        outs, fps2 = back_to_back(pool)
+        launched = counts()
+        served = (a.stats['requests'] - before[0],
+                  b.stats['requests'] - before[1])
+        bc = cfg.backbone
+        gx, gy, gz = bc.occ_grid
+        _, Yd, Xd = bc.grid_zyx('det')
+        N, (H, W) = samples[0]['imgs'].shape[0], bc.final_dim
+        check_outputs('multi pool', want, dict(
+            occ_logits=(gx, gy, gz, bc.num_classes),
+            occ_density=(gx, gy, gz),
+            pts_logits=(cfg.train.max_points, bc.num_classes),
+            depth_preds=(N, H, W), seg_preds=(N, H, W), bev_seg=(Yd, Xd)),
+            cfg)
+        for j, o in enumerate(outs):
+            ref = want[order[j]]
+            if pickle.dumps(o) != pickle.dumps(ref):
+                diff = {k: float(np.abs(o[k].astype(np.float64)
+                                        - ref[k]).max())
+                        for k in ref if k != 'det'}
+                raise AssertionError(f'multi pool request {j}: not the '
+                                     f'single server\'s result ({diff})')
+        pool_want = {k: (N_POOL_REQUESTS if k in (lk[0], 'rays') else 0)
+                     for k in launched}
+        say(f'multi pool: {N_POOL_REQUESTS} requests over {devs}, served '
+            f'{served}, each equal to the single server\'s; kernel '
+            f'launches {launched}; {fps1:.2f} frames/s with 1 replica, '
+            f'{fps2:.2f} with 2, back to back [{card}]')
+        if cuda and launched != pool_want:
+            raise AssertionError(f'multi pool: launched {launched}, want '
+                                 f'{pool_want}')
+        if min(served) == 0 or sum(served) != N_POOL_REQUESTS:
+            raise AssertionError(f'multi pool: replicas served {served}')
+
+        # TCP: the same samples through the pool, byte for byte
+        srv = serve_tcp(pool)
+        cl = TcpClient(*srv.server_address)
+        direct, tcp = [], []
+        for j in range(N_TCP_REQUESTS):
+            s = samples[j % N_POOL_SAMPLES]
+            h0 = time.perf_counter()
+            pool.infer(s)
+            h1 = time.perf_counter()
+            o = cl.infer(s)
+            h2 = time.perf_counter()
+            direct.append((h1 - h0) * 1e3)
+            tcp.append((h2 - h1) * 1e3)
+            if pickle.dumps(o) != pickle.dumps(want[j % N_POOL_SAMPLES]):
+                raise AssertionError(f'multi tcp request {j}: not byte for '
+                                     f'byte the result of infer')
+        overhead = statistics.median(tcp) - statistics.median(direct)
+        say(f'multi tcp: {N_TCP_REQUESTS} requests byte for byte equal to '
+            f'infer; median {statistics.median(tcp):.2f} ms over TCP, '
+            f'{statistics.median(direct):.2f} direct: {overhead:.2f} ms a '
+            f'request (host clock) [{card}]')
+    finally:
+        if cl is not None:
+            cl.close()
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        a.stop()
+        b.stop()
+    out.update(pool_launches=launched, pool_devices=devs,
+               fps_1_replica=fps1, fps_2_replicas=fps2,
+               tcp_ms=statistics.median(tcp),
+               direct_ms=statistics.median(direct),
+               tcp_overhead_ms=overhead, wall_s=time.perf_counter() - t0)
+    del a, b, pool
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def multi_launches(multi, kernel):
+    """A kernel's launches in the multi-device phase: rank 0's fit and the
+    pool's requests."""
+    return dict(fit=multi['fit_launches'][kernel],
+                pool=multi['pool_launches'][kernel])
+
+
 REPLACES = dict(
     row_gather='scripts/perf_vmem_gather.py:123, '
                'scripts/perf_r3_gather_layouts.py:74, '
@@ -2373,6 +2669,7 @@ def main():
     ev = eval_phase(card)
     data = data_phase(card, train['step_ms'])
     var = variants_phase(card)
+    multi = multi_phase(card)
     probes, pl = probe_phase(card)
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                     ('jax', 'jaxlib', 'flax', 'optax', 'vampire_tpu'))
@@ -2398,6 +2695,7 @@ def main():
         'eval_launches': eval_launches(ev, 'lift'),
         'data_launches': data_launches(data, 'lift'),
         'variant_launches': variant_launches(var, 'lift'),
+        'multi_launches': multi_launches(multi, 'lift'),
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -2440,6 +2738,7 @@ def main():
         'eval_launches': eval_launches(ev, 'rays'),
         'data_launches': data_launches(data, 'rays'),
         'variant_launches': variant_launches(var, 'rays'),
+        'multi_launches': multi_launches(multi, 'rays'),
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
@@ -2460,6 +2759,7 @@ def main():
         'eval_launches': eval_launches(ev, 'lift_bwd'),
         'data_launches': data_launches(data, 'lift_bwd'),
         'variant_launches': variant_launches(var, 'lift_bwd'),
+        'multi_launches': multi_launches(multi, 'lift_bwd'),
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
@@ -2533,6 +2833,7 @@ def main():
         'eval_launches': eval_launches(ev, 'rays_bwd'),
         'data_launches': data_launches(data, 'rays_bwd'),
         'variant_launches': variant_launches(var, 'rays_bwd'),
+        'multi_launches': multi_launches(multi, 'rays_bwd'),
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
         'plain_ms': k['rays_bwd']['plain_ms'],
@@ -2572,7 +2873,13 @@ def main():
         'sweeps': {k: var['sweeps'][k] for k in (
             'step_ms', 'peak_gb', 'request_ms')},
         'dense': {k: var['dense'][k] for k in (
-            'request_ms', 'max_abs_err', 'dropped')}}),
+            'request_ms', 'max_abs_err', 'dropped')},
+        'multi': {k: multi[k] for k in (
+            'world', 'backend', 'dtype', 'dist_step_ms', 'single_step_ms',
+            'dist_peak_gb', 'single_peak_gb', 'grad_rel_median',
+            'grad_rel_max', 'grad_spread_median', 'grad_spread_max',
+            'fps_1_replica', 'fps_2_replicas', 'tcp_ms', 'direct_ms',
+            'tcp_overhead_ms', 'wall_s')}}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,8 +1,8 @@
 """The port's CLI (`vampire_tpu_torch/cli.py`) against the JAX package's:
 the argument parser (the same namespace for the same argv, but for the
 port's `--device`), the `ablation_config` presets, the flags of the
-ROADMAP.md items (the items still open raise and name themselves; item 6's
-run), and `--debug` end to end on a fake nuScenes tree at `tiny_config`
+ROADMAP.md items (the items still open raise and name themselves; those
+of items 5 and 6 run), and `--debug` end to end on a fake nuScenes tree at `tiny_config`
 on the CPU: fit for one epoch, then `-v`, `-t` (the in-repo NDS/mAP), `-p`
 (the lidarseg bins) and `-t --vis` (the pickles)."""
 import dataclasses
@@ -82,8 +82,11 @@ def tree(tmp_path_factory):
 ])
 def test_flags_of_unported_code_raise(tree, tmp_path, argv, item):
     """The flags of the ROADMAP.md items. Those of the open items raise
-    NotImplementedError naming the item: the device count at once, the
-    pretrained backbone at init. Item 6's are ported and run to their end:
+    NotImplementedError naming the item: the pretrained backbone at init.
+    Item 5's is ported: `--debug --device cpu --num-devices 2` starts two
+    gloo ranks, which fit one epoch (one global batch of the 2 samples)
+    with a checkpoint and the losses from rank 0 alone, then validate to
+    their end. Item 6's are ported and run to their end:
     --sweep-idxes fits for one epoch on 12-view batches, and -v restores a
     checkpoint of the same tree first, then validates on them; an --exp
     of the bilinear, lss and vampire2 experiments resolves its config
@@ -93,6 +96,16 @@ def test_flags_of_unported_code_raise(tree, tmp_path, argv, item):
     common = ['--device', 'cpu', '-b', '1', '--max-epochs', '1',
               '--data-root', str(tree), '--workdir', str(tmp_path),
               '--num-workers', '1']
+    if item == 'item 5':
+        cli.main(common + ['--debug', '--no-resume'] + argv)
+        exp = tmp_path / tiny_config().train.exp_name
+        rows = [json.loads(ln) for ln in
+                (exp / 'scalars.jsonl').read_text().splitlines()]
+        losses = [r['total_loss'] for r in rows if 'total_loss' in r]
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        assert [p.name for p in (exp / 'checkpoints').iterdir()] == ['0.pt']
+        cli.main(common + ['--debug', '-v'] + argv)
+        return
     if item != 'item 6':
         with pytest.raises(NotImplementedError, match=item):
             cli.main(common + argv)

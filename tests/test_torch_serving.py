@@ -1,11 +1,15 @@
 """The port's InferenceServer on the CPU at tiny_config: micro-batching,
-padding, output selection and host NMS."""
+padding, output selection and host NMS; the ReplicaPool and the TCP
+front-end, as tests/test_serving.py holds the JAX server's."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
 
 from vampire_tpu.data.synthetic import synthetic_batch, tiny_config
-from vampire_tpu_torch.serving import InferenceServer
+from vampire_tpu_torch.serving import (InferenceServer, ReplicaPool,
+                                       TcpClient, serve_tcp)
 
 
 @pytest.fixture(scope='module')
@@ -174,3 +178,86 @@ def test_same_weights_same_outputs_across_servers(server):
         np.testing.assert_array_equal(da['scores'], db['scores'])
     assert torch.equal(server.model.backbone.density_conv.bias,
                        srv.model.backbone.density_conv.bias)
+
+
+def test_with_det_and_the_default_device(server):
+    """`device` defaults to 'cuda' (positional order unchanged);
+    with_det=False serves no boxes, and an explicit `outputs` decides
+    instead of it, as in the JAX server."""
+    params = inspect.signature(InferenceServer).parameters
+    assert list(params)[:2] == ['cfg', 'device']
+    assert params['device'].default == 'cuda'
+    cfg = server.cfg
+    batch = {k: v[None] for k, v in _sample(cfg, 9).items()}
+    sd = server.model.state_dict()
+    for kw, det in ((dict(with_det=False), False),
+                    (dict(with_det=False, outputs=('occ', 'det')), True),
+                    (dict(with_det=True, outputs=('occ',)), False)):
+        srv = InferenceServer(cfg, 'cpu', sd, **kw)
+        assert srv.with_det == det
+        assert ('det' in srv.forward(batch)) == det, kw
+    got = InferenceServer(cfg, 'cpu', sd, with_det=False).forward(batch)
+    want = server.forward(batch)
+    for k in ('occ_logits', 'occ_density', 'pts_logits'):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_replica_pool_distributes(server):
+    """ReplicaPool spreads requests over its replicas and returns the single
+    server's results: replica 2 holds the first server's weights. Rows of a
+    micro-batch differ from a padded single row by fp32 reassociation in
+    the batched convs: 1e-5, as test_single_and_batched_requests_match."""
+    cfg = server.cfg
+    srv2 = InferenceServer(cfg, 'cpu', server.model.state_dict(),
+                           max_batch=2, max_wait_ms=20,
+                           outputs='metrics').start()
+    try:
+        pool = ReplicaPool([server, srv2])
+        want = server.infer(_sample(cfg, 5))
+        before = server.stats['requests'], srv2.stats['requests']
+        futs = [pool.submit(_sample(cfg, 5)) for _ in range(6)]
+        outs = [f.result(timeout=300) for f in futs]
+        for o in outs:
+            for k in ('occ_logits', 'pts_logits'):
+                np.testing.assert_allclose(o[k], want[k], rtol=1e-5,
+                                           atol=1e-5, err_msg=k)
+            np.testing.assert_allclose(o['det'][0], want['det'][0],
+                                       rtol=1e-5, atol=1e-5)
+        assert server.stats['requests'] > before[0]
+        assert srv2.stats['requests'] > before[1], 'replica 2 got no work'
+        assert pool.stats['requests'] == (server.stats['requests']
+                                          + srv2.stats['requests'])
+    finally:
+        srv2.stop()
+    with pytest.raises(ValueError):
+        ReplicaPool([])
+
+
+def test_tcp_roundtrip(server):
+    """A request over TCP returns what `infer` returns for the same sample,
+    array for array and byte for byte; a bad request comes back as the
+    server's error and the connection serves on."""
+    import pickle
+    cfg = server.cfg
+    srv = serve_tcp(server)
+    try:
+        host, port = srv.server_address
+        cl = TcpClient(host, port)
+        s = _sample(cfg, 3)
+        got, want = cl.infer(s), server.infer(s)
+        assert set(got) == set(want)
+        for k in want:
+            if k == 'det':
+                for a, b in zip(got[k], want[k]):
+                    np.testing.assert_array_equal(a, b)
+            else:
+                assert got[k].dtype == want[k].dtype
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert pickle.dumps(got) == pickle.dumps(want)
+        with pytest.raises(RuntimeError, match='intrin'):
+            cl.infer({k: v for k, v in s.items() if k != 'intrin'})
+        assert np.isfinite(cl.infer(s)['pts_logits']).all()
+        cl.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()

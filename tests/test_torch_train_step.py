@@ -17,8 +17,11 @@ downstream of the renders.
 Compared: every `logs` entry, every parameter's gradient (the JAX gradient
 read off AdamW's first moment, mu = (1 - b1) * g after one step, passed
 through `from_flax`), the parameters and the EMA after the step, the new BN
-statistics and both confusion matrices. The JAX side is compiled once, in a
-module fixture.
+statistics and both confusion matrices. The JAX side is compiled once per
+batch shape, in a module fixture: B = 1 (`steps`), and B = 2 (`steps_b2`)
+on the two rows that `tests/test_torch_parallel.py` splits over two ranks,
+so that the two-rank step is held to the JAX step through the one-process
+step at B = 2.
 """
 import dataclasses
 import tempfile
@@ -99,11 +102,33 @@ def _adam_mu(opt_state):
     raise AssertionError('no Adam state')
 
 
+def _two_rows(cfg):
+    """[a, b] of tests/test_torch_parallel.py: synthetic seeds 1 and 2, row
+    b without 20 of its valid points and 10 of its camera-mask voxels."""
+    rows = [synthetic_batch(cfg, batch_size=1, n_points=128, seed=s,
+                            mode='train') for s in (1, 2)]
+    for k, n in (('point_valid', 20), ('mask_camera', 10)):
+        m = np.array(rows[1][k]).reshape(-1)
+        m[np.flatnonzero(m)[:n]] = False
+        rows[1][k] = m.reshape(np.shape(rows[1][k]))
+    return {k: np.concatenate([np.asarray(r[k]) for r in rows])
+            for k in rows[0]}
+
+
 @pytest.fixture(scope='module')
 def steps():
     cfg = _cfg()
-    batch = synthetic_batch(cfg, batch_size=1, n_points=128, seed=0,
-                            mode='train')
+    return _steps(cfg, synthetic_batch(cfg, batch_size=1, n_points=128,
+                                       seed=0, mode='train'))
+
+
+@pytest.fixture(scope='module')
+def steps_b2():
+    cfg = _cfg()
+    return _steps(cfg, _two_rows(cfg))
+
+
+def _steps(cfg, batch):
     jm = _JaxVampireF32Table(cfg.backbone, cfg.head, dtype=jnp.float32)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     mats = {k: jb[k] for k in ('sensor2ego', 'intrin', 'ida', 'bda')}
@@ -147,6 +172,10 @@ def _params(tm):
 
 def test_logs_match_jax(steps):
     """Every loss term, the total and the pre-clip grad_norm."""
+    _check_logs(steps)
+
+
+def _check_logs(steps):
     tlogs, jlogs = steps['tlogs'], steps['jlogs']
     assert set(tlogs) == set(jlogs)
     for k in jlogs:
@@ -158,6 +187,10 @@ def test_logs_match_jax(steps):
 def test_gradients_match_jax(steps):
     """Every trainable parameter's (clipped) gradient, within GRAD_RTOL of
     its largest element; the frozen stem gets none on either side."""
+    _check_gradients(steps)
+
+
+def _check_gradients(steps):
     n = 0
     for name, p in _params(steps['tm']).items():
         want = steps['jgrads'][name].numpy()
@@ -188,6 +221,10 @@ def test_params_and_ema_after_the_step_match_jax(steps):
     """AdamW's first step moves each element by ~lr * sign(g) (plus the
     decay), so elements whose gradient is near 0 can move differently;
     the absolute tolerance is 2 lr beyond the forward's 1e-4 relative."""
+    _check_params(steps)
+
+
+def _check_params(steps):
     lr = steps['cfg'].train.lr
     for name, p in _params(steps['tm']).items():
         for got, want in ((p.detach(), steps['jparams'][name]),
@@ -207,6 +244,10 @@ def test_params_and_ema_after_the_step_match_jax(steps):
 def test_batchnorm_statistics_after_the_step_match_jax(steps):
     """The running statistics after one train-mode forward: flax momentum
     0.9 (image backbone, head) and 0.99 (SECONDFPN), biased variance."""
+    _check_batchnorm(steps)
+
+
+def _check_batchnorm(steps):
     sd = steps['tm'].state_dict()
     n = 0
     for k, v in sd.items():
@@ -218,9 +259,23 @@ def test_batchnorm_statistics_after_the_step_match_jax(steps):
 
 
 def test_confusion_matrices_match_jax(steps):
+    _check_confusions(steps)
+
+
+def _check_confusions(steps):
     for got, want in zip(steps['tconf'], steps['jconf']):
         assert got.sum().item() > 0
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('check', [
+    _check_logs, _check_gradients, _check_params, _check_batchnorm,
+    _check_confusions], ids=lambda f: f.__name__[len('_check_'):])
+def test_batch_of_two_matches_jax(steps_b2, check):
+    """The one-process step at B = 2 on the rows of the two-rank test,
+    against the JAX step on the same batch, with the same checks and
+    tolerances as at B = 1."""
+    check(steps_b2)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..configs import HeadConfig
+from ..parallel.distributed import all_reduce_sum
 from .resnet import Conv2d, ConvBN, ResNet
 from .second_fpn import SECONDFPN
 
@@ -112,18 +113,24 @@ def detection_loss(preds: List[Dict[str, torch.Tensor]],
     mask_{t} (B, max_objs). As in the JAX package, the focal loss divides by
     max(num_pos, num_devices) and the box loss by max(num_boxes,
     1e-4 * num_devices): the reference's reduce_mean floors written as one
-    global loss.
+    global loss. Under a process group num_pos and num_boxes are the global
+    batch's (one all-reduce) and each rank returns its share: its rows'
+    sums over the global normalisers.
     """
     total = torch.zeros((), dtype=torch.float32,
                         device=preds[0]['heatmap'].device)
     code_w = torch.tensor(cfg.code_weights, dtype=torch.float32,
                           device=total.device)
+    T = len(preds)
+    hm_gts = [targets[f'heatmap_{t}'].to(torch.float32) for t in range(T)]
+    masks = [targets[f'mask_{t}'].to(torch.float32) for t in range(T)]
+    counts = all_reduce_sum(torch.stack(
+        [torch.sum((g == 1.0).to(torch.float32)) for g in hm_gts]
+        + [torch.sum(m) for m in masks]))
     for t, pd in enumerate(preds):
         hm_pred = clip_sigmoid(pd['heatmap'])
-        hm_gt = targets[f'heatmap_{t}'].to(torch.float32)
-        num_pos = torch.sum((hm_gt == 1.0).to(torch.float32))
-        cls_avg = torch.clamp(num_pos, min=float(num_devices))
-        total = total + gaussian_focal_loss(hm_pred, hm_gt) / cls_avg
+        cls_avg = torch.clamp(counts[t], min=float(num_devices))
+        total = total + gaussian_focal_loss(hm_pred, hm_gts[t]) / cls_avg
 
         anno = torch.cat([pd['reg'], pd['height'], pd['dim'], pd['rot'],
                           pd['vel']], dim=-1)
@@ -132,11 +139,10 @@ def detection_loss(preds: List[Dict[str, torch.Tensor]],
         pred_box = torch.gather(anno.reshape(B, H * W, C), 1,
                                 ind[..., None].expand(-1, -1, C))
         tgt_box = targets[f'anno_box_{t}'].to(torch.float32)
-        mask = targets[f'mask_{t}'].to(torch.float32)
-        w = (mask[..., None] * torch.isfinite(tgt_box).to(torch.float32)
+        w = (masks[t][..., None] * torch.isfinite(tgt_box).to(torch.float32)
              * code_w)
         tgt_box = torch.nan_to_num(tgt_box)
-        num = torch.clamp(torch.sum(mask), min=1e-4 * float(num_devices))
+        num = torch.clamp(counts[T + t], min=1e-4 * float(num_devices))
         l1 = torch.sum(torch.abs(pred_box - tgt_box) * w) / num
         total = total + cfg.loss_bbox_weight * l1
     return total

@@ -9,7 +9,9 @@ Precision mirrors the JAX modules: parameters are fp32, each convolution
 runs in the module's compute `dtype` (weights cast per call), BatchNorm runs
 in fp32, and the result is cast back to `dtype`. In train mode BatchNorm
 normalises with the batch statistics and updates its running ones as flax
-does (`BatchNorm2d`).
+does (`BatchNorm2d`); under a process group those statistics are the
+global batch's, as the JAX package's step, written over the global batch,
+takes them.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.distributed import all_reduce_sum, world_size
 
 
 class Conv2d(nn.Conv2d):
@@ -38,12 +42,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train mode follows flax `nn.BatchNorm`: the
     running variance is updated with the biased batch variance (torch uses
     the unbiased one), running = (1 - momentum) * running + momentum *
-    batch, with torch's `momentum` = 1 - flax's. Eval mode is torch's."""
+    batch, with torch's `momentum` = 1 - flax's. Eval mode is torch's.
+
+    In a world of more than one rank the train-mode statistics are those of
+    every rank's rows together (`global_var_mean`), and every rank applies
+    the same running update; a world of one computes them as one process
+    does, so that it steps exactly as one process."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        if world_size() > 1:
+            var, mean = global_var_mean(x)
+        else:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
@@ -52,6 +64,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight       # as flax
         return ((x - mean[None, :, None, None]) * mul[None, :, None, None]
                 + self.bias[None, :, None, None])
+
+
+def global_var_mean(x: torch.Tensor):
+    """(biased variance, mean) per channel of (B, C, H, W) rows over every
+    rank, as one process computes them over the concatenated rows: two
+    differentiable all-reduces, the sums and the counts first, then the
+    centred second moments (not E[x^2] - mean^2, which cancels in fp32)."""
+    n = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype,
+                   device=x.device)
+    s = all_reduce_sum(torch.cat([torch.sum(x, dim=(0, 2, 3)), n]))
+    count = s[-1].detach()
+    mean = s[:-1] / count
+    d = x - mean[None, :, None, None]
+    var = all_reduce_sum(torch.sum(d * d, dim=(0, 2, 3))) / count
+    return var, mean
 
 
 class ConvBN(nn.Module):

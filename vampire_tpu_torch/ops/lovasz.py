@@ -10,6 +10,14 @@ detached, as in the JAX `custom_vjp` (and the reference's
 routed back through the sort. `ce_lovasz_compact` filters the valid rows
 with boolean indexing first and returns exactly `ce_lovasz`'s value.
 
+Under a process group both losses are taken over the global batch, as the
+JAX step takes them: every rank's rows are gathered in rank order
+(`parallel.distributed.all_gather_rows`), so the sorts see the global set
+of errors, and each rank returns its share, the loss over the world size.
+The gather's backward sums each rank's gradient of the gathered rows over
+the ranks, so the shares' gradients, summed over the ranks, are the
+one-process gradient on the concatenated batch.
+
 Plain PyTorch: no kernel of the JAX package lives here.
 """
 from __future__ import annotations
@@ -18,6 +26,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.distributed import active, all_gather_rows, world_size
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -69,13 +79,22 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll * vf) / torch.clamp(torch.sum(vf), min=1.0)
 
 
-def ce_lovasz(logits: torch.Tensor, labels: torch.Tensor,
-              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The reference's seg loss pairing: CE + Lovász(softmax probs)."""
+def _ce_lovasz(logits, labels, valid):
     ce = masked_cross_entropy(logits, labels, valid)
     lov = lovasz_softmax(torch.softmax(logits.to(torch.float32), dim=-1),
                          labels, valid)
     return ce + lov
+
+
+def ce_lovasz(logits: torch.Tensor, labels: torch.Tensor,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's seg loss pairing: CE + Lovász(softmax probs); under
+    a process group, this rank's share of it over the gathered rows."""
+    if not active():
+        return _ce_lovasz(logits, labels, valid)
+    valid = None if valid is None else all_gather_rows(valid)
+    return _ce_lovasz(all_gather_rows(logits), all_gather_rows(labels),
+                      valid) / world_size()
 
 
 def ce_lovasz_compact(logits: torch.Tensor, labels: torch.Tensor,
@@ -86,6 +105,9 @@ def ce_lovasz_compact(logits: torch.Tensor, labels: torch.Tensor,
     compiler; boolean indexing needs none (it synchronises with the host
     once for the count)."""
     idx = torch.nonzero(valid.reshape(-1), as_tuple=True)[0]
-    ones = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
-    return ce_lovasz(logits.index_select(0, idx), labels.index_select(0, idx),
-                     ones)        # no valid row: 0, as ce_lovasz gives
+    logits, labels = logits.index_select(0, idx), labels.index_select(0, idx)
+    if active():            # every rank's valid rows, in rank order
+        logits, labels = all_gather_rows(logits), all_gather_rows(labels)
+    ones = torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+    # no valid row: 0, as ce_lovasz gives
+    return _ce_lovasz(logits, labels, ones) / world_size()

@@ -1,0 +1,2 @@
+"""Multi-process runtime: one process a device in a torch.distributed
+process group (NCCL on cards, gloo on the CPU)."""

@@ -1,2 +1,4 @@
-"""In-process micro-batching inference serving."""
-from .server import InferenceServer  # noqa: F401
+"""Inference serving: the micro-batching InferenceServer, a pool of
+replicas and the TCP front-end."""
+from .server import (InferenceServer, ReplicaPool, TcpClient,  # noqa: F401
+                     serve_tcp)

@@ -1,5 +1,5 @@
-"""In-process inference serving on one device: warm model, micro-batched
-queue; the port of `InferenceServer` in `vampire_tpu/serving/server.py`.
+"""Inference serving: warm model, micro-batched queue; the port of
+`vampire_tpu/serving/server.py`.
 
 A dispatcher thread drains a request queue into micro-batches of at most
 `max_batch` frames; partial batches are padded by repeating the last sample
@@ -11,15 +11,27 @@ decoded on the device and circle-NMSed on the host by the C++ library of
 keys: None (the default, the full-render graph) or a selection that holds
 'camera_renders' runs the camera-ray branch; the others run the metrics
 graph (`camera_renders=False`), which skips the camera rays.
-`ReplicaPool` and the TCP front-end are not ported yet (ROADMAP.md).
+
+Front-ends, as in the JAX package:
+  * in-process: `InferenceServer.submit(sample) -> Future` (thread-safe)
+    or the synchronous `infer(sample)`;
+  * `ReplicaPool`: one InferenceServer per card (or several on one),
+    requests sent to the emptiest queue, round robin among equals;
+  * TCP: `serve_tcp(server_or_pool, port)`, length-prefixed pickles,
+    stdlib only; `TcpClient` is the matching client. A pickle can run code
+    when it is loaded: serve only clients you trust, as the JAX server.
 """
 from __future__ import annotations
 
+import pickle
 import queue
+import socket
+import socketserver
+import struct
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,6 +65,9 @@ class InferenceServer:
         cfg.train.compute_dtype.
       max_batch: micro-batch size.
       max_wait_ms: dispatcher linger before running a partial batch.
+      with_det: decode detection boxes ('det'; device decode, host NMS);
+        with `outputs` given, 'det' in outputs decides instead, as in the
+        JAX server.
       outputs: None, a subset of OUTPUT_GROUPS, or 'metrics' = ('occ',
         'lidarseg', 'det'). None returns occ_logits, occ_density, pts_logits,
         depth_preds, seg_preds (argmax), bev_seg (argmax) and det; an explicit
@@ -64,9 +79,9 @@ class InferenceServer:
     OUTPUT_GROUPS = ('occ', 'lidarseg', 'det', 'camera_renders',
                      'bev_renders')
 
-    def __init__(self, cfg, device, state_dict=None, dtype=None,
+    def __init__(self, cfg, device='cuda', state_dict=None, dtype=None,
                  max_batch: int = 1, max_wait_ms: float = 5.0,
-                 seed: int = 0, outputs=None):
+                 seed: int = 0, outputs=None, with_det: bool = True):
         if outputs == 'metrics':
             outputs = ('occ', 'lidarseg', 'det')
         if outputs is not None:
@@ -78,7 +93,7 @@ class InferenceServer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.outputs = outputs
-        self.with_det = outputs is None or 'det' in outputs
+        self.with_det = with_det if outputs is None else 'det' in outputs
         self.camera_renders = outputs is None or 'camera_renders' in outputs
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
@@ -249,3 +264,118 @@ def _to_numpy(tree):
     if isinstance(tree, (list, tuple)):
         return [_to_numpy(v) for v in tree]
     return tree
+
+
+class ReplicaPool:
+    """Requests fanned out over several InferenceServer replicas, one per
+    card (the JAX package scales serving by replicas, not by batch). Each
+    request goes to the replica with the emptiest queue, round robin among
+    equals. The pool has the submit/infer surface of one server, so
+    `serve_tcp(ReplicaPool([...]))` works unchanged."""
+
+    def __init__(self, servers: Sequence[InferenceServer]):
+        if not servers:
+            raise ValueError('a ReplicaPool needs at least one replica')
+        self._servers = list(servers)
+        self._rr = 0
+        self._lock = threading.Lock()
+
+    def submit(self, sample: Dict[str, np.ndarray]) -> Future:
+        with self._lock:
+            n = len(self._servers)
+            best = min(range(n), key=lambda i: (self._servers[i]._q.qsize(),
+                                                (i - self._rr) % n))
+            self._rr = (best + 1) % n
+        return self._servers[best].submit(sample)
+
+    def infer(self, sample: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        return self.submit(sample).result()
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for s in self._servers:
+            for k, v in s.stats.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def stop(self):
+        for s in self._servers:
+            s.stop()
+
+
+# ---------------------------------------------------------------------------
+# TCP front-end: length-prefixed pickles (stdlib only)
+# ---------------------------------------------------------------------------
+
+def _send_msg(sock, obj):
+    data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    sock.sendall(struct.pack('>Q', len(data)))
+    sock.sendall(data)
+
+
+def _recv_msg(sock):
+    hdr = _recv_exact(sock, 8)
+    if hdr is None:
+        return None
+    (n,) = struct.unpack('>Q', hdr)
+    data = _recv_exact(sock, n)
+    return None if data is None else pickle.loads(data)
+
+
+def _recv_exact(sock, n):
+    """n bytes from sock, read into one buffer, or None if the peer closes
+    first."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = sock.recv_into(view[got:])
+        if not k:
+            return None
+        got += k
+    return buf
+
+
+def serve_tcp(server, host: str = '127.0.0.1', port: int = 0):
+    """Serve an InferenceServer (or ReplicaPool) over TCP in a background
+    thread; returns the ThreadingTCPServer (`.server_address` is the bound
+    address, `.shutdown()` stops it). Each message is a sample; each reply
+    is {'ok': True, 'result': ...} or {'ok': False, 'error': repr}."""
+
+    class Handler(socketserver.BaseRequestHandler):
+        def handle(self):
+            while True:
+                msg = _recv_msg(self.request)
+                if msg is None:
+                    return
+                try:
+                    out = server.infer(msg)
+                except Exception as e:      # reported to the client
+                    _send_msg(self.request, dict(ok=False, error=repr(e)))
+                else:
+                    _send_msg(self.request, dict(ok=True, result=out))
+
+    srv = socketserver.ThreadingTCPServer((host, port), Handler)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+class TcpClient:
+    """The client of `serve_tcp`: one connection, one request at a time."""
+
+    def __init__(self, host: str, port: int):
+        self._sock = socket.create_connection((host, port))
+
+    def infer(self, sample: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        _send_msg(self._sock, sample)
+        resp = _recv_msg(self._sock)
+        if resp is None:
+            raise ConnectionError('server closed the connection')
+        if not resp['ok']:
+            raise RuntimeError(resp['error'])
+        return resp['result']
+
+    def close(self):
+        self._sock.close()

@@ -9,6 +9,14 @@ Batch layout (channels-last, as the JAX package's data pipeline and
   point_labels, point_valid (B, P); occ_semantics, occ_density_labels,
   mask_camera (B, 200, 200, 16); and the detection targets of
   `ops.target_assign`.
+
+Under a process group each rank holds its block of the global batch and
+returns its share of the global loss (the JAX step's function, written
+over the global batch): masked means divide the local sum by the global
+count, the segmentation terms run over the gathered rows (`ops/lovasz.py`)
+and the detection loss divides by the global normalisers. The shares sum
+over the ranks to the one-process loss on the concatenated batch; the
+`logs` hold the global values, the same on every rank.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch
 from ..configs import HeadConfig
 from ..models.centerpoint_head import detection_loss
 from ..ops.lovasz import ce_lovasz, ce_lovasz_compact
+from ..parallel.distributed import active, all_reduce_sum
 
 # ImageNet statistics of the normalized images, RGB, in [0, 1] units
 _RGB_MEAN = (0.485, 0.456, 0.406)
@@ -32,8 +41,11 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean of x over the mask; under a process group, this rank's
+    share of the global batch's: the local sum over the global count."""
     mf = mask.to(torch.float32)
-    return torch.sum(x * mf) / torch.clamp(torch.sum(mf), min=1.0)
+    return torch.sum(x * mf) / torch.clamp(all_reduce_sum(torch.sum(mf)),
+                                           min=1.0)
 
 
 def denormalize_images(imgs: torch.Tensor) -> torch.Tensor:
@@ -49,8 +61,9 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
                    head_cfg: HeadConfig, sdf_bias: float,
                    density_mode: str = 'sdf', num_devices: int = 1
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total weighted loss and the per-term scalars, every term and log key
-    of the JAX `compute_losses`.
+    """Total weighted loss (under a process group, this rank's share) and
+    the per-term scalars (global), every term and log key of the JAX
+    `compute_losses`.
 
     The rgb term needs `ms_ssim`, which is not ported: loss_weights[2] != 0
     raises (the flagship's is 0).
@@ -131,4 +144,8 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
              + lw[0] * depth_loss + lw[1] * seg_loss + lw[3] * sdf_loss
              + lw[4] * density_loss)
     logs['total_loss'] = total
+    if active():    # the shares summed: the global terms, on every rank
+        names = list(logs)
+        glob = all_reduce_sum(torch.stack([logs[k].detach() for k in names]))
+        logs = dict(zip(names, glob.unbind()))
     return total, logs

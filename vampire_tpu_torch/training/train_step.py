@@ -7,6 +7,14 @@ backward kernels), all task losses, backward, global-norm clipping,
 AdamW, the optional EMA, and the two train-IoU confusion matrices. The BN
 running statistics move during the forward, as flax's mutable batch_stats.
 
+Under a process group (`parallel/distributed.py`) each rank runs the step
+on its block of the global batch: the losses are its share of the global
+loss, BatchNorm takes the global statistics, and the gradients are summed
+over the ranks in one flat all-reduce before the clip, so that the clip,
+AdamW, the EMA and the lr schedule see the one-process gradient of the
+concatenated batch on every rank. The confusions stay per rank (the
+Trainer sums them before it reports).
+
 The eval steps run the metrics graph (no camera renders, the lift kernel
 only) in eval mode under `torch.no_grad()`, with the weights the model
 holds. Not `inference_mode`: its tensors could not enter autograd later,
@@ -19,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..models.centerpoint_head import decode_preds
+from ..parallel.distributed import all_reduce_sum_
 from .losses import compute_losses
 from .metrics import confusion_update
 from .train_state import TrainState, clip_by_global_norm_, ema_update, lr_at
@@ -62,6 +71,7 @@ def build_train_step(cfg, num_devices: int = 1, with_metrics: bool = True):
         total.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        all_reduce_sum_(grads)
         for p, g in zip(params, grads):
             p.grad = g
         logs['grad_norm'] = clip_by_global_norm_(grads,

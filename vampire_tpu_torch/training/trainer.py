@@ -4,16 +4,27 @@ check_val_every_n_epoch epochs), checkpoints, `log_scalars`, the epoch-end
 train-IoU report, `validate`, `test` (detection eval; `vis=True`: the --vis
 dumps) and `predict` (the test-split submission).
 
-One process on one device: the batch dict of numpy arrays (the JAX
-package's loader layout) goes to the device, one step runs, and the
-scalars go to `<workdir>/<exp_name>/scalars.jsonl`. A checkpoint is a torch
-`state_dict` bundle (params, buffers, optimizer, step, EMA) saved after
-every epoch as `checkpoints/<epoch>.pt`; `fit` resumes from the latest.
-With one process, the JAX package's `process_allgather` and
-`host_local_rows` are the identity and every process is the main one.
-Still raising or absent (ROADMAP.md, Queue 1): `pretrained_backbone`
-(item 9), `log_images` (item 9) and DDP (item 5). The CLI (`cli.py`) drives
-it over the loaders of `data/nuscenes.py`.
+The batch dict of numpy arrays (the JAX package's loader layout) goes to
+the device, one step runs, and the scalars go to
+`<workdir>/<exp_name>/scalars.jsonl`. A checkpoint is a torch `state_dict`
+bundle (params, buffers, optimizer, step, EMA) saved after every epoch as
+`checkpoints/<epoch>.pt`; `fit` resumes from the latest.
+
+In a process group (`parallel/distributed.py`, one process a device) the
+Trainer is one rank of a data-parallel run, with the JAX Trainer's
+semantics: `num_devices` is the world size (the detection floors; the lr
+scale is the config's `num_devices`); `init_state` broadcasts rank 0's
+weights and buffers; each step is the global-batch step
+(`train_step.py`); only the main process writes `scalars.jsonl`, saves
+checkpoints (the others wait at a barrier before they read one) and
+prints the IoU reports; `fit`'s train confusions and `validate`'s are
+summed over the ranks; `test` and `predict` gather every rank's results
+(`process_allgather`) and the main process scores and writes them.
+`test(vis=True)` is one process only, as in the JAX package. Without a
+group every process is the main one and the collectives are the
+identity. Still raising (ROADMAP.md, Queue 1): `pretrained_backbone` and
+`log_images` (item 9). The CLI (`cli.py`) drives it over the loaders of
+`data/nuscenes.py`.
 """
 from __future__ import annotations
 
@@ -32,6 +43,9 @@ from ..configs import LABEL_17_NAMES
 from ..evaluation.det_evaluator import DetNuscEvaluator, apply_circle_nms
 from ..evaluation.lidarseg import lidarseg_labels, write_submission
 from ..models.vampire import Vampire, init_params_
+from ..parallel.distributed import (all_reduce_sum, barrier,
+                                    broadcast_module_, is_main_process,
+                                    process_allgather, rank, world_size)
 from ..serving.server import _argmax, _to_numpy, set_fp32_precision
 from ..utils.vis import tile_cameras, visualize_depth, visualize_semantic
 from .losses import denormalize_images
@@ -60,17 +74,20 @@ class Trainer:
                       else torch.float32)
         self.model = Vampire(cfg.backbone, cfg.head, dtype=self.dtype,
                              device=self.device)
-        self.num_devices = 1
-        self._log_file = open(os.path.join(self.workdir, 'scalars.jsonl'),
-                              'a')
+        # the devices the step runs over (one process a device): the
+        # detection loss floors, as the JAX Trainer's mesh.size
+        self.num_devices = world_size()
+        self._log_file = (open(os.path.join(self.workdir, 'scalars.jsonl'),
+                               'a') if is_main_process() else None)
 
     # ------------------------------------------------------------------
     def init_state(self, example_batch: Dict[str, np.ndarray],
                    steps_per_epoch: int) -> TrainState:
         """Seeded random weights (a torch.Generator seeded with
-        cfg.train.seed on the model's device) and a fresh optimizer. The
-        torchvision-pretrained backbone of the reference recipe is not
-        ported: `pretrained_backbone` raises."""
+        cfg.train.seed on the model's device; in a process group, rank 0's,
+        broadcast) and a fresh optimizer. The torchvision-pretrained
+        backbone of the reference recipe is not ported:
+        `pretrained_backbone` raises."""
         del example_batch   # shapes come from the config
         if self.cfg.train.pretrained_backbone:
             raise NotImplementedError(f'pretrained_backbone: {_TODO} '
@@ -78,6 +95,7 @@ class Trainer:
         g = torch.Generator(device=self.device)
         g.manual_seed(self.cfg.train.seed)
         init_params_(self.model, g)
+        broadcast_module_(self.model)
         return create_train_state(self.model, self.cfg.train,
                                   steps_per_epoch)
 
@@ -86,6 +104,8 @@ class Trainer:
                 for k, v in batch.items() if k not in DEVICE_KEYS_EXCLUDE}
 
     def log_scalars(self, step: int, scalars: Dict[str, Any]):
+        if self._log_file is None:      # not the main process
+            return
         rec = {'step': step}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._log_file.write(json.dumps(rec) + '\n')
@@ -105,16 +125,19 @@ class Trainer:
 
     def save_checkpoint(self, state: TrainState, epoch: int):
         """Save the state after `epoch`, keeping the newest
-        cfg.train.keep_checkpoints (0 keeps all)."""
-        d = self.checkpoint_dir()
-        os.makedirs(d, exist_ok=True)
-        tmp = os.path.join(d, f'{epoch}.pt.tmp')
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, os.path.join(d, f'{epoch}.pt'))
-        keep = self.cfg.train.keep_checkpoints
-        if keep:
-            for old in self.saved_epochs()[:-keep]:
-                os.remove(os.path.join(d, f'{old}.pt'))
+        cfg.train.keep_checkpoints (0 keeps all). The main process writes;
+        every rank returns once the file is there."""
+        if is_main_process():
+            d = self.checkpoint_dir()
+            os.makedirs(d, exist_ok=True)
+            tmp = os.path.join(d, f'{epoch}.pt.tmp')
+            torch.save(state.state_dict(), tmp)
+            os.replace(tmp, os.path.join(d, f'{epoch}.pt'))
+            keep = self.cfg.train.keep_checkpoints
+            if keep:
+                for old in self.saved_epochs()[:-keep]:
+                    os.remove(os.path.join(d, f'{old}.pt'))
+        barrier()
 
     def restore_checkpoint(self, state: TrainState,
                            epoch: Optional[int] = None,
@@ -170,9 +193,11 @@ class Trainer:
                                                conf)
                 if it % log_every == 0:
                     self.log_scalars(state.step, logs)
-                    print(f'epoch {epoch} it {it}/{steps_per_epoch} '
-                          f"loss {float(logs['total_loss']):.4f}", flush=True)
-            print(f'epoch {epoch} done in {time.time() - t_ep:.1f}s')
+                    if is_main_process():
+                        print(f'epoch {epoch} it {it}/{steps_per_epoch} loss '
+                              f"{float(logs['total_loss']):.4f}", flush=True)
+            if is_main_process():
+                print(f'epoch {epoch} done in {time.time() - t_ep:.1f}s')
             self._report_train_iou(conf, state.step)
             self.save_checkpoint(state, epoch)
             if val_loader is not None and \
@@ -183,8 +208,11 @@ class Trainer:
 
     def _report_train_iou(self, conf, step: int) -> None:
         """Epoch-end train IoU reports: per-class lidarseg IoU over classes
-        1..16 and occupancy IoU over 0..16, accumulated on the device."""
-        conf_seg, conf_occ = (c.cpu().numpy() for c in conf)
+        1..16 and occupancy IoU over 0..16, accumulated on the device and
+        summed over the ranks; the main process reports."""
+        conf_seg, conf_occ = (all_reduce_sum(c).cpu().numpy() for c in conf)
+        if not is_main_process():
+            return
         seg = JaccardIndex(17, ignore_index=0)
         seg.update_confusion(conf_seg)
         iou = seg.compute()[1:]
@@ -239,7 +267,9 @@ class Trainer:
                  use_ema: Optional[bool] = None) -> Dict[str, float]:
         """Lidarseg + occupancy IoU over the val split (base_exp.py:634-663,
         880-910). The confusion matrices are computed on the device; only
-        two (C, C) arrays come back per batch."""
+        two (C, C) arrays come back per batch. Their float64 sums are then
+        summed over the ranks: every rank returns the global mIoUs, and the
+        main process prints the reports."""
         cfg = self.cfg
         val_iou = JaccardIndex(17, ignore_index=0)
         occ_iou = JaccardIndex(cfg.backbone.num_classes)
@@ -249,15 +279,19 @@ class Trainer:
                 conf_seg, conf_occ = step(self.to_device(batch))
                 val_iou.update_confusion(conf_seg.cpu().numpy())
                 occ_iou.update_confusion(conf_occ.cpu().numpy())
+        for m in (val_iou, occ_iou):
+            m.conf = all_reduce_sum(torch.from_numpy(m.conf).to(
+                self.device)).cpu().numpy()
         iou = val_iou.compute()[1:]
         miou = float(np.nanmean(iou))
         occ = occ_iou.compute()[:-1]
         occ_miou = float(np.nanmean(occ))
-        print(format_iou_report(iou, LABEL_17_NAMES[1:-1], 'Validation'))
-        print(f'Current val miou is {miou * 100:.3f}')
-        print(format_iou_report(occ, LABEL_17_NAMES[:-1],
-                                'Validation occupancy'))
-        print(f'Current val occupancy miou is {occ_miou * 100:.3f}')
+        if is_main_process():
+            print(format_iou_report(iou, LABEL_17_NAMES[1:-1], 'Validation'))
+            print(f'Current val miou is {miou * 100:.3f}')
+            print(format_iou_report(occ, LABEL_17_NAMES[:-1],
+                                    'Validation occupancy'))
+            print(f'Current val occupancy miou is {occ_miou * 100:.3f}')
         return {'val/mIoU': miou, 'val/occ_mIoU': occ_miou}
 
     def _det_results(self, batch, out, results, metas) -> np.ndarray:
@@ -284,10 +318,18 @@ class Trainer:
         `DetNuscEvaluator` (base_exp.py:665-746, 912-929): by the devkit
         where it is installed, else by the in-repo metric against the GT of
         `test_loader.dataset.global_gt_boxes()` where the loader has one.
-        Only the decoded boxes leave the device. With vis=True, dump
+        Only the decoded boxes leave the device; every rank's results are
+        gathered and the main process scores them. With vis=True, dump
         per-frame pickles of rendered rgb/depth/seg/bev/occ instead
-        (base_exp.py:678-708)."""
+        (base_exp.py:678-708), in one process only: the JAX `_test_vis`
+        fetches the global arrays and numbers its dumps from a counter of
+        its own process."""
         cfg = self.cfg
+        if vis and world_size() > 1:
+            raise RuntimeError(
+                f'test(vis=True) runs in one process; this is rank {rank()} '
+                f'of {world_size()}, and the ranks\' dumps <idx>.pkl would '
+                'overwrite each other')
         results, metas = [], []
         with self._eval_params(state, use_ema) as model:
             if vis:
@@ -298,6 +340,11 @@ class Trainer:
                 out = step(self.to_device(batch))
                 self._det_results(batch, {'det': _to_numpy(out['det'])},
                                   results, metas)
+        pairs = process_allgather((results, metas))
+        if not is_main_process():
+            return
+        results = [r for rs, _ in pairs for r in rs]
+        metas = [m for _, ms in pairs for m in ms]
         evaluator = DetNuscEvaluator(
             class_names=[c for t in cfg.head.tasks for c in t],
             output_dir=os.path.join(self.workdir, 'detection_submit'),
@@ -364,7 +411,8 @@ class Trainer:
                 use_ema: Optional[bool] = None) -> None:
         """Test-split submission: detection json + per-token lidarseg bins
         (base_exp.py:800-849, base_cli.py:112-129). Only the decoded boxes
-        and the point logits leave the device."""
+        and the point logits leave the device; every rank's results are
+        gathered and the main process writes the submission."""
         cfg = self.cfg
         results, metas, seg_results = [], [], []
         with self._eval_params(state, use_ema) as model:
@@ -379,6 +427,12 @@ class Trainer:
                     seg_results.append(
                         (batch['meta']['lidar_token'][b],
                          lidarseg_labels(out['pts_logits'][b], n)))
+        gathered = process_allgather((results, metas, seg_results))
+        if not is_main_process():
+            return
+        results = [r for rs, _, _ in gathered for r in rs]
+        metas = [m for _, ms, _ in gathered for m in ms]
+        seg_results = [s for _, _, ss in gathered for s in ss]
         write_submission(seg_results,
                          os.path.join(self.workdir, 'lidarseg_submit'),
                          split='test')
