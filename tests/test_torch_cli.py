@@ -71,6 +71,20 @@ def tree(tmp_path_factory):
     return root
 
 
+def test_num_devices_spawns_ranks_without_a_deadline(monkeypatch):
+    """`--num-devices N` starts N ranks of `_rank_main` with the argv and
+    no time limit: a training run lasts as long as it lasts, as under
+    torchrun."""
+    from vampire_tpu_torch.parallel import distributed
+    calls = []
+    monkeypatch.setattr(distributed, 'spawn',
+                        lambda *a, **kw: calls.append((a, kw)))
+    argv = ['--debug', '--num-devices', '3', '--max-epochs', '24']
+    cli.main(argv)
+    assert calls == [((cli._rank_main, 3, (argv,)),
+                      dict(device='cpu', timeout_s=None))]
+
+
 @pytest.mark.parametrize('argv,item', [
     (['--num-devices', '2'], 'item 5'),
     (['--exp', 'bilinear'], 'item 6'),

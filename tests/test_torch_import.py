@@ -33,9 +33,10 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     # core/3, models/6, ops/8 (_build, lift, tables, rays, lovasz, nms,
-    # target_assign, gather_probe), serving/1, training/5, tools/2, data/4
+    # target_assign, gather_probe), serving/1, training/5, tools/3
+    # (stage_split, gather_probe, grad_spread), data/4
     # (synthetic, transforms, fake, nuscenes), evaluation/3 (nusc_metric,
     # det_evaluator, lidarseg), utils/1 (vis), exps/5 (the experiment
-    # entries), parallel/2 (distributed, runs), configs, weights, cli, and
+    # entries), parallel/2 (distributed, _testing), configs, weights, cli, and
     # the 11 packages
-    assert int(proc.stdout.strip()) >= 54, proc.stdout
+    assert int(proc.stdout.strip()) >= 55, proc.stdout

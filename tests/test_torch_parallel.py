@@ -15,7 +15,7 @@ detection floors max(num_pos, num_devices) do not bind on either side.
 `tests/test_torch_train_step.py` holds the one-process step at B = 2 to
 the JAX step on the same rows.
 
-One spawn of 2 ranks (`parallel/runs.trainer_run`, rendezvous through a
+One spawn of 2 ranks (`parallel/_testing.trainer_run`, rendezvous through a
 file store, 600 s limit) and one in-process run give both sides: init
 (rank 1 seeds differently, so only `init_state`'s broadcast makes the
 ranks agree), one `fit` step with the density bias zeroed so that the
@@ -37,7 +37,8 @@ from vampire_tpu_torch import cli
 from vampire_tpu_torch.configs import synthetic_batch, tiny_config
 from vampire_tpu_torch.data.fake import make_fake_nusc
 from vampire_tpu_torch.parallel import distributed
-from vampire_tpu_torch.parallel.runs import trainer_run
+from vampire_tpu_torch.parallel._testing import (
+    in_fresh_process, trainer_run, unclipped, zero_density_bias)
 
 SEEDS = (1, 2)
 # every logged loss term, 1-process against each rank: the same sums in
@@ -103,10 +104,14 @@ def runs(tree, tmp_path_factory):
     two_dir = tmp_path_factory.mktemp('two')
     one = trainer_run(_cfg(1), [[_concat(rows)]], str(one_dir),
                       data_root=str(tree), device='cpu',
-                      zero_density_bias=True)
+                      init_hook=zero_density_bias)
+    # rank 1 seeds its weights differently: only init_state's broadcast
+    # makes the ranks start equal
+    cfgs = [_cfg(2), dataclasses.replace(_cfg(2), train=dataclasses.replace(
+        _cfg(2).train, seed=_cfg(2).train.seed + 1))]
     two = distributed.spawn(
-        trainer_run, 2, (_cfg(2), [[rows[0]], [rows[1]]], str(two_dir),
-                         str(tree), None, True, True),
+        trainer_run, 2, (cfgs, [[rows[0]], [rows[1]]], str(two_dir),
+                         str(tree), None, zero_density_bias),
         device='cpu', timeout_s=600)
     exp = tiny_config().train.exp_name
     return dict(rows=rows, one=one, two=two, lr=_cfg(1).train.lr,
@@ -243,6 +248,54 @@ def test_spawn_reports_a_failed_or_hung_rank(fn, args, timeout_s, err):
     with pytest.raises(err, match='ValueError' if err is RuntimeError
                        else 'killed'):
         distributed.spawn(fn, 2, args, device='cpu', timeout_s=timeout_s)
+
+
+def test_spawn_without_a_deadline_waits_for_its_ranks():
+    """timeout_s=None (the CLI's training runs) sets no limit: spawn
+    returns the ranks' results when they end."""
+    assert distributed.spawn(int, 2, ('7',), device='cpu',
+                             timeout_s=None) == [7, 7]
+
+
+def test_in_fresh_process_runs_outside_any_group():
+    """The single-process reference of the card's multi phase: a fresh
+    process, no process group; a failure or a hang raises."""
+    assert in_fresh_process(distributed.world_size, (), 300) == 1
+    with pytest.raises(RuntimeError, match='exit code'):
+        in_fresh_process(int, ('not a number',), 300)
+    with pytest.raises(TimeoutError, match='killed'):
+        in_fresh_process(__import__('time').sleep, (600,), 5)
+
+
+def test_unclipped_stats_remove_the_clip_scale():
+    """`unclipped` undoes `clip_by_global_norm_` (rtol 1e-6: one fp32
+    divide and multiply). Two runs whose gradients differ only in the clip's
+    scale (a grad_norm 1e-3 apart) show that scale in every tensor clipped
+    and, unclipped, no more than the fp32 divides' rounding (below 1e-6;
+    `tools/grad_spread.pair_stats`)."""
+    import torch
+    from vampire_tpu_torch.tools.grad_spread import pair_stats
+    from vampire_tpu_torch.training.train_state import clip_by_global_norm_
+    rng = np.random.default_rng(0)
+    raw = {f'p{i}': rng.normal(size=(3, 4)).astype(np.float32) * 10
+           for i in range(5)}
+    ts = [torch.from_numpy(v.copy()) for v in raw.values()]
+    norm = float(clip_by_global_norm_(ts, 1.0))
+    assert norm > 1.0
+    clipped = {k: t.numpy() for k, t in zip(raw, ts)}
+    for k, v in unclipped(clipped, norm, 1.0).items():
+        np.testing.assert_allclose(v, raw[k], rtol=1e-6, err_msg=k)
+    assert unclipped(raw, 0.5, 1.0)['p0'].tolist() == raw['p0'].tolist()
+    a = dict(logs=[dict(total_loss=1.0, grad_norm=1000.0)],
+             grads={k: v / 1000.0 for k, v in raw.items()})
+    b = dict(logs=[dict(total_loss=1.0, grad_norm=1001.0)],
+             grads={k: v / 1001.0 for k, v in raw.items()})
+    st = pair_stats(a, b, 1.0)
+    assert st['loss_equal']
+    np.testing.assert_allclose([st['clipped'][q] for q in
+                                ('median', 'p90', 'max')],
+                               1.0 - 1000.0 / 1001.0, rtol=1e-4)
+    assert max(st['unclipped'].values()) < 1e-6
 
 
 def test_collectives_are_the_identity_without_a_group():

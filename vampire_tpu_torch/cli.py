@@ -153,7 +153,8 @@ def main(argv=None):
         if device.startswith('cuda'):   # once here, not in every rank
             from .ops import _build
             _build.build(('lift', 'rays'))
-        spawn(_rank_main, n, (argv,), device=device)
+        # a training run has no deadline, as under torchrun
+        spawn(_rank_main, n, (argv,), device=device, timeout_s=None)
         return
     run(args)
 

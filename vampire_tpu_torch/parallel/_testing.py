@@ -1,22 +1,29 @@
-"""One rank's share of a `Trainer` run, returned as numpy.
+"""Test support, not public API: one rank's share of a `Trainer` run,
+returned as numpy, and the helpers that hold such runs to each other
+(`unclipped`, `in_fresh_process`).
 
 `trainer_run` is what the multi-rank tests and `chip_smoke.py` start in
 every rank of a world (`distributed.spawn`) and also run in one process,
 to hold the world's run to the one process's on the same global batch.
-It lives in the port so that a spawned rank imports no test module.
+It lives in the port, not in the tests, so that a spawned rank imports no
+test module (and so no jax). No entry point of the port calls it.
 
     from vampire_tpu_torch.parallel.distributed import spawn
-    from vampire_tpu_torch.parallel.runs import trainer_run
+    from vampire_tpu_torch.parallel._testing import trainer_run
     ranks = spawn(trainer_run, 2, (cfg, [[row_a], [row_b]], workdir),
-                  device='cpu')
+                  device='cpu', timeout_s=600)
 """
 from __future__ import annotations
 
-import dataclasses
+import multiprocessing as mp
+import os
+import pickle
 import statistics
+import tempfile
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..ops import launch_counts, reset_launch_counts
@@ -51,8 +58,8 @@ def _numpy(tensors):
 
 def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
                 data_root: Optional[str] = None, device=None,
-                perturb_seed: bool = False, zero_density_bias: bool = False,
-                n_timed: int = 0, num_devices: Optional[int] = None) -> dict:
+                init_hook: Optional[Callable] = None, n_timed: int = 0,
+                num_devices: Optional[int] = None) -> dict:
     """This rank's run of `Trainer`: `init_state`, `fit` over its batches
     (`batches_by_rank[rank]`, numpy batch dicts) with every step logged,
     `n_timed` more steps timed, then, with a `data_root` (a nuScenes
@@ -60,11 +67,11 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
     its val and test splits through the CLI's loaders (`cli.make_loader`,
     this rank's block, one worker thread).
 
-    perturb_seed: rank r seeds its weights with cfg.train.seed + r, so that
-        only `init_state`'s broadcast makes the ranks start equal.
-    zero_density_bias: zero the density head's bias after init (the init
-        bias saturates every ray at its first sample, which leaves the ray
-        backward almost nothing to pass on).
+    cfg: the config, or one a rank (`cfg[rank]`): ranks may differ only in
+        what `init_state`'s broadcast makes equal, the seed.
+    init_hook: called with the model after `init_state` (e.g.
+        `zero_density_bias`); picklable, from a module that imports no test
+        code.
     num_devices: the Trainer's num_devices, the detection loss's floors
         max(num_pos, num_devices); by default the world size. One process
         held to a world of N takes N, as the JAX package's
@@ -78,10 +85,9 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
     `validate`, and the process group's `backend` (None without one).
     """
     r = rank()
-    seed = cfg.train.seed
-    if perturb_seed:
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-            cfg.train, seed=cfg.train.seed + r))
+    seed = (cfg[0] if isinstance(cfg, (list, tuple)) else cfg).train.seed
+    if isinstance(cfg, (list, tuple)):
+        cfg = cfg[r]                    # the loaders keep rank 0's seed
     device = torch.device(device) if device is not None else rank_device()
     trainer = _RecordingTrainer(cfg, workdir=workdir, device=device)
     if num_devices is not None:
@@ -89,9 +95,8 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
     batches = list(batches_by_rank[r])
     state = trainer.init_state(batches[0], len(batches))
     model = trainer.model
-    if zero_density_bias:
-        with torch.no_grad():
-            model.backbone.density_conv.bias.zero_()
+    if init_hook is not None:
+        init_hook(model)
     grads = {}
 
     def keep_grads(opt, *_):
@@ -141,3 +146,47 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
         trainer.test(loader('val'), state)
         trainer.predict(loader('test'), state)
     return out
+
+
+@torch.no_grad()
+def zero_density_bias(model) -> None:
+    """An `init_hook`: the density head's bias at 0. The init bias
+    (sdf_bias - 10) saturates every ray at its first sample, which leaves
+    the ray backward almost nothing to pass on."""
+    model.backbone.density_conv.bias.zero_()
+
+
+def unclipped(grads: dict, grad_norm: float, max_norm: float) -> dict:
+    """Numpy gradients as they were before the global-norm clip
+    (`clip_by_global_norm_` scales them by max_norm / grad_norm when
+    grad_norm >= max_norm), in float64."""
+    scale = grad_norm / max_norm if grad_norm >= max_norm else 1.0
+    return {n: g.astype(np.float64) * scale for n, g in grads.items()}
+
+
+def _fresh_entry(fn, args, path):
+    with open(path, 'wb') as f:
+        pickle.dump(fn(*args), f)
+
+
+def in_fresh_process(fn: Callable, args: tuple, timeout_s: float):
+    """fn(*args) in a fresh spawned process that joins no process group:
+    one process whose CUDA context, cuDNN and cuBLAS handles and allocator
+    start as a spawned rank's do. Killed, and TimeoutError, after
+    `timeout_s`."""
+    with tempfile.TemporaryDirectory(prefix='vampire_fresh_') as d:
+        path = os.path.join(d, 'out.pkl')
+        p = mp.get_context('spawn').Process(target=_fresh_entry,
+                                            args=(fn, args, path))
+        p.start()
+        p.join(timeout_s)
+        if p.is_alive():
+            p.kill()
+            p.join()
+            raise TimeoutError(f'{fn.__name__} in a fresh process: still '
+                               f'running after {timeout_s} s, killed')
+        if p.exitcode != 0:
+            raise RuntimeError(f'{fn.__name__} in a fresh process ended '
+                               f'with exit code {p.exitcode}')
+        with open(path, 'rb') as f:
+            return pickle.load(f)

@@ -245,15 +245,16 @@ def _rank_entry(fn, rank_, nprocs, init_method, device, args, out_path,
 
 
 def spawn(fn: Callable, nprocs: int, args: tuple = (), device='cuda',
-          timeout_s: float = 1800.0) -> list:
+          timeout_s: Optional[float] = None) -> list:
     """Run fn(*args) in `nprocs` fresh processes, ranks 0..nprocs-1 of one
     process group (rank r on cuda:r over NCCL, or gloo on the CPU), and
     return their results in rank order.
 
     The ranks rendezvous through a file store in a temporary directory. A
     rank that raises makes this raise with its traceback; the other ranks,
-    which may wait in a collective, are killed. So is every rank still
-    running after `timeout_s`, and then this raises TimeoutError. On the
+    which may wait in a collective, are killed. With a `timeout_s`, so is
+    every rank still running after that many seconds, and then this raises
+    TimeoutError; None (a training run) waits for the ranks to end. On the
     CPU each rank takes its share of this process's threads.
     """
     dev = torch.device(device)
@@ -273,7 +274,8 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), device='cuda',
         for p in procs:
             p.start()
         try:
-            timed_out = _wait(procs, time.monotonic() + timeout_s)
+            timed_out = _wait(procs, None if timeout_s is None
+                              else time.monotonic() + timeout_s)
         finally:
             for p in procs:
                 if p.is_alive():
@@ -300,13 +302,13 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), device='cuda',
         return results
 
 
-def _wait(procs, deadline: float) -> bool:
+def _wait(procs, deadline: Optional[float]) -> bool:
     """Wait until every process has ended or one has failed; True when the
-    deadline passed first."""
+    deadline (None: none) passed first."""
     pending = list(procs)
     while pending:
-        left = deadline - time.monotonic()
-        if left <= 0:
+        left = None if deadline is None else deadline - time.monotonic()
+        if left is not None and left <= 0:
             return True
         ready = mp.connection.wait([p.sentinel for p in pending], left)
         for p in [p for p in pending if p.sentinel in ready]:
