@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and evaluation paths,
-its input pipeline, its other field variants, its multi-device paths and
-its row-gather probes once on one NVIDIA GPU.
+its input pipeline, its other field variants, its multi-device paths, its
+other ray samplers, losses and init and logging extras, and its row-gather
+probes once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -30,7 +31,12 @@ nonzero without printing a result:
                table kernels and are checked here only); the ray sampler over 67,584 rays x 85
                samples of camera_rig geometry through the bf16 channels-last
                field (voxel stride 24) of a synthetic field whose rays end
-               partly opaque. Then the three backward kernels: the lift's
+               partly opaque, and in its stop mode as the early-
+               termination sampler launches it (the opt-in schedule
+               ET_FRACS: launch 1 to prefix x chunk samples for the sort
+               key, launch 2 to each ray's stop, each timed beside its
+               plain version and its bound). Then the three backward
+               kernels: the lift's
                per frame in fp32 and bf16 (the same two cases, and its
                depth-less mode, d feat only), the corner
                table's from an fp32
@@ -136,7 +142,31 @@ nonzero without printing a result:
                `serve_tcp`: 8 requests through `TcpClient`, byte for byte
                equal to `infer`'s, and the median ms a request over TCP
                and direct.
- 10. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
+ 10. extras  - the flagship (bf16, B=1, seeded weights, BN calibrated)
+               beyond the paths above. The early-termination sampler
+               (ray_et_fracs = ET_FRACS) under a partly-opaque density
+               head: 3 full-render requests (the lift once and the ray
+               kernel's stop mode twice a request); request 0's renders
+               against the plain march at the forward's own stops (every
+               ray within RAY_RTOL; the plain key may move at most
+               ET_CROSSED_MAX of the stops) and against plain=True (the
+               rays both sides stop alike within SLICE_RTOL, at most
+               ET_CROSSED_MAX of the rays stopping differently, printed
+               beside exp(-min(sd, tau)) x the value scale); the
+               diagnostic and the request ms beside the dense graph's. The compact sampler
+               (every pass after the third keeps 0.3 of the rays) with the
+               rgb loss (loss_weights[2] = 1): step 0's gradients in fp32
+               against plain=True, the train-mode renders against the
+               dense sampler's (they must differ: in-field samples were
+               dropped), then `fit` over 2 batches with image_every=1
+               (launches, a finite rgb_loss, the 6 PNGs a step), one
+               direct `log_images` timed, 3 steps timed and one under
+               `utils.profiling.trace` (a non-empty Chrome trace). The
+               torchvision graft: a ResNet-50 state dict made from a
+               seeded generator, saved, grafted by `init_state` (every
+               backbone tensor bit for bit), then one request under
+               `run_time`. Prints the phase's wall time.
+ 11. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
                layouts and dma sub-commands and its scale sub-command on
                the ray stage's 1,387,029-row tables of 256 and 176 bf16
                (depths 1, 8 and 32, issued 1 and 4 at a time, random and
@@ -166,12 +196,17 @@ one-hot product's multiply-adds at the tensor cores' peak, and
 Each model kernel's entry also gives its launches in each call of the eval
 phase (`eval_launches`), of the data phase (`data_launches`) and of the
 variants phase (`variant_launches`; the depth-less lift's entries give the
-bilinear variant's) and of the multi-device phase (`multi_launches`: rank
-0's fit, the pool's requests); the object also holds the eval calls' ms a row,
+bilinear variant's), of the multi-device phase (`multi_launches`: rank
+0's fit, the pool's requests) and of the extras phase (`extras_launches`:
+the early-termination requests, the fit with panels, the grafted
+request); the ray kernel's stop mode has an entry of its own
+(`sample_and_composite_rays_stop`, its launches the early-termination
+requests'); the object also holds the eval calls' ms a row,
 validate's peak memory, the data phase's numbers (`data`) and the variants
 phase's request, step and validate times and peak memory (`variants`,
-`sweeps`, `dense`) and the multi-device phase's world, step times, rates
-and TCP overhead (`multi`). The last three lines are a JSON object of the
+`sweeps`, `dense`), the multi-device phase's world, step times, rates
+and TCP overhead (`multi`) and the extras phase's times, diagnostic and
+trace size (`extras`). The last three lines are a JSON object of the
 kernels run, the card's name and power limit, and `{"ok": true, "device":
 {...}}`.
 """
@@ -259,6 +294,20 @@ VARIANT_GRAD_RTOL = 3e-2
 # flip bf16 roundings throughout the network and the gradients differ by a
 # median of 22% (measured), as two forwards in another order would.
 TRAIN_BWD_RTOL = 0.1
+# the extras phase: the documented opt-in early-termination schedule
+# (vampire_tpu/configs.py:192, the ray_et_study.py worst case + 10 %), the
+# compact sampler's passes that keep every ray (the others keep 0.3 of
+# them), its fit's batches and timed steps, and the panels of a step
+ET_FRACS = (0.71, 0.47, 0.37, 0.14, 0.06, 0.03)
+# the early-term stops of two sums of a ray's optical depth in different
+# orders (kernel and plain) differ only where a key ties at a cap: at most
+# this share of the rays may stop differently
+ET_CROSSED_MAX = 0.01
+COMPACT_KEEP = 3
+N_EXTRA_BATCHES = 2
+N_EXTRA_TIMED = 3
+PANELS = ('rgb_gts', 'rgb_preds', 'depth_preds', 'seg_preds', 'bev_seg',
+          'bev_height')
 
 
 def say(msg):
@@ -611,6 +660,13 @@ def ray_plan(args, backward):
     return rays.plan(field.dtype, field.shape[3], backward)
 
 
+def ray_groups(K):
+    """The output columns of the ray sampler: (name, slice) of rgb, seg
+    and depth."""
+    return (('rgb', slice(0, 3)), ('seg', slice(3, K + 3)),
+            ('depth', slice(K + 3, K + 4)))
+
+
 def ray_check(card, bc, dev, args):
     """The ray kernel against its plain version on `ray_field`."""
     import torch
@@ -622,8 +678,7 @@ def ray_check(card, bc, dev, args):
     want = R.sample_and_composite_rays_field_reference(*args)
     torch.cuda.synchronize()
     result = dict(max_abs_err=0.0)
-    for name, sl in (('rgb', slice(0, 3)), ('seg', slice(3, K + 3)),
-                     ('depth', slice(K + 3, K + 4))):
+    for name, sl in ray_groups(K):
         err = (got[:, sl] - want[:, sl]).abs().max().item()
         scale = want[:, sl].abs().max().item()
         tol = RAY_RTOL * max(1.0, scale)
@@ -652,6 +707,103 @@ def ray_check(card, bc, dev, args):
         f'{result["bound_ms"]:.4f} ms ({n_vox} distinct field voxels read; '
         f'through the table {result["table_bound_ms"]:.4f} ms, {n_rows} '
         f'rows); launch {result["plan"]} [{card}]')
+    return result
+
+
+def stop_read_bytes(args, stop):
+    """What the samples before each ray's stop read, each once: valid and
+    delta of every such sample (8 bytes), and the coords (12 bytes) and the
+    distinct field voxels of nonzero weight (C channels each) of the valid
+    ones: the kernel reads a sample's coords only where its valid is not 0."""
+    import torch
+    from vampire_tpu_torch.core import sampling as S
+    field, coords, valid = args[:3]
+    D, H, W, C = field.shape
+    live = (torch.arange(valid.shape[1], device=valid.device)[None, :]
+            < stop[:, None])
+    read = live & (valid > 0)
+    c = coords[read]
+    vox, _, w8 = S.field_corners(c, (D, H, W))
+    n_vox = torch.unique(vox[w8 != 0]).numel()
+    return (n_vox * C * field.element_size() + int(live.sum()) * 8
+            + int(read.sum()) * 12)
+
+
+def ray_stop_check(card, bc, dev, args):
+    """The ray kernel's stop mode against its plain version on
+    `ray_field`, as the early-termination sampler (ET_FRACS, the flagship's
+    ray_et_chunk and ray_et_prefix) launches it: launch 1 stops every ray
+    at prefix * chunk samples and gives the sort key, launch 2 stops each
+    ray where its last pass ends (`earlyterm_stops` of the kernel's key).
+    Both versions get the same stops, so the renders and optical depths
+    must agree within RAY_RTOL; the stops the plain key would give are
+    counted where they differ (the two sum a ray's optical depth in
+    different orders). Each launch is timed beside its plain version and
+    its bound, the bytes of the samples before its stops; the frame's bound
+    is launch 2's, one read of each sample before its final stop."""
+    import torch
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.ops import rays
+    K = bc.num_classes
+    valid = args[2]
+    Rn, Sn = valid.shape
+    chunk, prefix = bc.ray_et_chunk, bc.ray_et_prefix
+    first = torch.full((Rn,), min(Sn, prefix * chunk), dtype=torch.int32,
+                       device=valid.device)
+    _, sd1 = rays.sample_and_composite_rays(*args, stop=first, with_sd=True)
+    _, psd1 = R.sample_and_composite_rays_field_reference(
+        *args, stop=first, with_sd=True)
+    stop, exited, misses = R.earlyterm_stops(sd1, valid, chunk, prefix,
+                                             ET_FRACS)
+    crossed = int((R.earlyterm_stops(psd1, valid, chunk, prefix,
+                                     ET_FRACS)[0] != stop).sum())
+    if crossed > ET_CROSSED_MAX * Rn:
+        raise AssertionError(f'ray kernel stop mode: the plain key moves '
+                             f'{crossed} of {Rn} stops')
+    result = dict(max_abs_err=0.0, launch_ms=[], launch_plain_ms=[],
+                  launch_bound_ms=[], crossed=crossed)
+    for launch, st in ((1, first), (2, stop)):
+        got, sd = rays.sample_and_composite_rays(*args, stop=st,
+                                                 with_sd=True)
+        want, wsd = R.sample_and_composite_rays_field_reference(
+            *args, stop=st, with_sd=True)
+        torch.cuda.synchronize()
+        for name, sl in ray_groups(K) + (('sd', None),):
+            g, w = (sd, wsd) if sl is None else (got[:, sl], want[:, sl])
+            err = (g - w).abs().max().item()
+            tol = RAY_RTOL * max(1.0, w.abs().max().item())
+            if not err <= tol:
+                raise AssertionError(f'ray kernel stop mode, launch '
+                                     f'{launch}, {name}: {err} > {tol}')
+            result['max_abs_err'] = max(result['max_abs_err'], err)
+        result['launch_ms'].append(cuda_ms(
+            lambda st=st: rays.sample_and_composite_rays(
+                *args, stop=st, with_sd=True), 20))
+        result['launch_plain_ms'].append(cuda_ms(
+            lambda st=st: R.sample_and_composite_rays_field_reference(
+                *args, stop=st, with_sd=True), 3))
+        result['launch_bound_ms'].append(hbm_ms(
+            stop_read_bytes(args, st), args[4], st, got, sd))
+    for k in ('ms', 'plain_ms'):
+        result[k] = sum(result[f'launch_{k}'])
+    # the frame's work reads each sample before its final stop once, as
+    # launch 2 does; launch 1 re-reads the first prefix * chunk of them
+    result['bound_ms'] = result['launch_bound_ms'][1]
+    live = ~exited
+    result['diag'] = int(R.earlyterm_uncovered_drops(sd, exited, misses,
+                                                     bc.ray_et_tau))
+    say(f'rays stop mode (early termination, fracs {ET_FRACS}): '
+        f'{int(exited.sum())} exited rays, {int((live & (stop < Sn)).sum())} '
+        f'of {int(live.sum())} others stopped early, '
+        f'{int(stop.sum())} of {Rn * Sn} samples marched; max abs err '
+        f'{result["max_abs_err"]:.3e}; {crossed} rays whose stop the plain '
+        f'key would move; uncovered drops {result["diag"]}; launch 1 / 2 '
+        f'kernel {result["launch_ms"][0]:.4f} / {result["launch_ms"][1]:.4f}'
+        f' ms, plain {result["launch_plain_ms"][0]:.4f} / '
+        f'{result["launch_plain_ms"][1]:.4f} ms, bound '
+        f'{result["launch_bound_ms"][0]:.4f} / '
+        f'{result["launch_bound_ms"][1]:.4f} ms; frame kernel '
+        f'{result["ms"]:.4f} ms, bound {result["bound_ms"]:.4f} ms [{card}]')
     return result
 
 
@@ -838,6 +990,7 @@ def kernel_phase(card, bc=None, dev='cuda'):
                corner_table=table_check(card, bc, dev))
     args = ray_field(bc, dev)
     out['rays'] = ray_check(card, bc, dev, args)
+    out['rays_stop'] = ray_stop_check(card, bc, dev, args)
     out['lift_bwd'] = lift_bwd_check(card, bc, dev)
     out['lift_bilinear_bwd'] = lift_bwd_check(card, bil, dev)
     out['corner_table_bwd'] = table_bwd_check(card, bc, dev)
@@ -845,11 +998,12 @@ def kernel_phase(card, bc=None, dev='cuda'):
     return out
 
 
-def calibrate_batchnorm_(model, inputs, camera_renders=False):
+def calibrate_batchnorm_(model, inputs, camera_renders=False, keep=None):
     """Set every BatchNorm's running statistics to the batch statistics of
     one synthetic frame: one train-mode forward of `inputs` (imgs, mats,
     points on the model's device), momentum 1. Leaves the model in eval
-    mode.
+    mode. The BatchNorms of the module `keep` stay in eval mode and keep
+    their statistics.
 
     Seeded random weights leave BN the identity, so activations grow
     through the residual stacks (~3x in variance per bottleneck) until the
@@ -858,13 +1012,17 @@ def calibrate_batchnorm_(model, inputs, camera_renders=False):
     trained model's would.
     """
     import torch
-    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    kept = set(keep.modules()) if keep is not None else set()
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.BatchNorm2d) and m not in kept]
     for m in bns:
         m.momentum = 1.0
     imgs, mats, points = inputs
     model.train()
     for m in bns:       # the frozen stem's BN too, which train() leaves out
         m.train()
+    if keep is not None:
+        keep.eval()
     with torch.no_grad():
         model(imgs, mats, points=points, camera_renders=camera_renders)
     model.eval()
@@ -1069,18 +1227,10 @@ def check_against_plain(label, server, sample, served, keys,
             head.bias.copy_(saved[1])
 
 
-def slice_phase(card, cfg=None, dev='cuda', label=''):
-    """N_REQUESTS requests on each graph of `cfg` (the flagship's by
-    default) through InferenceServer, checked as the docstring of this
-    script says. Returns the launch counts of each graph and its median
-    request ms (host clock)."""
-    import numpy as np
-    import torch
-    from vampire_tpu_torch.configs import flagship_config, synthetic_batch
-    from vampire_tpu_torch.serving import InferenceServer
-
-    cfg = cfg or flagship_config()
-    lk = lift_keys(cfg)[0]
+def request_frames(cfg):
+    """N_REQUESTS val-mode synthetic samples of `cfg` (seeds 0, 1, ...) and
+    one more, the BN calibration frame."""
+    from vampire_tpu_torch.configs import synthetic_batch
     frames = []
     for i in range(N_REQUESTS + 1):
         b = synthetic_batch(cfg, batch_size=1,
@@ -1089,15 +1239,36 @@ def slice_phase(card, cfg=None, dev='cuda', label=''):
         frames.append({k: np.asarray(b[k])[0] for k in
                        ('imgs', 'sensor2ego', 'intrin', 'ida', 'bda',
                         'points')})
-    samples, calib = frames[:N_REQUESTS], frames[N_REQUESTS]
+    return frames[:N_REQUESTS], frames[N_REQUESTS]
+
+
+def served_shapes(cfg, N):
+    """The shapes of a served request's outputs for N cameras: the metrics
+    graph's, and the full-render graph's."""
     bc = cfg.backbone
     gx, gy, gz = bc.occ_grid
     Kc, P = bc.num_classes, cfg.train.max_points
-    N = samples[0]['imgs'].shape[0]
     H, W = bc.final_dim
     _, Yd, Xd = bc.grid_zyx('det')
     metric = dict(occ_logits=(gx, gy, gz, Kc), occ_density=(gx, gy, gz),
                   pts_logits=(P, Kc))
+    return metric, dict(metric, depth_preds=(N, H, W), seg_preds=(N, H, W),
+                        bev_seg=(Yd, Xd))
+
+
+def slice_phase(card, cfg=None, dev='cuda', label=''):
+    """N_REQUESTS requests on each graph of `cfg` (the flagship's by
+    default) through InferenceServer, checked as the docstring of this
+    script says. Returns the launch counts of each graph and its median
+    request ms (host clock)."""
+    import torch
+    from vampire_tpu_torch.configs import flagship_config
+    from vampire_tpu_torch.serving import InferenceServer
+
+    cfg = cfg or flagship_config()
+    lk = lift_keys(cfg)[0]
+    samples, calib = request_frames(cfg)
+    metric, full = served_shapes(cfg, samples[0]['imgs'].shape[0])
     launched, ms = {}, {}
 
     # the metrics graph: no corner table, no rays
@@ -1120,9 +1291,7 @@ def slice_phase(card, cfg=None, dev='cuda', label=''):
     outs, launched['full'], ms['full'] = serve_path(card, server, calib,
                                                     samples, name)
     check_launches(name, launched['full'], {lk: 1, 'rays': 1})
-    check_outputs(name, outs,
-                  dict(metric, depth_preds=(N, H, W), seg_preds=(N, H, W),
-                       bev_seg=(Yd, Xd)), cfg)
+    check_outputs(name, outs, full, cfg)
     check_against_plain(name, server, samples[0], outs[0], metric,
                         ('rgb_preds', 'seg_logits_preds', 'depth_preds'))
     del server, outs
@@ -1889,9 +2058,9 @@ def data_phase(card, synthetic_step_ms, cfg=None, dev='cuda'):
         peak = (torch.cuda.max_memory_allocated() / 1e9 if dev == 'cuda'
                 else float('nan'))
         n = len(loader)
-        per_step = dict(lift=1, corner_table=0, rays=1, lift_bwd=1,
-                        corner_table_bwd=0, rays_bwd=1, lift_bilinear=0,
-                        lift_bilinear_bwd=0)
+        per_step = dict(lift=1, corner_table=0, rays=1, rays_stop=0,
+                        lift_bwd=1, corner_table_bwd=0, rays_bwd=1,
+                        lift_bilinear=0, lift_bilinear_bwd=0)
         if launched != {k: v * n for k, v in per_step.items()}:
             raise AssertionError(f'data fit: kernel launches {launched} for '
                                  f'{n} steps, want {per_step} a step')
@@ -2252,6 +2421,488 @@ def variants_phase(card, cfg=None, dev='cuda'):
     out['sweeps'] = sweep_phase(card, cfg, dev)
     out['dense'] = dense_phase(card, cfg, dev)
     return out
+
+
+@contextlib.contextmanager
+def recording_earlyterm():
+    """Record each call of the early-termination op (`render_rays_earlyterm`,
+    looked up by the model at call time): its renders and diagnostic, the
+    largest |value| of its field's seg and rgb channels, its arguments, its
+    stops and each ray's optical depth at its stop."""
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.ops import rays
+    rec = []
+    op, stops, drops = (rays.render_rays_earlyterm, R.earlyterm_stops,
+                        R.earlyterm_uncovered_drops)
+
+    def op_rec(*args, **kw):
+        rec.append({})
+        out, diag = op(*args, **kw)
+        field = args[0].detach()
+        K = field.shape[-1] - 4
+        rec[-1].update(out=out.detach(), diag=int(diag), args=args,
+                       field_max=dict(
+            seg=field[..., 1:K + 1].abs().max().item(),
+            rgb=field[..., K + 1:].abs().max().item()))
+        return out, diag
+
+    def stops_rec(*args, **kw):
+        res = stops(*args, **kw)
+        rec[-1]['stop'] = res[0]
+        return res
+
+    def drops_rec(sd_stop, *args, **kw):
+        rec[-1]['sd'] = sd_stop
+        return drops(sd_stop, *args, **kw)
+    try:
+        rays.render_rays_earlyterm = op_rec
+        R.earlyterm_stops = stops_rec
+        R.earlyterm_uncovered_drops = drops_rec
+        yield rec
+    finally:
+        rays.render_rays_earlyterm = op
+        R.earlyterm_stops = stops
+        R.earlyterm_uncovered_drops = drops
+
+
+def earlyterm_serve(card, cfg, dev, dense_ms):
+    """The full-render graph of `cfg` with ray_et_fracs = ET_FRACS, under a
+    partly-opaque density head, through InferenceServer: N_REQUESTS
+    requests (the lift once and the ray kernel's stop mode twice a
+    request), the diagnostic, and one request under
+    `utils.profiling.run_time`. Request 0's kernel forward is checked
+    twice over. On its own inputs: the plain march at the forward's own
+    stops gives every ray's render within RAY_RTOL, and the stops the plain
+    key gives move at most ET_CROSSED_MAX of the rays (the two sum a ray's
+    optical depth in different orders). Against the forward under
+    plain=True: the rays both stop alike within the dense comparison's
+    SLICE_RTOL, at most ET_CROSSED_MAX of the rays stop differently, and
+    those are printed beside exp(-min(sd, tau)) x the value scale, sd the
+    smaller optical depth at the ray's two stops (what the samples past the
+    earlier stop can add; the field's largest |value| of the channels for
+    seg and rgb, bg_depth for the depth)."""
+    import math
+    import torch
+    from vampire_tpu_torch.serving import InferenceServer
+    from vampire_tpu_torch.utils.profiling import run_time
+    bc = dataclasses.replace(cfg.backbone, ray_et_fracs=ET_FRACS)
+    cfg = dataclasses.replace(cfg, backbone=bc)
+    samples, calib = request_frames(cfg)
+    server = InferenceServer(cfg, device=dev, dtype=torch.bfloat16,
+                             outputs=None, seed=0)
+    model = server.model
+    calibrate_batchnorm_(model, server.to_device(
+        {k: v[None] for k, v in calib.items()}), True)
+    imgs, mats, points = server.to_device({k: v[None]
+                                           for k, v in samples[0].items()})
+    head = model.backbone.density_conv
+    with torch.no_grad():
+        scale, bias, partial = partly_opaque_density(model, imgs, mats)
+        head.weight.mul_(scale)
+        head.bias.fill_(bias)
+    say(f'extras early-term: density head weight x{scale:.4g}, bias '
+        f'{bias:+.4f}, under which {partial:.3f} of the rays end in '
+        f'(0.05, 0.95)')
+    server.start()
+    outs, lat = [], []
+    try:
+        server.warmup()
+        reset_counts()
+        for smp in samples:
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            outs.append(server.infer(smp))
+            lat.append((time.perf_counter() - h0) * 1e3)
+        launched = counts()
+        run_time('extras early-term request')(server.infer)(samples[0])
+    finally:
+        server.stop()
+    ms = statistics.median(lat)
+    check_launches('extras early-term', launched, {'lift': 1, 'rays_stop': 2})
+    check_outputs('extras early-term', outs,
+                  served_shapes(cfg, samples[0]['imgs'].shape[0])[1], cfg)
+    with torch.inference_mode(), recording_earlyterm() as rec:
+        model(imgs, mats, points=points)
+        model(imgs, mats, points=points, plain=True)
+    kern, plain = rec
+    n_rays = kern['stop'].shape[0]
+    limit = int(ET_CROSSED_MAX * n_rays)
+    # the kernel forward on its own inputs: the plain march at its stops,
+    # and the stops of the plain key
+    from vampire_tpu_torch.core import rendering as R
+    kargs = kern['args']
+    march = kargs[:9]
+    chunk, prefix, fracs = kargs[9:12]
+    with torch.inference_mode():
+        first = torch.full_like(kern['stop'], min(kargs[2].shape[1],
+                                                  prefix * chunk))
+        _, psd1 = R.sample_and_composite_rays_field_reference(
+            *march, stop=first, with_sd=True)
+        own_crossed = int((R.earlyterm_stops(psd1, kargs[2], chunk, prefix,
+                                             fracs)[0] != kern['stop']).sum())
+        want, wsd = R.sample_and_composite_rays_field_reference(
+            *march, stop=kern['stop'], with_sd=True)
+    for name, sl in ray_groups(bc.num_classes) + (('sd', None),):
+        g, w = ((kern['sd'], wsd) if sl is None
+                else (kern['out'][:, sl], want[:, sl]))
+        e = (g - w).abs().max().item()
+        tol = RAY_RTOL * max(1.0, w.abs().max().item())
+        if not e <= tol:
+            raise AssertionError(f'extras early-term {name}: the kernel '
+                                 f'forward vs the plain march at its own '
+                                 f'stops {e} > {tol}')
+    say(f'extras early-term request 0, the kernel forward against the plain '
+        f'march at its own stops: every ray within RAY_RTOL; the plain key '
+        f'moves {own_crossed} of {n_rays} stops (at most {limit})')
+    if own_crossed > limit:
+        raise AssertionError(f'extras early-term: the plain key moves '
+                             f'{own_crossed} of the forward\'s {n_rays} stops, '
+                             f'more than {limit}')
+    same = kern['stop'] == plain['stop']
+    crossed = int((~same).sum())
+    sd_min = torch.minimum(kern['sd'], plain['sd'])
+    err = 0.0
+    for name, sl in ray_groups(bc.num_classes):
+        diff = (kern['out'][:, sl] - plain['out'][:, sl]).abs().amax(-1)
+        tol = SLICE_RTOL * max(1.0, plain['out'][:, sl].abs().max().item())
+        vscale = (bc.d_bound[1] if name == 'depth' else max(
+            kern['field_max'][name], plain['field_max'][name]))
+        e_same = diff[same].max().item()
+        bound = tol + vscale * torch.exp(-sd_min.clamp(max=bc.ray_et_tau))
+        over = int((diff > bound)[~same].sum())
+        say(f'extras early-term request 0, kernels vs plain versions: '
+            f'{name} max abs err {e_same:.3e} over the rays stopped alike '
+            f'(tol {tol:.3e}), '
+            + (f'{diff[~same].max().item():.3e} over the {crossed} others, '
+               f'{over} of them past tol + exp(-min(sd, tau)) x scale '
+               f'(their optical depth at the earlier stop '
+               f'{sd_min[~same].min().item():.3f}..'
+               f'{sd_min[~same].max().item():.3f}; exp(-tau) x scale '
+               f'{math.exp(-bc.ray_et_tau) * vscale:.3e})'
+               if crossed else 'no ray stopped differently'))
+        if not e_same <= tol:
+            raise AssertionError(f'extras early-term {name}: kernel vs plain '
+                                 f'{e_same} > {tol} over the rays stopped '
+                                 f'alike')
+        err = max(err, e_same)
+    if crossed > limit:
+        raise AssertionError(f'extras early-term: {crossed} of {n_rays} rays '
+                             f'stop differently under plain=True, more than '
+                             f'{limit}')
+    n_unsat = int((sd_min[~same] < bc.ray_et_tau).sum())
+    say(f'extras early-term: {N_REQUESTS} requests, median {ms:.2f} ms (the '
+        f'dense full-render graph {dense_ms:.2f} ms, host clock); uncovered '
+        f'drops {kern["diag"]} (plain {plain["diag"]}); {crossed} rays '
+        f'crossed a cap differently, {n_unsat} of them below tau; launches '
+        f'{launched} [{card}]')
+    return dict(launched=launched, request_ms=ms, dense_request_ms=dense_ms,
+                diag=kern['diag'], plain_diag=plain['diag'], crossed=crossed,
+                crossed_below_tau=n_unsat, own_crossed=own_crossed,
+                max_abs_err=err)
+
+
+def compact_fracs(bc):
+    """ray_pass_fracs that drop in-field samples: every ray in the first
+    COMPACT_KEEP passes, 0.3 of them (the longest) in the others."""
+    from vampire_tpu_torch.core import geometry as G
+    n_pass = -(-len(G.make_camera_mids(bc.d_bound)) // bc.ray_chunk)
+    return (1.0,) * COMPACT_KEEP + (0.3,) * (n_pass - COMPACT_KEEP)
+
+
+def compact_render_gap(card, trainer, batch):
+    """Under `partly_opaque_density` (fitted in train mode), the train-mode
+    renders of `trainer`'s compact sampler against the dense sampler's on
+    the same weights: the largest depth difference, which must exceed the
+    dense ray comparison's RAY_RTOL tolerance (the caps dropped in-field
+    samples), and the in-field samples dropped. The weights and buffers
+    are restored."""
+    import torch
+    from vampire_tpu_torch.core import geometry as G
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.models.field import ray_inputs
+    from vampire_tpu_torch.training.train_step import split_mats
+    model = trainer.model
+    bb = model.backbone
+    bc = bb.cfg
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    b = trainer.to_device(batch)
+    mats = split_mats(b)
+    model.train()
+    try:
+        with torch.no_grad():
+            scale, bias, _ = partly_opaque_density(model, b['imgs'], mats,
+                                                   b['points'])
+            bb.density_conv.weight.mul_(scale)
+            bb.density_conv.bias.fill_(bias)
+            fo, _ = model(b['imgs'], mats, points=b['points'])
+            bb.cfg = dataclasses.replace(bc, ray_pass_fracs=())
+            fd, _ = model(b['imgs'], mats, points=b['points'])
+    finally:
+        bb.cfg = bc
+        model.load_state_dict(saved)
+    gap = (fo['depth_preds'] - fd['depth_preds']).abs().max().item()
+    tol = RAY_RTOL * max(1.0, fd['depth_preds'].abs().max().item())
+    geom = G.get_geometry(bb.frustum, mats['sensor2ego'], mats['intrin'],
+                          mats['ida'], mats.get('bda'))
+    valid = ray_inputs(geom, bc)[1][0]
+    capped = R.compact_valid(valid, bc.ray_chunk, bc.ray_pass_fracs)
+    dropped = int(((valid > 0) & (capped == 0)).sum())
+    say(f'extras compact: the caps {bc.ray_pass_fracs} drop {dropped} of '
+        f'{int((valid > 0).sum())} in-field samples; train-mode depth vs the '
+        f'dense sampler max abs {gap:.4f} (the dense comparison\'s tol '
+        f'{tol:.2e}) [{card}]')
+    if not (dropped > 0 and gap > tol):
+        raise AssertionError(f'extras compact: the caps dropped {dropped} '
+                             f'samples and moved the depth by {gap}')
+    return dict(dropped=dropped, depth_gap=gap)
+
+
+def extras_train(card, cfg, dev):
+    """The compact sampler (`compact_fracs`) and the rgb loss
+    (loss_weights[2] = 1) at full width: step 0's gradients in fp32
+    through the kernels against plain=True under `partly_opaque_density`
+    (`compare_grads`), the renders against the dense sampler's
+    (`compact_render_gap`); then `fit` in bf16 over N_EXTRA_BATCHES batches
+    with image_every=1 (launches: a step's lift and rays each way, and the
+    panels' eval forward; finite rgb_loss; 6 PNGs a step), one direct
+    `log_images` call timed, N_EXTRA_TIMED steps timed, and one step under
+    `utils.profiling.trace`, whose Chrome trace must be a non-empty file."""
+    import torch
+    from vampire_tpu_torch.configs import synthetic_batch
+    from vampire_tpu_torch.training.train_step import (build_train_step,
+                                                       init_train_confusion)
+    from vampire_tpu_torch.training.trainer import Trainer
+    from vampire_tpu_torch.utils.profiling import trace
+    lw = list(cfg.train.loss_weights)
+    lw[2] = 1.0
+    cfg = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(
+            cfg.backbone, ray_pass_fracs=compact_fracs(cfg.backbone)),
+        train=dataclasses.replace(cfg.train, loss_weights=tuple(lw),
+                                  max_epochs=1))
+    loader = [synthetic_batch(cfg, batch_size=1,
+                              n_points=cfg.train.max_points, seed=30 + i,
+                              mode='train') for i in range(N_EXTRA_BATCHES)]
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, compute_dtype='float32'))
+    with tempfile.TemporaryDirectory() as wd:
+        tr32 = Trainer(cfg32, workdir=wd, device=dev)
+        tr32.init_state(loader[0], 1)
+        kern, again, plain = opaque_step_grads(
+            card, tr32, loader[0], 'extras compact + rgb fp32',
+            [(False, False), (False, False), (True, False)])
+        grad = compare_grads(card, 'extras compact + rgb step 0 gradients, '
+                             'fp32, kernels vs plain versions', kern, plain,
+                             again, TRAIN_GRAD_RTOL)
+        del kern, again, plain
+        gap = compact_render_gap(card, tr32, loader[0])
+        del tr32
+    with tempfile.TemporaryDirectory() as wd:
+        trainer = Trainer(cfg, workdir=wd, device=dev)
+        state = trainer.init_state(loader[0], len(loader))
+        reset_counts()
+        t0 = time.perf_counter()
+        state = trainer.fit(loader, state=state, log_every=1, image_every=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launched = counts()
+        n = N_EXTRA_BATCHES
+        want = {k: 0 for k in launched}
+        want.update(lift=2 * n, rays=2 * n, lift_bwd=n, rays_bwd=n)
+        if launched != want:
+            raise AssertionError(f'extras fit: kernel launches {launched}, '
+                                 f'want {want} for {n} steps with panels')
+        with open(os.path.join(trainer.workdir, 'scalars.jsonl')) as f:
+            steps = [r for r in map(json.loads, f) if 'total_loss' in r]
+        rgb = [r['rgb_loss'] for r in steps]
+        if len(rgb) != n or not all(np.isfinite(v) and v > 0 for v in rgb):
+            raise AssertionError(f'extras fit: rgb_loss {rgb}')
+        panel_dir = os.path.join(trainer.workdir, 'panels')
+        names = sorted(os.listdir(panel_dir))
+        want_names = sorted(f'{s:07d}_{p}.png' for s in range(1, n + 1)
+                            for p in PANELS)
+        if names != want_names or not all(
+                os.path.getsize(os.path.join(panel_dir, f)) > 0
+                for f in names):
+            raise AssertionError(f'extras fit: panels {names}, want '
+                                 f'{want_names}')
+        dev_batch = trainer.to_device(loader[0])
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        trainer.log_images(state, dev_batch)
+        torch.cuda.synchronize()
+        panel_ms = (time.perf_counter() - h0) * 1e3
+        step = build_train_step(cfg)
+        conf = init_train_confusion(cfg, trainer.device)
+        times = []
+        for i in range(N_EXTRA_TIMED):
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            state, logs, conf = step(state, trainer.to_device(
+                loader[i % n]), conf)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - h0) * 1e3)
+        with trace(os.path.join(wd, 'trace')) as prof:
+            state, logs, conf = step(state, dev_batch, conf)
+            torch.cuda.synchronize()
+        trace_bytes = os.path.getsize(prof.trace_path)
+        if trace_bytes == 0:
+            raise AssertionError('extras: the trace file is empty')
+        with open(prof.trace_path) as f:
+            events = json.load(f)['traceEvents']
+        n_kernels = sum(e.get('cat') == 'kernel' for e in events)
+    ms = statistics.median(times)
+    say(f'extras fit (compact caps, rgb loss, panels every step): {n} '
+        f'steps in {fit_s:.2f} s, rgb_loss '
+        f'{", ".join(f"{v:.4f}" for v in rgb)}'
+        f', launches {launched}; {len(names)} panels; log_images '
+        f'{panel_ms:.1f} ms; step median {ms:.2f} ms '
+        f'({", ".join(f"{t:.1f}" for t in times)}); trace of one step '
+        f'{trace_bytes} bytes, {n_kernels} device kernel events [{card}]')
+    return dict(grad=grad, compact=gap, fit_launches=launched, rgb_loss=rgb,
+                step_ms=ms, log_images_ms=panel_ms, trace_bytes=trace_bytes,
+                trace_kernel_events=n_kernels)
+
+
+def torchvision_resnet50(seed):
+    """The state dict torchvision's resnet50 saves (keys, OIHW shapes, BN
+    statistics, num_batches_tracked, fc), with values from a seeded
+    torch.Generator: He-scaled kernels, BN statistics near (0, 1), and
+    each residual branch's last BN weight small (torchvision's
+    zero_init_residual would make it 0), so that activations stay in
+    range through the 16 blocks."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[f'{name}.weight'] = (torch.randn(cout, cin, k, k, generator=g)
+                                * (2.0 / (cin * k * k)) ** 0.5)
+
+    def bn(name, c, last=False):
+        w = torch.rand(c, generator=g)
+        sd[f'{name}.weight'] = 0.1 + 0.2 * w if last else 0.8 + 0.4 * w
+        sd[f'{name}.bias'] = 0.1 * torch.randn(c, generator=g)
+        sd[f'{name}.running_mean'] = 0.1 * torch.randn(c, generator=g)
+        sd[f'{name}.running_var'] = 0.5 + torch.rand(c, generator=g)
+        sd[f'{name}.num_batches_tracked'] = torch.tensor(1000)
+
+    conv('conv1', 64, 3, 7)
+    bn('bn1', 64)
+    cin = 64
+    for i, nb in enumerate((3, 4, 6, 3)):
+        planes = 64 * 2 ** i
+        for j in range(nb):
+            base = f'layer{i + 1}.{j}'
+            for k, (co, ci, ks) in enumerate(
+                    ((planes, cin, 1), (planes, planes, 3),
+                     (planes * 4, planes, 1)), 1):
+                conv(f'{base}.conv{k}', co, ci, ks)
+                bn(f'{base}.bn{k}', co, last=k == 3)
+            if j == 0:
+                conv(f'{base}.downsample.0', planes * 4, cin, 1)
+                bn(f'{base}.downsample.1', planes * 4)
+            cin = planes * 4
+    sd['fc.weight'] = 0.01 * torch.randn(1000, cin, generator=g)
+    sd['fc.bias'] = torch.zeros(1000)
+    return sd
+
+
+def graft_serve(card, cfg, dev):
+    """`Trainer.init_state` with train.pretrained_backbone naming a
+    torchvision ResNet-50 .pth written here (`torchvision_resnet50`, no
+    download): every image-backbone tensor must equal the file's bit for
+    bit. Then an InferenceServer on the grafted weights (the other BN
+    layers calibrated, the backbone's statistics the file's) serves one
+    full-render request under `utils.profiling.run_time`: one lift and one
+    ray launch, finite outputs of the served shapes."""
+    import torch
+    from vampire_tpu_torch.serving import InferenceServer
+    from vampire_tpu_torch.training.trainer import Trainer
+    from vampire_tpu_torch.utils.profiling import run_time
+    from vampire_tpu_torch.utils.torch_weights import (
+        convert_torchvision_resnet)
+    sd = torchvision_resnet50(4)
+    samples, calib = request_frames(cfg)
+    with tempfile.TemporaryDirectory() as wd:
+        path = os.path.join(wd, 'resnet50.pth')
+        torch.save(sd, path)
+        gcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, pretrained_backbone=path))
+        tr = Trainer(gcfg, workdir=wd, device=dev)
+        tr.init_state(None, 1)
+        own = {k: v for k, v in
+               tr.model.backbone.img_backbone.state_dict().items()
+               if not k.endswith('num_batches_tracked')}
+        conv = convert_torchvision_resnet(sd, 50)
+        bad = sorted(set(own) ^ set(conv)) + [
+            k for k in own if k in conv and not torch.equal(own[k].cpu(),
+                                                            conv[k])]
+        if bad:
+            raise AssertionError(f'extras graft: {len(bad)} backbone tensors '
+                                 f'differ from the checkpoint: {bad[:5]}')
+        state = {k: v.detach().clone() for k, v in
+                 tr.model.state_dict().items()}
+        del tr
+    server = InferenceServer(gcfg, device=dev, state_dict=state,
+                             dtype=torch.bfloat16, outputs=None)
+    calibrate_batchnorm_(server.model, server.to_device(
+        {k: v[None] for k, v in calib.items()}), True,
+        keep=server.model.backbone.img_backbone)
+    kept = server.model.backbone.img_backbone.state_dict()
+    if not all(torch.equal(kept[k].cpu(), conv[k]) for k in conv):
+        raise AssertionError('extras graft: calibration moved the grafted '
+                             'backbone')
+    server.start()
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        out = run_time('extras grafted request')(server.infer)(samples[0])
+        ms = (time.perf_counter() - h0) * 1e3
+        launched = counts()
+    finally:
+        server.stop()
+    want = {k: 0 for k in launched}
+    want.update(lift=1, rays=1)
+    shapes = served_shapes(cfg, samples[0]['imgs'].shape[0])[1]
+    bad = [k for k, shp in shapes.items()
+           if out[k].shape != shp or not np.isfinite(out[k]).all()]
+    if launched != want or bad:
+        raise AssertionError(f'extras graft: launches {launched} (want '
+                             f'{want}), bad outputs {bad}')
+    say(f'extras graft: {len(conv)} torchvision ResNet-50 tensors grafted '
+        f'bit for bit; one request {ms:.2f} ms (first on a new server), '
+        f'{len(out["det"][0])} boxes after NMS [{card}]')
+    return dict(launched=launched, request_ms=ms, tensors=len(conv))
+
+
+def extras_phase(card, dense_ms, cfg=None, dev='cuda'):
+    """What the JAX package does beyond the paths above, at full width
+    (`cfg`, the flagship's by default), bf16, B=1: the early-termination
+    sampler served (`earlyterm_serve`), the compact sampler and the rgb
+    loss trained with the panels written (`extras_train`), and the
+    torchvision graft served (`graft_serve`), with `utils.profiling`
+    around a request and a step. Returns each part's launches and
+    times."""
+    from vampire_tpu_torch.configs import flagship_config
+    cfg = cfg or flagship_config()
+    t0 = time.perf_counter()
+    out = dict(earlyterm=earlyterm_serve(card, cfg, dev, dense_ms),
+               train=extras_train(card, cfg, dev),
+               graft=graft_serve(card, cfg, dev))
+    out['wall_s'] = time.perf_counter() - t0
+    say(f'extras: early termination, compact training, the rgb loss, the '
+        f'panels, the graft and the profiler in {out["wall_s"]:.1f} s '
+        f'[{card}]')
+    return out
+
+
+def extras_launches(ex, kernel):
+    """A kernel's launches in each run of the extras phase."""
+    return dict(earlyterm=ex['earlyterm']['launched'][kernel],
+                fit=ex['train']['fit_launches'][kernel],
+                graft=ex['graft']['launched'][kernel])
 
 
 def probe_phase(card):
@@ -2691,13 +3342,15 @@ def main():
     card = device_phase()
     build_phase()
     k = kernel_phase(card)
-    launched = slice_phase(card)['full']
+    served = slice_phase(card)
+    launched = served['full']
     train = train_phase(card)
     tl = train['launched']
     ev = eval_phase(card)
     data = data_phase(card, train['step_ms'])
     var = variants_phase(card)
     multi = multi_phase(card)
+    extras = extras_phase(card, served['ms']['full'])
     probes, pl = probe_phase(card)
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                     ('jax', 'jaxlib', 'flax', 'optax', 'vampire_tpu'))
@@ -2724,6 +3377,7 @@ def main():
         'data_launches': data_launches(data, 'lift'),
         'variant_launches': variant_launches(var, 'lift'),
         'multi_launches': multi_launches(multi, 'lift'),
+        'extras_launches': extras_launches(extras, 'lift'),
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -2741,6 +3395,7 @@ def main():
         'train_launches': tl['corner_table'],
         'eval_launches': eval_launches(ev, 'corner_table'),
         'data_launches': data_launches(data, 'corner_table'),
+        'extras_launches': extras_launches(extras, 'corner_table'),
         'max_abs_err': k['corner_table']['max_abs_err'],
         'ms': k['corner_table']['bfloat16']['ms'],
         'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
@@ -2767,6 +3422,7 @@ def main():
         'data_launches': data_launches(data, 'rays'),
         'variant_launches': variant_launches(var, 'rays'),
         'multi_launches': multi_launches(multi, 'rays'),
+        'extras_launches': extras_launches(extras, 'rays'),
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
@@ -2775,6 +3431,28 @@ def main():
         'library_ms': None,
         'table_bound_ms': k['rays']['table_bound_ms'],
         'plan': k['rays']['plan'],
+    }, {
+        'name': 'sample_and_composite_rays_stop',
+        'route': 'cuda',
+        'source': f'{csrc}/rays.cu',
+        'replaces': 'vampire_tpu/core/rendering.py:331',
+        'replaces_on': 'the early-termination sampler (XLA there), two '
+                       'launches of rays_kernel\'s stop mode a frame',
+        'launches': extras['earlyterm']['launched']['rays_stop'],
+        'extras_launches': extras_launches(extras, 'rays_stop'),
+        'train_launches': tl['rays_stop'],
+        'per': 'frame (ms: launch 1 + launch 2; bound: one read of each '
+               'sample before its final stop, launch 2\'s)',
+        'max_abs_err': k['rays_stop']['max_abs_err'],
+        'ms': k['rays_stop']['ms'],
+        'plain_ms': k['rays_stop']['plain_ms'],
+        'bound_ms': k['rays_stop']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
+        'launch_ms': k['rays_stop']['launch_ms'],
+        'launch_plain_ms': k['rays_stop']['launch_plain_ms'],
+        'launch_bound_ms': k['rays_stop']['launch_bound_ms'],
+        'crossed': k['rays_stop']['crossed'],
     }, {
         'name': 'lift_backward',
         'route': 'cuda',
@@ -2788,6 +3466,7 @@ def main():
         'data_launches': data_launches(data, 'lift_bwd'),
         'variant_launches': variant_launches(var, 'lift_bwd'),
         'multi_launches': multi_launches(multi, 'lift_bwd'),
+        'extras_launches': extras_launches(extras, 'lift_bwd'),
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
@@ -2807,6 +3486,7 @@ def main():
         'metrics_launches': bil['serve']['metrics']['lift_bilinear'],
         'train_launches': bil['train']['launched']['lift_bilinear'],
         'validate_launches': bil['validate']['launched']['lift_bilinear'],
+        'extras_launches': extras_launches(extras, 'lift_bilinear'),
         'per': 'frame',
         'max_abs_err': k['lift_bilinear']['max_abs_err'],
         'ms': k['lift_bilinear']['bfloat16']['ms'],
@@ -2824,6 +3504,7 @@ def main():
         'replaces_on': 'the bilinear lift\'s training',
         'launches': bil['train']['launched']['lift_bilinear_bwd'],
         'serve_launches': bil['serve']['full']['lift_bilinear_bwd'],
+        'extras_launches': extras_launches(extras, 'lift_bilinear_bwd'),
         'per': 'frame',
         'ctas': k['lift_bilinear_bwd']['ctas'],
         'live_ctas': k['lift_bilinear_bwd']['live_ctas'],
@@ -2843,6 +3524,7 @@ def main():
         'launches': tl['corner_table_bwd'],
         'eval_launches': eval_launches(ev, 'corner_table_bwd'),
         'data_launches': data_launches(data, 'corner_table_bwd'),
+        'extras_launches': extras_launches(extras, 'corner_table_bwd'),
         'max_abs_err': k['corner_table_bwd']['max_abs_err'],
         'ms': k['corner_table_bwd']['bfloat16']['ms'],
         'plain_ms': k['corner_table_bwd']['bfloat16']['plain_ms'],
@@ -2862,6 +3544,7 @@ def main():
         'data_launches': data_launches(data, 'rays_bwd'),
         'variant_launches': variant_launches(var, 'rays_bwd'),
         'multi_launches': multi_launches(multi, 'rays_bwd'),
+        'extras_launches': extras_launches(extras, 'rays_bwd'),
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
         'plain_ms': k['rays_bwd']['plain_ms'],
@@ -2902,6 +3585,17 @@ def main():
             'step_ms', 'peak_gb', 'request_ms')},
         'dense': {k: var['dense'][k] for k in (
             'request_ms', 'max_abs_err', 'dropped')},
+        'extras': dict(
+            wall_s=extras['wall_s'],
+            earlyterm={k: extras['earlyterm'][k] for k in (
+                'request_ms', 'dense_request_ms', 'diag', 'plain_diag',
+                'crossed', 'crossed_below_tau', 'own_crossed',
+                'max_abs_err')},
+            train={k: extras['train'][k] for k in (
+                'step_ms', 'log_images_ms', 'rgb_loss', 'trace_bytes',
+                'trace_kernel_events')},
+            compact=extras['train']['compact'],
+            graft_request_ms=extras['graft']['request_ms']),
         'multi': {k: multi[k] for k in (
             'world', 'backend', 'dtype', 'dist_step_ms', 'single_step_ms',
             'dist_peak_gb', 'single_peak_gb', 'grad_rel_median',

@@ -1,8 +1,9 @@
 """The port's CLI (`vampire_tpu_torch/cli.py`) against the JAX package's:
 the argument parser (the same namespace for the same argv, but for the
 port's `--device`), the `ablation_config` presets, the flags of the
-ROADMAP.md items (the items still open raise and name themselves; those
-of items 5 and 6 run), and `--debug` end to end on a fake nuScenes tree at `tiny_config`
+ROADMAP.md items (items 5, 6 and 9 are ported and run; item 9's
+`--pretrained-backbone` raises the JAX converter's KeyError at the tiny
+depth 10), and `--debug` end to end on a fake nuScenes tree at `tiny_config`
 on the CPU: fit for one epoch, then `-v`, `-t` (the in-repo NDS/mAP), `-p`
 (the lidarseg bins) and `-t --vis` (the pickles)."""
 import dataclasses
@@ -93,14 +94,20 @@ def test_num_devices_spawns_ranks_without_a_deadline(monkeypatch):
     (['--debug', '--sweep-idxes', '0', '--no-resume'], 'item 6'),
     (['--debug', '--sweep-idxes', '0', '-v'], 'item 6'),
     (['--debug', '--pretrained-backbone', 'r50.pth'], 'item 9'),
+    (['--debug', '--pretrained-backbone', 'r18.pth'], 'item 9 graft'),
 ])
-def test_flags_of_unported_code_raise(tree, tmp_path, argv, item):
-    """The flags of the ROADMAP.md items. Those of the open items raise
-    NotImplementedError naming the item: the pretrained backbone at init.
-    Item 5's is ported: `--debug --device cpu --num-devices 2` starts two
-    gloo ranks, which fit one epoch (one global batch of the 2 samples)
-    with a checkpoint and the losses from rank 0 alone, then validate to
-    their end. Item 6's are ported and run to their end:
+def test_flags_of_unported_code_raise(tree, tmp_path, monkeypatch, argv,
+                                      item):
+    """The flags of the ROADMAP.md items, all ported now. Item 9's
+    `--pretrained-backbone` reads the .pth it names (written here, the keys
+    of torchvision's ResNet-18): `--debug` (tiny_config, image backbone
+    depth 10) raises the JAX converter's KeyError for depth 10, and with
+    tiny_config's image backbone at depth 18 the file is grafted at init
+    and one epoch fits, the frozen stem still the file's conv1 and bn1 in
+    the checkpoint. Item 5's: `--debug --device cpu --num-devices 2`
+    starts two gloo ranks, which fit one epoch (one global batch of the 2
+    samples) with a checkpoint and the losses from rank 0 alone, then
+    validate to their end. Item 6's are ported and run to their end:
     --sweep-idxes fits for one epoch on 12-view batches, and -v restores a
     checkpoint of the same tree first, then validates on them; an --exp
     of the bilinear, lss and vampire2 experiments resolves its config
@@ -120,9 +127,34 @@ def test_flags_of_unported_code_raise(tree, tmp_path, argv, item):
         assert [p.name for p in (exp / 'checkpoints').iterdir()] == ['0.pt']
         cli.main(common + ['--debug', '-v'] + argv)
         return
-    if item != 'item 6':
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(common + argv)
+    if item.startswith('item 9'):
+        import torch
+        from test_torch_torch_weights import torchvision_resnet
+        from vampire_tpu_torch.data import synthetic
+        sd = torchvision_resnet(18)
+        path = tmp_path / argv[-1]
+        torch.save(sd, path)
+        argv = argv[:-1] + [str(path)]
+        if item == 'item 9':
+            with pytest.raises(KeyError, match='10'):
+                cli.main(common + argv)
+            return
+        tiny = synthetic.tiny_config()
+        r18 = dataclasses.replace(tiny, backbone=dataclasses.replace(
+            tiny.backbone, img_backbone_depth=18))
+        monkeypatch.setattr(synthetic, 'tiny_config', lambda: r18)
+        cli.main(common + ['--no-resume'] + argv)
+        exp = tmp_path / tiny.train.exp_name
+        bundle = torch.load(exp / 'checkpoints' / '0.pt', weights_only=False)
+        stem = {k: v for k, v in dict(bundle['params'],
+                                      **bundle['buffers']).items()
+                if k.startswith('backbone.img_backbone.stem.')
+                and 'num_batches' not in k}
+        assert len(stem) == 5
+        for k, v in stem.items():
+            src = k.replace('backbone.img_backbone.stem.conv', 'conv1')
+            src = src.replace('backbone.img_backbone.stem.bn', 'bn1')
+            assert torch.equal(v, sd[src]), k
         return
     if '--exp' in argv:
         cfg = cli.experiment_config(cli.build_argparser().parse_args(

@@ -179,10 +179,78 @@ def test_compute_losses_matches_jax(loss_weights):
 
 
 def test_rgb_loss_raises():
-    """The rgb term needs ms_ssim, which waits (ROADMAP.md)."""
+    """The rgb term is ported (ROADMAP.md Queue 1 item 8); what raises now
+    is an image too small for its 5 MS-SSIM scales: at tiny_config's 32 x
+    64 renders the JAX term is NaN and the port's raises instead."""
     import dataclasses
     cfg = tiny_config()
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, loss_weights=(1.0, 1.0, 1.0, 0.0, 0.0)))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tlosses.compute_losses({}, [], {}, cfg.train, cfg.head, -1.0)
+    batch = synthetic_batch(cfg, batch_size=1, n_points=128, seed=4,
+                            mode='train')
+    fo = _field_outputs(cfg, 5)
+    fo['rgb_preds'] = np.random.RandomState(7).rand(
+        *batch['imgs'].shape).astype(np.float32)
+    preds = _head_preds(cfg, 6)
+    bc = cfg.backbone
+    _, jlogs = jlosses.compute_losses(
+        {k: jnp.asarray(v) for k, v in fo.items()},
+        [{k: jnp.asarray(v) for k, v in p.items()} for p in preds],
+        {k: jnp.asarray(v) for k, v in batch.items()}, cfg.train, cfg.head,
+        bc.sdf_bias, bc.density_mode)
+    assert np.isnan(float(jlogs['rgb_loss']))
+    with pytest.raises(ValueError, match='at least 176 pixels'):
+        tlosses.compute_losses(
+            {k: torch.from_numpy(v) for k, v in fo.items()},
+            [{k: torch.from_numpy(v) for k, v in p.items()} for p in preds],
+            {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()},
+            cfg.train, cfg.head, bc.sdf_bias, bc.density_mode)
+
+
+def test_rgb_loss_matches_jax():
+    """The rgb term at renders of 176 x 192 (the least height that carries
+    5 MS-SSIM scales), loss weights (1, 1, 1, 0, 0): every log key and the
+    total's gradient with respect to every field output, the renders
+    included, against the JAX `compute_losses` (values at RTOL; the
+    gradients at 1e-4 of each one's largest magnitude, the MS-SSIM
+    gradient's fp32 agreement, tests/test_torch_msssim.py)."""
+    import dataclasses
+    cfg = tiny_config()
+    cfg = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone,
+                                          final_dim=(176, 192)),
+        train=dataclasses.replace(cfg.train,
+                                  loss_weights=(1.0, 1.0, 1.0, 0.0, 0.0)))
+    batch = synthetic_batch(cfg, batch_size=1, n_points=128, seed=4,
+                            mode='train')
+    fo = _field_outputs(cfg, 5)
+    # renders near the images, so that MS-SSIM is far from 0 and 1
+    rgb = tlosses.denormalize_images(torch.from_numpy(batch['imgs'])).numpy()
+    fo['rgb_preds'] = np.clip(rgb + 0.1 * np.random.RandomState(7).randn(
+        *rgb.shape), 0, 1).astype(np.float32)
+    preds = _head_preds(cfg, 6)
+    bc = cfg.backbone
+
+    def jloss(fo_):
+        return jlosses.compute_losses(
+            fo_, [{k: jnp.asarray(v) for k, v in p.items()} for p in preds],
+            {k: jnp.asarray(v) for k, v in batch.items()}, cfg.train,
+            cfg.head, bc.sdf_bias, bc.density_mode)
+    (_, jlogs), jg = jax.value_and_grad(jloss, has_aux=True)(
+        {k: jnp.asarray(v) for k, v in fo.items()})
+    tfo = {k: torch.from_numpy(v).requires_grad_() for k, v in fo.items()}
+    total, logs = tlosses.compute_losses(
+        tfo, [{k: torch.from_numpy(v) for k, v in p.items()} for p in preds],
+        {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()},
+        cfg.train, cfg.head, bc.sdf_bias, bc.density_mode)
+    total.backward()
+    assert 0.05 < float(jlogs['rgb_loss']) < 1.0
+    assert set(logs) == set(jlogs)
+    for k in logs:
+        np.testing.assert_allclose(logs[k].item(), float(jlogs[k]),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+    for k, t in tfo.items():
+        want = np.asarray(jg[k])
+        got = np.zeros(t.shape, np.float32) if t.grad is None else t.grad
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=k)

@@ -321,8 +321,11 @@ def test_unported_inputs_raise(case):
 
 
 def test_early_term_sampler_raises():
-    """The opt-in early-term ray sampler is not ported and says so."""
+    """The opt-in early-term ray sampler is ported (ROADMAP.md Queue 1 item
+    7; tests/test_torch_ray_samplers.py holds it to JAX). What still raises
+    is what the JAX model raises: a ray_et_fracs tuple whose length is not
+    the passes after the prefix, before any geometry is read."""
     from vampire_tpu_torch.models.field import FieldBackbone
     fb = FieldBackbone(_tiny_bc(ray_et_fracs=(1.0,)))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='ray_et_fracs has 1 entries'):
         fb._render_cameras({}, [])

@@ -368,7 +368,12 @@ def test_dense_sampler_matches_jax_compact_sampler():
     field, the JAX compact sampler's through the corner table's VJP) agree
     up to fp reassociation (the compact sampler's fog tail is closed form):
     2e-5, the JAX package's own tolerance for the two
-    (tests/test_rendering.py), of each output's and gradient's magnitude."""
+    (tests/test_rendering.py), of each output's and gradient's magnitude.
+    The port's train-mode forward now runs the compact sampler itself (the
+    march on `core.rendering.compact_valid`'s validity); this case, whose
+    caps cover every ray, shows that the dense march equals it there, and
+    tests/test_torch_ray_samplers.py holds the port's compact sampler to
+    JAX's at caps that drop in-field samples, where the two differ."""
     jax = pytest.importorskip('jax')
     import jax.numpy as jnp
     from vampire_tpu.configs import flagship_config

@@ -16,6 +16,7 @@ import dataclasses
 import json
 import os
 import pickle
+import sys
 import types
 
 import jax
@@ -346,3 +347,140 @@ def test_vis_pickles_match_jax(tmp_path, steps, eval_loader):
         np.testing.assert_array_equal(got['input_image'],
                                       want['input_image'])
     assert state.model.training
+
+
+# ---------------------------------------------------------------------------
+# the render panels
+# ---------------------------------------------------------------------------
+
+PANELS = ('rgb_gts', 'rgb_preds', 'depth_preds', 'seg_preds', 'bev_seg',
+          'bev_height')
+
+
+def _panels(workdir, step):
+    from PIL import Image
+    return {name: np.asarray(Image.open(os.path.join(
+        workdir, 'panels', f'{step:07d}_{name}.png'))) for name in PANELS}
+
+
+def _tie_mask(logits, atol):
+    """Where the two largest logits lie within the comparison's tolerance
+    of each other (either side's argmax may win)."""
+    s = np.sort(logits, axis=-1)
+    top, second = s[..., -1], s[..., -2]
+    return top - second <= 2 * atol + RTOL * (np.abs(top) + np.abs(second))
+
+
+def _bin_edge_mask(x, vmin, vmax, atol):
+    """Where a value within atol of x may fall into another of the 255
+    colour bins of `visualize_depth(x, vmin, vmax)`."""
+    t = np.clip((x - vmin) / (vmax - vmin), 0, 1) * 255
+    room = (atol + RTOL * np.abs(x)) / (vmax - vmin) * 255
+    return np.abs(t - np.round(t)) <= room
+
+
+def test_log_images_panels_match_jax(tmp_path, steps):
+    """`log_images` writes the JAX method's six PNGs for the same weights
+    and batch (tiny, row 0, step 7): rgb_gts equal byte for byte, rgb_preds
+    within one level of 255, and the colour-mapped panels equal wherever
+    the port's value is not within the comparison's tolerance of an argmax
+    near-tie or a colour bin's edge (test_torch_model.py's tolerances; the
+    camera renders sample a bf16 copy of the field: 2^-8 of the largest
+    more). The model is back in train mode afterwards."""
+    from vampire_tpu.training.train_step import split_mats as jsplit
+    from vampire_tpu_torch.training.train_step import split_mats
+    from vampire_tpu_torch.utils.vis import tile_cameras
+    cfg, variables, batch = steps['cfg'], steps['variables'], steps['batch']
+    jtr = JaxTrainer(cfg, workdir=str(tmp_path / 'jax'),
+                     mesh=make_mesh(dp=1, cam=1, devices=jax.devices()[:1]))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    assert set(jsplit(jb)) >= {'sensor2ego', 'intrin', 'ida', 'bda'}
+    jtr.log_images(types.SimpleNamespace(
+        params=variables['params'], batch_stats=variables['batch_stats'],
+        step=7), jb)
+    tr, state = _trainer(tmp_path / 'port', cfg.train.exp_name)
+    state.model.load_state_dict(from_flax(variables, state.model))
+    state.step = 7
+    tb = _torch(batch)
+    tr.log_images(state, tb)
+    assert state.model.training
+    want, got = _panels(jtr.workdir, 7), _panels(tr.workdir, 7)
+    np.testing.assert_array_equal(got['rgb_gts'], want['rgb_gts'])
+    assert np.abs(got['rgb_preds'].astype(int)
+                  - want['rgb_preds'].astype(int)).max() <= 1
+    model = state.model.eval()
+    with torch.no_grad():
+        fo, _ = model(tb['imgs'], split_mats(tb), points=tb['points'],
+                      lidar_seg=True)
+    model.train()
+    fo = {k: v[0].numpy() for k, v in fo.items() if v is not None}
+    render = ATOL + 2.0 ** -8 * np.abs(fo['seg_logits_preds']).max()
+    depth = ATOL + 2.0 ** -8 * np.abs(fo['depth_preds']).max()
+    free = {
+        'seg_preds': tile_cameras(_tie_mask(fo['seg_logits_preds'],
+                                            render)[..., None])[..., 0],
+        'depth_preds': tile_cameras(_bin_edge_mask(
+            fo['depth_preds'], 2.0, 70.4, depth)[..., None])[..., 0],
+        'bev_seg': _tie_mask(fo['bev_seg_logits_preds'], ATOL),
+        'bev_height': _bin_edge_mask(fo['bev_height_preds'], -5.0, 3.0,
+                                     ATOL),
+    }
+    for name, allowed in free.items():
+        differs = (got[name] != want[name]).any(-1)
+        assert got[name].shape == want[name].shape
+        assert not (differs & ~allowed).any(), (name, int(differs.sum()))
+
+
+class _FakeSummaryWriter:
+    """What `tensorboardX.SummaryWriter` is handed: its logdir, and each
+    add_scalar and add_image call."""
+
+    def __init__(self, logdir):
+        self.logdir, self.scalars, self.images = logdir, [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+    def add_image(self, tag, img, step, dataformats):
+        self.images.append((tag, img, step, dataformats))
+
+
+def test_fit_writes_panels_every_image_every(tmp_path, capsys, monkeypatch):
+    """`fit(image_every=1)` over 2 steps writes the six panels of steps 1
+    and 2, and mirrors every scalar of scalars.jsonl and every panel to the
+    TensorBoard sink (a stand-in `tensorboardX` module); a `log_images`
+    that raises is printed and training goes on, as in the JAX loop."""
+    from PIL import Image
+    monkeypatch.setitem(sys.modules, 'tensorboardX', types.SimpleNamespace(
+        SummaryWriter=_FakeSummaryWriter))
+    cfg = _tiny_fp32(exp_name='panels', max_epochs=1)
+    train = [synthetic_batch(cfg, batch_size=1, n_points=128, seed=3 + i,
+                             mode='train') for i in range(2)]
+    tr = Trainer(cfg, workdir=str(tmp_path), device='cpu')
+    tr.fit(train, log_every=1, image_every=1)
+    names = sorted(os.listdir(os.path.join(tr.workdir, 'panels')))
+    assert names == sorted(f'{s:07d}_{n}.png' for s in (1, 2)
+                           for n in PANELS)
+    tb = tr._tb
+    assert tb.logdir == os.path.join(tr.workdir, 'tb')
+    with open(os.path.join(tr.workdir, 'scalars.jsonl')) as f:
+        recs = [json.loads(line) for line in f]
+    assert recs and tb.scalars == [(k, v, r['step']) for r in recs
+                                   for k, v in r.items() if k != 'step']
+    assert [(t, s, d) for t, _, s, d in tb.images] == [
+        (n, s, 'HWC') for s in (1, 2) for n in PANELS]
+    for tag, img, step, _ in tb.images:
+        png = np.asarray(Image.open(os.path.join(
+            tr.workdir, 'panels', f'{step:07d}_{tag}.png')))
+        np.testing.assert_array_equal(img, png)
+
+    tr = Trainer(_tiny_fp32(exp_name='failing', max_epochs=1),
+                 workdir=str(tmp_path), device='cpu')
+
+    def broken(state, dev_batch):
+        raise RuntimeError('no panels today')
+    tr.log_images = broken
+    state = tr.fit(train, log_every=1, image_every=1)
+    assert state.step == 2
+    out = capsys.readouterr().out
+    assert out.count("log_images failed: RuntimeError('no panels today')") == 2

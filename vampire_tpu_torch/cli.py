@@ -12,8 +12,10 @@ the place of the JAX device mesh: the port runs one process a device.
 `--debug` runs `tiny_config()` on the CPU. Every ablation experiment runs
 (`--exp bilinear|lss|lss_inpaintor|...|vampire2`), and so does a non-empty
 `--sweep-idxes` (multi-sweep batches: the sweep frames' views join the key
-frame's in the lift). `--pretrained-backbone` reaches code the port does
-not have yet: it raises and names ROADMAP.md Queue 1 item 9.
+frame's in the lift). `--pretrained-backbone PATH` grafts a torchvision
+ResNet .pth of the backbone's depth onto the image backbone at init
+(`utils/torch_weights.py`; depth 10, the tiny config's, has none and
+raises KeyError, as in the JAX package).
 
 Data parallel, one process a device (`parallel/distributed.py`):
   torchrun --nproc-per-node N -m vampire_tpu_torch.cli --exp ...
@@ -71,8 +73,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--pretrained-backbone', default='',
                    help='torchvision resnet .pth grafted onto the image '
                         'backbone at init (the reference recipe, '
-                        'base_exp.py:73); not ported, raises (ROADMAP.md, '
-                        'Queue 1 item 9)')
+                        'base_exp.py:73)')
     p.add_argument('--sweep-idxes', default=None,
                    help='comma-separated temporal sweep-frame indexes into '
                         'the infos\' cam_sweeps history (e.g. "0" or "0,2"); '

@@ -105,12 +105,16 @@ class BackboneConfig:
     table_pad_channels: int = 0
     # the JAX package's length-sorted compact ray sampler (train mode):
     # per-pass shares of the sorted rays; empty = the dense sampler
+    # (core/rendering.py `compact_valid`). ray_remat changes nothing here:
+    # in JAX it trades memory for a re-gather in the backward, bit-identical
+    # in value and gradient either way (tests/test_rendering.py), and the
+    # port's backward kernel keeps no per-sample residuals to trade
     ray_remat: bool = False
     ray_chunk: int = 8
     ray_pass_fracs: Tuple[float, ...] = (
         1.0, 1.0, 1.0, 0.98, 0.76, 0.62, 0.51, 0.43, 0.23, 0.11, 0.04)
-    # the JAX package's opt-in early-terminating ray sampler (inference);
-    # empty fracs = the dense sampler
+    # the JAX package's opt-in early-terminating ray sampler (eval mode;
+    # ops/rays.py `render_rays_earlyterm`); empty fracs = the dense sampler
     ray_et_chunk: int = 12
     ray_et_prefix: int = 2
     ray_et_fracs: Tuple[float, ...] = ()

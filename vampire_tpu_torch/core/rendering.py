@@ -8,14 +8,21 @@ table as the JAX package runs it, and its gradient written out,
 channels-last field instead of the table
 (`sample_and_composite_rays_field_reference` and
 `sample_and_composite_rays_field_backward_reference`), the plain versions
-of the CUDA kernels in `ops/rays.py`. The port trains on the
-dense sampler too: the JAX package's train-mode compact sampler computes
-the same values (it exists because TPU scatters are slow) and, like the
-opt-in early-term sampler, is not ported (ROADMAP.md).
+of the CUDA kernels in `ops/rays.py`, which also take a per-ray stop
+(the samples from it on add nothing) and give each ray's optical depth.
+
+The JAX package's two pass-structured samplers reduce to that march on
+changed inputs (`compact_valid`, `earlyterm_stops`): the train-mode compact
+sampler (vampire_tpu/core/rendering.py:240) is the march on a validity
+cut at each ray's processed prefix, whose closed-form fog tail is what the
+march gives an invalid sample; the early-termination sampler (`:331`) is
+the march stopped where each ray's last pass ends, every exited ray
+marched whole.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -148,37 +155,52 @@ def render_camera_rays(sdf: torch.Tensor, seg_logits: torch.Tensor,
 _CHUNK_BYTES = 1 << 30
 
 
-def _composite(samp, vm, dl, mids, bg_depth, density_mode, beta, sdf_bias):
-    """[rgb | seg | depth] of a chunk from its (cr, S, Ct) samples."""
+def _composite(samp, vm, dl, mids, bg_depth, density_mode, beta, sdf_bias,
+               live=None):
+    """[rgb | seg | depth] of a chunk from its (cr, S, Ct) samples, and
+    each ray's optical depth; `live` (cr, S), 1 before each ray's stop and
+    0 from it on, zeroes the optical depth and so the weight of the samples
+    past the stop (None: every sample counts)."""
     K = samp.shape[-1] - 4
     samp = samp * vm[..., None]
     sd = density(samp[..., 0], density_mode, beta, sdf_bias) * dl
+    if live is not None:
+        sd = sd * live
     alpha = 1.0 - torch.exp(-sd)
     w = alpha * torch.exp(-(torch.cumsum(sd, dim=-1) - sd))   # (cr, S)
     acc = torch.sum(w, dim=-1)
     rgb_o = torch.sum(w[..., None] * samp[..., K + 1:K + 4], dim=1)
     seg_o = torch.sum(w[..., None] * samp[..., 1:K + 1], dim=1)
     depth_o = torch.sum(w * mids[None, :], dim=1) + (1.0 - acc) * bg_depth
-    return torch.cat([rgb_o, seg_o, depth_o[:, None]], dim=-1)
+    return (torch.cat([rgb_o, seg_o, depth_o[:, None]], dim=-1),
+            torch.sum(sd, dim=-1))
 
 
 def _march(sample, Ct, coords, valid, deltas, camera_mids, bg_depth,
-           density_mode, beta, sdf_bias, chunk_rays):
+           density_mode, beta, sdf_bias, chunk_rays, stop=None):
     """Composite whole rays, chunk by chunk; `sample(c)` gives the (P, Ct)
-    fp32 samples at the (P, 3) coords c."""
+    fp32 samples at the (P, 3) coords c. Returns ([rgb | seg | depth],
+    optical depth) per ray; a ray's samples from `stop` (R,) on add
+    nothing."""
     R_, S_n = coords.shape[:2]
     if chunk_rays is None:
         chunk_rays = max(1, _CHUNK_BYTES // (S_n * 8 * Ct * 4))
     mids = camera_mids.to(torch.float32)
-    outs = []
+    s_idx = torch.arange(S_n, device=coords.device)
+    outs, sds = [], []
     for r0 in range(0, R_, chunk_rays):
         cc = coords[r0:r0 + chunk_rays]
         samp = sample(cc.reshape(-1, 3)).reshape(cc.shape[0], S_n, Ct)
-        outs.append(_composite(
+        live = (None if stop is None else
+                (s_idx[None, :] < stop[r0:r0 + chunk_rays, None]).to(
+                    torch.float32))
+        out, sd = _composite(
             samp, valid[r0:r0 + chunk_rays].to(torch.float32),
             deltas[r0:r0 + chunk_rays].to(torch.float32), mids, bg_depth,
-            density_mode, beta, sdf_bias))
-    return torch.cat(outs, dim=0)
+            density_mode, beta, sdf_bias, live)
+        outs.append(out)
+        sds.append(sd)
+    return torch.cat(outs, dim=0), torch.cat(sds, dim=0)
 
 
 def sample_and_composite_rays_reference(
@@ -216,23 +238,30 @@ def sample_and_composite_rays_reference(
         return S.gather_corners(flat, rows, w8)
     return _march(sample, flat.shape[1] // 8, coords, valid, deltas,
                   camera_mids, bg_depth, density_mode, beta, sdf_bias,
-                  chunk_rays)
+                  chunk_rays)[0]
 
 
 def sample_and_composite_rays_field_reference(
         field: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
         deltas: torch.Tensor, camera_mids: torch.Tensor, bg_depth: float,
         density_mode: str, beta: torch.Tensor, sdf_bias: float,
-        chunk_rays: Optional[int] = None) -> torch.Tensor:
+        chunk_rays: Optional[int] = None,
+        stop: Optional[torch.Tensor] = None, with_sd: bool = False):
     """`sample_and_composite_rays_reference` reading the 8 corners of each
     sample from the channels-last (D, H, W, C) field (bf16 or fp32, any
     strides) instead of its corner table: the same terms in the same order,
     so in fp32 the same results bit for bit. The plain version of the CUDA
-    kernel in `ops/rays.py`."""
+    kernel in `ops/rays.py`.
+
+    `stop` (R,) int32: sample i of a ray adds no optical depth and no
+    weight where i >= stop[ray] (the early-termination sampler's cut;
+    None: every sample counts). `with_sd`: also return each ray's optical
+    depth summed over its samples before the stop, (R,) fp32."""
     C = field.shape[-1]
-    return _march(lambda c: S.gather_field_corners(field, c), C, coords,
-                  valid, deltas, camera_mids, bg_depth, density_mode, beta,
-                  sdf_bias, chunk_rays)
+    out, sd = _march(lambda c: S.gather_field_corners(field, c), C, coords,
+                     valid, deltas, camera_mids, bg_depth, density_mode,
+                     beta, sdf_bias, chunk_rays, stop)
+    return (out, sd) if with_sd else out
 
 
 def _sample_grads(samp, vm, dl, g, mids, bg_depth, density_mode, beta,
@@ -355,3 +384,124 @@ def sample_and_composite_rays_field_backward_reference(
                              bg_depth, density_mode, beta, sdf_bias, g_out,
                              chunk_rays)
     return d_field.reshape(D, H, W, C), d_beta
+
+
+# --- the pass-structured samplers of the JAX package, as inputs of the march
+
+
+def ray_lengths(valid: torch.Tensor) -> torch.Tensor:
+    """Each ray's in-field length L (R,) int64 from its (R, S) validity:
+    one past its last valid sample, 0 for a ray with none (the JAX
+    samplers' `where(any(valid), S - argmax(flip(valid) > 0), 0)`)."""
+    S_n = valid.shape[1]
+    pos = torch.arange(1, S_n + 1, device=valid.device)
+    return torch.amax(torch.where(valid > 0, pos, 0), dim=1)
+
+
+def pass_caps(fracs: Sequence[float], n_rays: int) -> List[int]:
+    """The JAX samplers' static ray count a pass, min(R, ceil(f * R / 256)
+    * 256) in Python floats, made non-increasing from the last pass back
+    (a ray a pass drops stays dropped)."""
+    caps = [min(n_rays, int(math.ceil(f * n_rays / 256.0) * 256))
+            for f in fracs]
+    for j in range(len(caps) - 2, -1, -1):
+        caps[j] = max(caps[j], caps[j + 1])
+    return caps
+
+
+def _ranks(key: torch.Tensor) -> torch.Tensor:
+    """Each element's position in the stable ascending sort of `key` (the
+    JAX argsort, stable by default)."""
+    order = torch.argsort(key, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(len(order), device=key.device)
+    return rank
+
+
+def _covered(rank, caps, first, chunk, S_n):
+    """The samples passes first, first + 1, ... of `chunk` samples give the
+    ray at sorted position `rank`: a pass's samples where rank < its cap."""
+    n = torch.zeros_like(rank)
+    for j, cap in enumerate(caps):
+        s0 = (first + j) * chunk
+        n = n + torch.where(rank < cap, min(S_n, s0 + chunk) - s0, 0)
+    return n
+
+
+def compact_valid(valid: torch.Tensor, chunk: int,
+                  pass_fracs: Sequence[float]) -> torch.Tensor:
+    """The validity under which the dense march computes the JAX train-mode
+    `sample_and_composite_rays_compact` (vampire_tpu/core/rendering.py:240),
+    forward and backward: valid * (s < processed[rank]), fp32 (R, S).
+
+    The JAX sampler sorts the rays by in-field length L, descending
+    (stable), and runs ceil(S / chunk) passes of `chunk` samples, pass j
+    over the first `pass_caps(pass_fracs)[j]` sorted rays; a ray's samples
+    past the passes that take it (`processed`) get closed-form fog, the
+    density of a zero sample with no value, which is what the march gives a
+    sample whose valid is 0. So only the samples from `processed` on
+    change, and only where they lie in the field (s < L), i.e. where a cap
+    does not cover the ray's in-field prefix."""
+    R_, S_n = valid.shape
+    n_pass = -(-S_n // chunk)
+    if len(pass_fracs) != n_pass:
+        raise ValueError(f'ray_pass_fracs has {len(pass_fracs)} entries but '
+                         f'the ray axis makes {n_pass} passes (S={S_n}, '
+                         f'chunk={chunk})')
+    rank = _ranks(-ray_lengths(valid))
+    processed = _covered(rank, pass_caps(pass_fracs, R_), 0, chunk, S_n)
+    s_idx = torch.arange(S_n, device=valid.device)
+    return valid.to(torch.float32) * (s_idx[None, :]
+                                      < processed[:, None]).to(torch.float32)
+
+
+def earlyterm_stops(sd_prefix: torch.Tensor, valid: torch.Tensor,
+                    chunk: int, prefix: int, caps_fracs: Sequence[float]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-ray stops of the JAX `sample_and_composite_rays_earlyterm`
+    (vampire_tpu/core/rendering.py:331), from each ray's optical depth over
+    its first prefix * chunk samples `sd_prefix` (R,) fp32 and its validity.
+
+    The JAX sampler runs `prefix` passes of `chunk` samples over every
+    ray, then sorts the rays (stable) by key = sd_prefix + 1e9 for the
+    exited rays (L <= prefix * chunk), added in fp32 as it is there (an
+    exited ray's key with sd < 32 rounds to 1e9 exactly, so those rays tie
+    and keep their order), and runs the remaining passes, pass j over the
+    first `pass_caps(caps_fracs)[j]` sorted rays. A non-exited ray gets
+    nothing past its last pass, not even fog; an exited ray's untouched
+    samples get closed-form fog, so it is the dense ray. Returns
+    (stop (R,) int32: S for an exited ray, else prefix * chunk plus the
+    samples of the passes whose cap covers its rank; exited (R,) bool;
+    misses (R,) int32, the passes whose cap the ray's rank misses)."""
+    R_, S_n = valid.shape
+    n_pass = -(-S_n // chunk)
+    if not 0 < prefix <= n_pass or len(caps_fracs) != n_pass - prefix:
+        raise ValueError(f'ray_et_fracs has {len(caps_fracs)} entries but '
+                         f'needs {n_pass - prefix} (S={S_n}, chunk={chunk}, '
+                         f'prefix={prefix})')
+    exited = ray_lengths(valid) <= prefix * chunk
+    key = sd_prefix.to(torch.float32) + torch.where(
+        exited, torch.tensor(1e9, dtype=torch.float32, device=valid.device),
+        torch.tensor(0.0, dtype=torch.float32, device=valid.device))
+    rank = _ranks(key)
+    caps = pass_caps(caps_fracs, R_)
+    stop = min(S_n, prefix * chunk) + _covered(rank, caps, prefix, chunk,
+                                               S_n)
+    stop = torch.where(exited, S_n, stop).to(torch.int32)
+    misses = torch.zeros_like(rank)
+    for cap in caps:
+        misses = misses + (rank >= cap).to(misses.dtype)
+    return stop, exited, misses.to(torch.int32)
+
+
+def earlyterm_uncovered_drops(sd_stop: torch.Tensor, exited: torch.Tensor,
+                              misses: torch.Tensor, tau: float
+                              ) -> torch.Tensor:
+    """The JAX early-term sampler's coverage diagnostic (`return_diag`,
+    vampire_tpu/core/rendering.py:421-428): the (ray, pass) drops of rays
+    neither exited nor saturated, i.e. the sum over the non-exited rays
+    whose optical depth at their stop `sd_stop` is below `tau` of the
+    passes their rank misses (a dropped ray stays dropped, and its optical
+    depth stops growing). int64 0-dim."""
+    bad = (~exited) & (sd_stop < tau)
+    return torch.sum(torch.where(bad, misses, 0).to(torch.int64))

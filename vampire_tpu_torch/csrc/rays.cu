@@ -81,6 +81,18 @@
 // one atomic per block. What bounds it: the reductions in L2, 8 corners of
 // C channels for each of the 2.9 M valid samples.
 //
+// Stop mode (`stop`, `sd_out`, both optional): the forward of the JAX
+// package's early-termination sampler (vampire_tpu/core/rendering.py:331,
+// plain XLA there; its passes over sorted, capped rays reduce to a march
+// stopped per ray, core/rendering.py `earlyterm_stops`). Sample i of a ray
+// with i >= stop[ray] is not read and adds no optical depth and no weight:
+// the warp's chunk loop ends at min(S, stop[ray]). `sd_out[ray]` gets the
+// optical depth summed over the samples before the stop (the sort key of
+// the first of the sampler's two launches, the coverage diagnostic's input
+// in the second). With both pointers null it computes what it did before
+// the stop mode, bit for bit. What bounds it: the same reads, of the
+// samples before each stop only.
+//
 // The kernels allocate nothing; the caller owns every buffer.
 
 #include <cuda_bf16.h>
@@ -299,6 +311,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CMAX))
                 const float* __restrict__ deltas,
                 const float* __restrict__ mids,
                 const float* __restrict__ beta, float* __restrict__ out,
+                const int* __restrict__ stop, float* __restrict__ sd_out,
                 int R, int S, int C, int CS, int D, int H, int W, int mode,
                 float sdf_bias, float bg_depth) {
   const int64_t ray =
@@ -307,15 +320,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CMAX))
   const int lane = threadIdx.x & 31;
   const int K = C - 4;
   const Density dn = density_of(beta, mode, sdf_bias);
+  // the samples this ray marches: all S, or those before its stop
+  const int n = stop == nullptr ? S : min(S, max(stop[ray], 0));
 
   float acc[CMAX];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) acc[c] = 0.0f;
   float acc_w = 0.0f, acc_d = 0.0f;
   float od = 0.0f;  // optical depth of the chunks before this one
-  for (int s0 = 0; s0 < S; s0 += 32) {
+  for (int s0 = 0; s0 < n; s0 += 32) {
     const int i = s0 + lane;
-    const bool in = i < S;
+    const bool in = i < n;
     const int64_t si = ray * S + i;
     const float vm = in ? valid[si] : 0.0f;
     float v[CMAX];
@@ -348,6 +363,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CMAX))
   acc_d = warp_sum(acc_d);
   if (lane == K + 3) mine = acc_d + (1.0f - acc_w) * bg_depth;
   if (lane < C) out[ray * C + lane] = mine;
+  if (sd_out != nullptr && lane == 0) sd_out[ray] = od;
 }
 
 template <typename T, int CMAX>
@@ -500,8 +516,9 @@ unsigned int n_blocks(int R) {
 template <typename T>
 int launch(const void* field, const void* coords, const void* valid,
            const void* deltas, const void* mids, const void* beta, void* out,
-           int R, int S, int C, int CS, int D, int H, int W, int mode,
-           float sdf_bias, float bg_depth, void* stream) {
+           const void* stop, void* sd_out, int R, int S, int C, int CS,
+           int D, int H, int W, int mode, float sdf_bias, float bg_depth,
+           void* stream) {
   if (bad_shape<T>(field, C, CS, mode)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -513,8 +530,9 @@ int launch(const void* field, const void* coords, const void* valid,
             static_cast<const float*>(valid),
             static_cast<const float*>(deltas),
             static_cast<const float*>(mids), static_cast<const float*>(beta),
-            static_cast<float*>(out), R, S, C, CS, D, H, W, mode, sdf_bias,
-            bg_depth);
+            static_cast<float*>(out), static_cast<const int*>(stop),
+            static_cast<float*>(sd_out), R, S, C, CS, D, H, W, mode,
+            sdf_bias, bg_depth);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -569,24 +587,28 @@ int plan(int C, int backward, int* info) {
 // Plain C entry points (loaded with ctypes). Each returns the CUDA error code
 // of the launch: 0 on success. `field` is (D, H, W, C) channels-last with
 // voxel stride CS (>= C, a multiple of 16 bytes, the field 16-byte
-// aligned), `out` (R, C) fp32.
+// aligned), `out` (R, C) fp32; `stop` (R,) int32 and `sd_out` (R,) fp32
+// are the stop mode's, each optional (null).
 extern "C" int rays_f32(const void* field, const void* coords,
                         const void* valid, const void* deltas,
-                        const void* mids, const void* beta, void* out, int R,
-                        int S, int C, int CS, int D, int H, int W, int mode,
-                        float sdf_bias, float bg_depth, void* stream) {
-  return launch<float>(field, coords, valid, deltas, mids, beta, out, R, S, C,
-                       CS, D, H, W, mode, sdf_bias, bg_depth, stream);
+                        const void* mids, const void* beta, void* out,
+                        const void* stop, void* sd_out, int R, int S, int C,
+                        int CS, int D, int H, int W, int mode, float sdf_bias,
+                        float bg_depth, void* stream) {
+  return launch<float>(field, coords, valid, deltas, mids, beta, out, stop,
+                       sd_out, R, S, C, CS, D, H, W, mode, sdf_bias, bg_depth,
+                       stream);
 }
 
 extern "C" int rays_bf16(const void* field, const void* coords,
                          const void* valid, const void* deltas,
-                         const void* mids, const void* beta, void* out, int R,
-                         int S, int C, int CS, int D, int H, int W, int mode,
+                         const void* mids, const void* beta, void* out,
+                         const void* stop, void* sd_out, int R, int S, int C,
+                         int CS, int D, int H, int W, int mode,
                          float sdf_bias, float bg_depth, void* stream) {
   return launch<__nv_bfloat16>(field, coords, valid, deltas, mids, beta, out,
-                               R, S, C, CS, D, H, W, mode, sdf_bias, bg_depth,
-                               stream);
+                               stop, sd_out, R, S, C, CS, D, H, W, mode,
+                               sdf_bias, bg_depth, stream);
 }
 
 // d field (fp32, (D, H, W, CS), zeroed by the caller) and d beta (one

@@ -46,7 +46,6 @@ from .resnet import Conv2d, ResNet
 from .second_fpn import SECONDFPN
 from .unet3d import Conv3d, ConvSoftplus3D, Unet3D
 
-_TODO = 'see ROADMAP.md, Queue 1'
 VARIANTS = ('vampire2', 'lss', 'lss_inpaintor', 'bilinear')
 # the per-view matrices, which a multi-sweep input carries per frame
 VIEW_KEYS = ('sensor2ego', 'intrin', 'ida')
@@ -365,28 +364,60 @@ class FieldBackbone(nn.Module):
         return [ray_ops.channels_last_field(fused_t[b])
                 for b in range(fused.shape[0])]
 
-    def _render_cameras(self, mats, fields, plain=False):
+    def _render_cameras(self, mats, fields, plain=False, diagnostics=None):
         """Camera-ray renders through the frames' channels-last fields
         (`_ray_fields`), x4 upsampled: rgb (B, N, H, W, 3), seg logits
         (B, N, H, W, K), depth (B, N, H, W), with (H, W) = feat_hw *
-        upsample_factor."""
+        upsample_factor.
+
+        The sampler is the JAX package's choice: in train mode with
+        `ray_pass_fracs` set, the compact sampler (the march on
+        `R.compact_valid`'s validity); in eval mode with `ray_et_fracs` set,
+        the early-termination sampler (`ray_ops.render_rays_earlyterm`,
+        forward only), whose coverage diagnostic, summed over the frames,
+        goes into `diagnostics['ray_et_uncovered_drops']`; the dense march
+        otherwise."""
         c = self.cfg
         K = c.num_classes
-        if c.ray_et_fracs:
-            raise NotImplementedError(
-                f'ray_et_fracs={c.ray_et_fracs}: the early-term ray sampler '
-                f'is not ported, {_TODO} item 7')
+        Snum = self.frustum.shape[0] - 1    # samples: all planes but the last
+        n_pass = -(-Snum // c.ray_chunk)
+        n_et_pass = -(-Snum // c.ray_et_chunk)
+        if c.ray_pass_fracs and len(c.ray_pass_fracs) != n_pass:
+            raise ValueError(
+                f'ray_pass_fracs has {len(c.ray_pass_fracs)} entries but the '
+                f'ray axis makes {n_pass} passes (S={Snum}, chunk='
+                f'{c.ray_chunk}); re-measure the curve or set () to disable')
+        if c.ray_et_fracs and \
+                len(c.ray_et_fracs) != n_et_pass - c.ray_et_prefix:
+            raise ValueError(
+                f'ray_et_fracs has {len(c.ray_et_fracs)} entries but needs '
+                f'{n_et_pass - c.ray_et_prefix} (S={Snum}, chunk='
+                f'{c.ray_et_chunk}, prefix={c.ray_et_prefix}); set () to '
+                f'disable')
         geom = G.get_geometry(self.frustum, mats['sensor2ego'],
                               mats['intrin'], mats['ida'], mats.get('bda'))
         coords, valid, delta = ray_inputs(geom, c)
         B, N, _, fh, fw = geom.shape[:5]
-        out = torch.stack([
-            ray_ops.render_rays(f, coords[b], valid[b], delta[b],
-                                self.camera_mids, c.d_bound[1],
-                                c.density_mode, self.density_beta,
-                                c.sdf_bias, plain)
-            for b, f in enumerate(fields)])                 # (B, R, 3+K+1)
-        out = out.reshape(B, N, fh, fw, K + 4)
+        use_compact = bool(self.training and c.ray_pass_fracs)
+        use_et = bool((not self.training) and c.ray_et_fracs)
+        outs, drops = [], []
+        for b, f in enumerate(fields):
+            args = (f, coords[b],
+                    (R.compact_valid(valid[b], c.ray_chunk, c.ray_pass_fracs)
+                     if use_compact else valid[b]),
+                    delta[b], self.camera_mids, c.d_bound[1], c.density_mode,
+                    self.density_beta, c.sdf_bias)
+            if use_et:
+                out, diag = ray_ops.render_rays_earlyterm(
+                    *args, c.ray_et_chunk, c.ray_et_prefix, c.ray_et_fracs,
+                    c.ray_et_tau, plain)
+                drops.append(diag)
+            else:
+                out = ray_ops.render_rays(*args, plain)
+            outs.append(out)
+        if use_et and diagnostics is not None:
+            diagnostics['ray_et_uncovered_drops'] = torch.stack(drops).sum()
+        out = torch.stack(outs).reshape(B, N, fh, fw, K + 4)
         up = c.upsample_factor
         size = (fh * up, fw * up)
         rgb = S.resize_linear(out[..., :3], size, (2, 3))
@@ -426,12 +457,14 @@ class FieldBackbone(nn.Module):
             a caller comparing the two on a card sets it; on the CPU both
             are the plain versions.
           diagnostics: a dict to receive the lift's `lift_dropped_blocks`
-            (see `lift`); None asks for nothing and costs nothing.
+            (see `lift`) and, where the early-termination sampler runs,
+            `ray_et_uncovered_drops` (see `_render_cameras`); None asks for
+            nothing and costs nothing.
 
-        Returns the JAX package's output dict. The camera-ray branch runs
-        the dense sampler in both modes: the JAX package's train-mode
-        compact sampler gives the same values (fp reassociation aside) and
-        exists because TPU scatters are slow; it is not ported.
+        Returns the JAX package's output dict. The camera-ray branch takes
+        the JAX package's sampler: the compact one in train mode with
+        `ray_pass_fracs` set, the early-termination one in eval mode with
+        `ray_et_fracs` set, the dense one otherwise (`_render_cameras`).
         """
         c = self.cfg
         if imgs.dim() == 6:
@@ -478,7 +511,7 @@ class FieldBackbone(nn.Module):
         rgb_p = seg_p = depth_p = None
         if camera_renders:
             rgb_p, seg_p, depth_p = self._render_cameras(
-                key_mats, self._ray_fields(fused), plain)
+                key_mats, self._ray_fields(fused), plain, diagnostics)
         (bev_rgb, bev_seg, bev_height, bev_density,
          vox_out) = self._render_bev(fused, base.to(torch.float32))
 

@@ -13,6 +13,16 @@ a `torch.autograd.Function` whose forward and backward are those two.
 `channels_last_field(vol)` makes the field from a (C, D, H, W) volume,
 differentiably, in the layout the kernels read.
 
+The forward also takes a per-ray `stop` (a ray's samples from it on add
+nothing) and gives each ray's optical depth (`with_sd`): its stop mode.
+`render_rays_earlyterm(...)` is the JAX package's early-termination
+sampler (vampire_tpu/core/rendering.py:331, an eval-mode forward with
+`ray_et_fracs` set) in two launches of the stop mode a frame: every ray up
+to prefix * chunk samples for the sort key, then every ray to its stop
+(`core.rendering.earlyterm_stops`). It is forward only, as the JAX package
+uses it in inference only. The train-mode compact sampler is `render_rays`
+on `core.rendering.compact_valid`'s validity.
+
 On CUDA tensors both launch hand-written kernels of `csrc/rays.cu`. The
 forward replaces the JAX package's dense ray sampler
 `sample_and_composite_rays` (vampire_tpu/core/rendering.py:100): one
@@ -37,14 +47,17 @@ from typing import Tuple
 
 import torch
 
+from ..core import rendering as R
 from ..core.rendering import (
     sample_and_composite_rays_field_backward_reference,
     sample_and_composite_rays_field_reference)
 from . import _build
 
-# kernel launches made by sample_and_composite_rays and by
-# sample_and_composite_rays_backward (incremented at each launch only)
+# kernel launches made by sample_and_composite_rays, without a stop and in
+# its stop mode, and by sample_and_composite_rays_backward (incremented at
+# each launch only)
 LAUNCHES = 0
+STOP_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _SYMBOLS = {torch.float32: 'rays_f32', torch.bfloat16: 'rays_bf16'}
@@ -113,7 +126,7 @@ def _check(field, coords, valid, deltas, mids, beta, **more):
 
 def _kernel(symbols, dtype, n_ptr):
     """The typed entry point: n_ptr pointers, 8 ints, 2 floats, the
-    stream."""
+    stream (a null pointer is passed as None)."""
     return _build.kernel('rays', symbols[dtype], [ctypes.c_void_p] * n_ptr
                          + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                          + [ctypes.c_void_p])
@@ -134,7 +147,8 @@ def sample_and_composite_rays(field: torch.Tensor, coords: torch.Tensor,
                               valid: torch.Tensor, deltas: torch.Tensor,
                               mids: torch.Tensor, bg_depth: float,
                               density_mode: str, beta: torch.Tensor,
-                              sdf_bias: float) -> torch.Tensor:
+                              sdf_bias: float, stop: torch.Tensor = None,
+                              with_sd: bool = False):
     """Render R rays of S samples through a channels-last field.
 
     Args:
@@ -147,26 +161,43 @@ def sample_and_composite_rays(field: torch.Tensor, coords: torch.Tensor,
       density_mode: 'sdf' (Laplace density of `beta`, a float32 tensor of
         one element, and `sdf_bias`) or 'naive' (sigmoid; `beta` and
         `sdf_bias` are not read).
+      stop: None, or (R,) int32: the stop mode, in which sample i of a ray
+        is not read and adds nothing where i >= stop[ray].
+      with_sd: also return each ray's optical depth summed over the samples
+        before its stop, (R,) float32.
 
-    Returns (R, 3 + K + 1) float32.
+    Returns (R, 3 + K + 1) float32, and the optical depth with `with_sd`.
     """
-    global LAUNCHES
+    global LAUNCHES, STOP_LAUNCHES
     if field.device.type == 'cpu':
         return sample_and_composite_rays_field_reference(
             field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
-            sdf_bias)
+            sdf_bias, stop=stop, with_sd=with_sd)
     if field.device.type != 'cuda':
         raise NotImplementedError(f'rays: no kernel for {field.device}')
     R, S, C, CS = _check(field, coords, valid, deltas, mids, beta)
+    if stop is not None:
+        if stop.device != field.device or stop.dtype != torch.int32 \
+                or stop.shape != (R,) or not stop.is_contiguous():
+            raise ValueError(f'rays: stop must be a contiguous int32 ({R},) '
+                             f'tensor on {field.device}, got {stop.dtype} '
+                             f'{tuple(stop.shape)} on {stop.device}')
     out = torch.empty((R, C), dtype=torch.float32, device=field.device)
-    err = _launch(_kernel(_SYMBOLS, field.dtype, 7), field,
+    sd = (torch.empty((R,), dtype=torch.float32, device=field.device)
+          if with_sd else None)
+    err = _launch(_kernel(_SYMBOLS, field.dtype, 9), field,
                   (coords.data_ptr(), valid.data_ptr(), deltas.data_ptr(),
-                   mids.data_ptr(), beta.data_ptr(), out.data_ptr()),
+                   mids.data_ptr(), beta.data_ptr(), out.data_ptr(),
+                   None if stop is None else stop.data_ptr(),
+                   None if sd is None else sd.data_ptr()),
                   R, S, C, CS, density_mode, sdf_bias, bg_depth)
     if err != 0:
         raise RuntimeError(f'rays: kernel launch failed with CUDA error {err}')
-    LAUNCHES += 1
-    return out
+    if stop is None:
+        LAUNCHES += 1
+    else:
+        STOP_LAUNCHES += 1
+    return (out, sd) if with_sd else out
 
 
 def sample_and_composite_rays_backward(
@@ -289,6 +320,56 @@ class RenderRays(torch.autograd.Function):
         # fp32 sums, rounded once to the field's dtype (as autograd would)
         return ((d_field.to(field.dtype), d_beta.reshape(beta.shape))
                 + (None,) * 8)
+
+
+class RenderRaysEarlyTerm(torch.autograd.Function):
+    """The early-termination sampler: two launches of the stop mode, the
+    stops between them (`core.rendering.earlyterm_stops`). Returns the
+    (R, 3 + K + 1) renders and the coverage diagnostic. Forward only: the
+    JAX package runs it in inference only, and its backward raises."""
+
+    @staticmethod
+    def forward(ctx, field, beta, coords, valid, deltas, mids, bg_depth,
+                density_mode, sdf_bias, chunk, prefix, caps_fracs, tau,
+                plain):
+        fwd = (sample_and_composite_rays_field_reference if plain
+               else sample_and_composite_rays)
+        args = (field, coords, valid, deltas, mids, bg_depth, density_mode,
+                beta, sdf_bias)
+        n_rays, n_samp = valid.shape
+        first = torch.full((n_rays,), min(n_samp, prefix * chunk),
+                           dtype=torch.int32, device=valid.device)
+        _, sd = fwd(*args, stop=first, with_sd=True)
+        stop, exited, misses = R.earlyterm_stops(sd, valid, chunk, prefix,
+                                                 caps_fracs)
+        out, sd = fwd(*args, stop=stop, with_sd=True)
+        diag = R.earlyterm_uncovered_drops(sd, exited, misses, tau)
+        ctx.mark_non_differentiable(diag)
+        return out, diag
+
+    @staticmethod
+    def backward(ctx, g_out, g_diag):
+        raise RuntimeError('rays: the early-termination sampler is forward '
+                           'only (the JAX package runs it in eval-mode '
+                           'forwards); train with ray_et_fracs=() or in '
+                           'train mode')
+
+
+def render_rays_earlyterm(field: torch.Tensor, coords: torch.Tensor,
+                          valid: torch.Tensor, deltas: torch.Tensor,
+                          mids: torch.Tensor, bg_depth: float,
+                          density_mode: str, beta: torch.Tensor,
+                          sdf_bias: float, chunk: int, prefix: int,
+                          caps_fracs, tau: float, plain: bool = False):
+    """The JAX `sample_and_composite_rays_earlyterm` with `return_diag`
+    (`render_rays`' arguments, then ray_et_chunk, ray_et_prefix,
+    ray_et_fracs, ray_et_tau): ((R, 3 + K + 1) fp32 renders, int64 0-dim
+    count of uncovered drops). `plain` runs both passes through the plain
+    version."""
+    return RenderRaysEarlyTerm.apply(
+        field, beta, coords, valid, deltas, mids, float(bg_depth),
+        density_mode, float(sdf_bias), int(chunk), int(prefix),
+        tuple(caps_fracs), float(tau), plain)
 
 
 def render_rays(field: torch.Tensor, coords: torch.Tensor,

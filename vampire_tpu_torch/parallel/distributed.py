@@ -107,6 +107,12 @@ def initialize(device='cuda', init_method: Optional[str] = None,
     dist.init_process_group(
         backend, init_method=init_method or 'env://', world_size=world_size,
         rank=rank, timeout=COLLECTIVE_TIMEOUT)
+    if backend == 'gloo':
+        # gloo connects its pairs while the group is built, and a rank can
+        # leave init first: were it to end at once, it would close its
+        # sockets under a peer still connecting. Hold every rank until all
+        # have joined.
+        dist.barrier()
     return dev
 
 

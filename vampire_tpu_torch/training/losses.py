@@ -27,6 +27,7 @@ import torch
 from ..configs import HeadConfig
 from ..models.centerpoint_head import detection_loss
 from ..ops.lovasz import ce_lovasz, ce_lovasz_compact
+from ..ops.msssim import ms_ssim_per_image
 from ..parallel.distributed import active, all_reduce_sum
 
 # ImageNet statistics of the normalized images, RGB, in [0, 1] units
@@ -65,16 +66,14 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
     the per-term scalars (global), every term and log key of the JAX
     `compute_losses`.
 
-    The rgb term needs `ms_ssim`, which is not ported: loss_weights[2] != 0
-    raises (the flagship's is 0).
+    The rgb term (loss_weights[2] != 0; no preset sets it) is the mean
+    smooth L1 plus 1 - MS-SSIM of the key frame's renders against its
+    denormalised images, whose sides need at least 176 pixels
+    (`ops.msssim`).
     """
     logs: Dict[str, torch.Tensor] = {}
     tw = train_cfg.task_weights
     lw = train_cfg.loss_weights
-    if lw[2] != 0.0:
-        raise NotImplementedError(
-            f'loss_weights[2] = {lw[2]}: the rgb loss needs ms_ssim, which '
-            f'is not ported; see ROADMAP.md, Queue 1 item 8')
     # a multi-sweep batch (imgs (B, F, N, H, W, 3)): the model renders the
     # key frame only, so the camera-view terms take frame 0's labels
     if batch['imgs'].dim() == 6:
@@ -96,7 +95,21 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
         seg_logits.reshape(-1, K), batch['seg_labels'].reshape(-1),
         fg_mask.reshape(-1))
     logs['camera_seg_loss'] = cam_seg_loss
-    logs['rgb_loss'] = torch.zeros((), device=seg_logits.device)
+    if lw[2] != 0.0:
+        rgb_labels = denormalize_images(batch['imgs'])
+        rgb_preds = field_out['rgb_preds'].to(torch.float32)
+        B, N, H, W, _ = rgb_preds.shape
+        ms = ms_ssim_per_image(rgb_preds.reshape(B * N, H, W, 3),
+                               rgb_labels.reshape(B * N, H, W, 3))
+        # plain means: masked means over all-true masks, the global
+        # batch's under a process group
+        sl1 = smooth_l1(rgb_preds, rgb_labels)
+        rgb_loss = (masked_mean(sl1, torch.ones_like(sl1, dtype=torch.bool))
+                    + masked_mean(1.0 - ms,
+                                  torch.ones_like(ms, dtype=torch.bool)))
+    else:
+        rgb_loss = torch.zeros((), device=seg_logits.device)
+    logs['rgb_loss'] = rgb_loss
 
     bev_mask = batch['bev_mask']
     bev_height_loss = masked_mean(
@@ -141,8 +154,8 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
     logs['seg_loss'] = seg_loss
 
     total = (tw[0] * occ_seg_loss + tw[1] * pts_seg_loss + tw[2] * det_loss
-             + lw[0] * depth_loss + lw[1] * seg_loss + lw[3] * sdf_loss
-             + lw[4] * density_loss)
+             + lw[0] * depth_loss + lw[1] * seg_loss + lw[2] * rgb_loss
+             + lw[3] * sdf_loss + lw[4] * density_loss)
     logs['total_loss'] = total
     if active():    # the shares summed: the global terms, on every rank
         names = list(logs)

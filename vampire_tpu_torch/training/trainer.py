@@ -6,9 +6,14 @@ dumps) and `predict` (the test-split submission).
 
 The batch dict of numpy arrays (the JAX package's loader layout) goes to
 the device, one step runs, and the scalars go to
-`<workdir>/<exp_name>/scalars.jsonl`. A checkpoint is a torch `state_dict`
-bundle (params, buffers, optimizer, step, EMA) saved after every epoch as
-`checkpoints/<epoch>.pt`; `fit` resumes from the latest.
+`<workdir>/<exp_name>/scalars.jsonl` (and, where `tensorboardX` imports,
+to a TensorBoard writer under `tb/`, as in the JAX package). Every
+`image_every` steps `fit` writes the render panels (`log_images`, PNGs
+under `panels/`). A checkpoint is a torch `state_dict` bundle (params,
+buffers, optimizer, step, EMA) saved after every epoch as
+`checkpoints/<epoch>.pt`; `fit` resumes from the latest. `init_state`
+grafts a torchvision ResNet onto the image backbone where
+`train.pretrained_backbone` names one (`utils/torch_weights.py`).
 
 In a process group (`parallel/distributed.py`, one process a device) the
 Trainer is one rank of a data-parallel run, with the JAX Trainer's
@@ -22,8 +27,7 @@ summed over the ranks; `test` and `predict` gather every rank's results
 (`process_allgather`) and the main process scores and writes them.
 `test(vis=True)` is one process only, as in the JAX package. Without a
 group every process is the main one and the collectives are the
-identity. Still raising (ROADMAP.md, Queue 1): `pretrained_backbone` and
-`log_images` (item 9). The CLI (`cli.py`) drives it over the loaders of
+identity. The CLI (`cli.py`) drives it over the loaders of
 `data/nuscenes.py`.
 """
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..parallel.distributed import (all_reduce_sum, barrier,
                                     broadcast_module_, is_main_process,
                                     process_allgather, rank, world_size)
 from ..serving.server import _argmax, _to_numpy, set_fp32_precision
+from ..utils.torch_weights import graft_into_model_, load_torchvision_resnet
 from ..utils.vis import tile_cameras, visualize_depth, visualize_semantic
 from .losses import denormalize_images
 from .metrics import JaccardIndex, format_iou_report
@@ -55,7 +60,6 @@ from .train_step import (build_eval_step, build_metric_eval_step,
                          build_train_step, init_train_confusion, split_mats)
 
 DEVICE_KEYS_EXCLUDE = ('meta',)
-_TODO = 'see ROADMAP.md, Queue 1'
 
 
 class Trainer:
@@ -77,24 +81,43 @@ class Trainer:
         # the devices the step runs over (one process a device): the
         # detection loss floors, as the JAX Trainer's mesh.size
         self.num_devices = world_size()
-        self._log_file = (open(os.path.join(self.workdir, 'scalars.jsonl'),
-                               'a') if is_main_process() else None)
+        self._log_file = self._tb = None
+        if is_main_process():
+            self._log_file = open(os.path.join(self.workdir,
+                                               'scalars.jsonl'), 'a')
+            # the optional TensorBoard sink of the JAX Trainer, which
+            # mirrors the scalars and panels (base_exp.py:370-433)
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                self._tb = SummaryWriter(os.path.join(self.workdir, 'tb'))
 
     # ------------------------------------------------------------------
     def init_state(self, example_batch: Dict[str, np.ndarray],
                    steps_per_epoch: int) -> TrainState:
         """Seeded random weights (a torch.Generator seeded with
-        cfg.train.seed on the model's device; in a process group, rank 0's,
-        broadcast) and a fresh optimizer. The torchvision-pretrained
-        backbone of the reference recipe is not ported:
-        `pretrained_backbone` raises."""
+        cfg.train.seed on the model's device), then, where
+        cfg.train.pretrained_backbone names a torchvision ResNet .pth, that
+        checkpoint grafted onto the image backbone (the reference recipe,
+        base_exp.py:73; a bad path, depth or key raises), then in a process
+        group rank 0's weights broadcast; and a fresh optimizer."""
         del example_batch   # shapes come from the config
-        if self.cfg.train.pretrained_backbone:
-            raise NotImplementedError(f'pretrained_backbone: {_TODO} '
-                                      '(item 9)')
         g = torch.Generator(device=self.device)
         g.manual_seed(self.cfg.train.seed)
         init_params_(self.model, g)
+        pb = self.cfg.train.pretrained_backbone
+        if pb:
+            graft_into_model_(self.model, load_torchvision_resnet(
+                pb, depth=self.cfg.backbone.img_backbone_depth))
+            msg = f'image backbone: torchvision weights grafted from {pb}'
+        else:
+            msg = ('image backbone: random init (set '
+                   'train.pretrained_backbone / --pretrained-backbone for '
+                   'the reference recipe)')
+        if is_main_process():
+            print(msg)
         broadcast_module_(self.model)
         return create_train_state(self.model, self.cfg.train,
                                   steps_per_epoch)
@@ -110,6 +133,10 @@ class Trainer:
         rec.update({k: float(v) for k, v in scalars.items()})
         self._log_file.write(json.dumps(rec) + '\n')
         self._log_file.flush()
+        if self._tb is not None:
+            for k, v in rec.items():
+                if k != 'step':
+                    self._tb.add_scalar(k, v, step)
 
     # ------------------------------------------------------------------
     def checkpoint_dir(self) -> str:
@@ -152,11 +179,14 @@ class Trainer:
     # ------------------------------------------------------------------
     def fit(self, train_loader, val_loader=None,
             state: Optional[TrainState] = None, log_every: int = 50,
-            resume: bool = True,
+            image_every: int = 500, resume: bool = True,
             finetune_from: Optional[int] = None) -> TrainState:
         """Train loop over `train_loader` (an iterable of batch dicts with
         a len) for cfg.train.max_epochs.
 
+        image_every: `log_images` after every image_every-th step (0:
+            never), by the main process; a failure there is printed and
+            training goes on, as in the JAX loop.
         resume: restore the latest checkpoint of this workdir (params,
             buffers, optimizer, step) and continue at the next epoch.
         finetune_from: epoch whose weights only seed a fresh run.
@@ -189,13 +219,19 @@ class Trainer:
             t_ep = time.time()
             conf = init_train_confusion(cfg, self.device)
             for it, batch in enumerate(train_loader):
-                state, logs, conf = train_step(state, self.to_device(batch),
-                                               conf)
+                dev_batch = self.to_device(batch)
+                state, logs, conf = train_step(state, dev_batch, conf)
                 if it % log_every == 0:
                     self.log_scalars(state.step, logs)
                     if is_main_process():
                         print(f'epoch {epoch} it {it}/{steps_per_epoch} loss '
                               f"{float(logs['total_loss']):.4f}", flush=True)
+                if (image_every and state.step % image_every == 0
+                        and is_main_process()):
+                    try:
+                        self.log_images(state, dev_batch)
+                    except Exception as e:  # vis must never stop training
+                        print(f'log_images failed: {e!r}')
             if is_main_process():
                 print(f'epoch {epoch} done in {time.time() - t_ep:.1f}s')
             self._report_train_iou(conf, state.step)
@@ -230,9 +266,54 @@ class Trainer:
                                 'train/occ_mIoU': occ_miou})
 
     def log_images(self, state: TrainState, dev_batch) -> None:
-        """The periodic image panels (PNG files written with PIL) are not
-        ported."""
-        raise NotImplementedError(f'log_images: {_TODO} (item 9)')
+        """The periodic image panels (base_exp.py:419-513): an eval-mode
+        forward of row 0 of the device batch (camera renders, no detection
+        head), and six PNGs `<workdir>/panels/<step:07d>_<name>.png`
+        written with PIL: rgb_gts (the key frame's denormalised images),
+        rgb_preds, depth_preds, seg_preds (argmax on the device), bev_seg
+        and bev_height. Mirrored to TensorBoard where the sink exists. The
+        model is back in its mode afterwards."""
+        from PIL import Image
+        model = state.model
+        mats = {k: v[:1] for k, v in split_mats(dev_batch).items()}
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                fo, _ = model(dev_batch['imgs'][:1], mats,
+                              points=dev_batch['points'][:1],
+                              lidar_seg=True)
+                out = _to_numpy(dict(
+                    depth=fo['depth_preds'][0],
+                    seg=_argmax(fo['seg_logits_preds'][0]),
+                    rgb=fo['rgb_preds'][0],
+                    bev_seg=_argmax(fo['bev_seg_logits_preds'][0]),
+                    bev_height=fo['bev_height_preds'][0]))
+        finally:
+            model.train(was_training)
+        step = int(state.step)
+        d = os.path.join(self.workdir, 'panels')
+        os.makedirs(d, exist_ok=True)
+        gt_imgs = dev_batch['imgs']
+        if gt_imgs.dim() == 6:       # multi-sweep batch: panel the key frame
+            gt_imgs = gt_imgs[:, 0]
+        gt = denormalize_images(gt_imgs[:1])[0].cpu().numpy()
+        panels = {
+            'rgb_gts': tile_cameras(
+                (np.clip(gt, 0, 1) * 255).astype(np.uint8)),
+            'rgb_preds': tile_cameras(
+                (np.clip(out['rgb'], 0, 1) * 255).astype(np.uint8)),
+            'depth_preds': tile_cameras(np.stack(
+                [visualize_depth(x) for x in out['depth']])),
+            'seg_preds': tile_cameras(np.stack(
+                [visualize_semantic(x) for x in out['seg']])),
+            'bev_seg': visualize_semantic(out['bev_seg']),
+            'bev_height': visualize_depth(out['bev_height'], -5.0, 3.0),
+        }
+        for name, img in panels.items():
+            Image.fromarray(img).save(os.path.join(d, f'{step:07d}_{name}.png'))
+            if self._tb is not None:
+                self._tb.add_image(name, img, step, dataformats='HWC')
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
