@@ -33,9 +33,11 @@ nonzero without printing a result:
                field (voxel stride 24) of a synthetic field whose rays end
                partly opaque, and in its stop mode as the early-
                termination sampler launches it (the opt-in schedule
-               ET_FRACS: launch 1 to prefix x chunk samples for the sort
-               key, launch 2 to each ray's stop, each timed beside its
-               plain version and its bound). Then the three backward
+               ET_FRACS: launch 1 over prefix x chunk samples into each
+               ray's carried state and the sort key, launch 2 resuming
+               each ray there to its stop; each timed beside its plain
+               version and its bound, the frame beside the dense march of
+               the same call). Then the three backward
                kernels: the lift's
                per frame in fp32 and bf16 (the same two cases, and its
                depth-less mode, d feat only), the corner
@@ -653,11 +655,13 @@ def ray_read_bytes(args):
     return n_vox, n_vox * C * size, n_rows, n_rows * 8 * C * size
 
 
-def ray_plan(args, backward):
-    """The ray kernel's launch on `ray_field`'s field (`ops.rays.plan`)."""
+def ray_plan(args, kind):
+    """The ray kernel's launch on `ray_field`'s field (`ops.rays.plan`;
+    kind 'forward', 'backward' or 'stop', the last as the resumed launches
+    run it)."""
     from vampire_tpu_torch.ops import rays
     field = args[0]
-    return rays.plan(field.dtype, field.shape[3], backward)
+    return rays.plan(field.dtype, field.shape[3], kind)
 
 
 def ray_groups(K):
@@ -701,7 +705,7 @@ def ray_check(card, bc, dev, args):
     n_vox, vox_bytes, n_rows, row_bytes = ray_read_bytes(args)
     result['bound_ms'] = hbm_ms(vox_bytes, *args[1:5], got)
     result['table_bound_ms'] = hbm_ms(row_bytes, *args[1:5], got)
-    result['plan'] = ray_plan(args, False)
+    result['plan'] = ray_plan(args, 'forward')
     say(f'rays bf16: kernel {result["ms"]:.4f} ms, plain '
         f'{result["plain_ms"]:.4f} ms per frame, bound '
         f'{result["bound_ms"]:.4f} ms ({n_vox} distinct field voxels read; '
@@ -710,17 +714,18 @@ def ray_check(card, bc, dev, args):
     return result
 
 
-def stop_read_bytes(args, stop):
-    """What the samples before each ray's stop read, each once: valid and
-    delta of every such sample (8 bytes), and the coords (12 bytes) and the
-    distinct field voxels of nonzero weight (C channels each) of the valid
-    ones: the kernel reads a sample's coords only where its valid is not 0."""
+def stop_read_bytes(args, stop, begin=0):
+    """What the samples [begin, stop) of each ray read, each once: valid
+    and delta of every such sample (8 bytes), and the coords (12 bytes) and
+    the distinct field voxels of nonzero weight (C channels each) of the
+    valid ones: the kernel reads a sample's coords only where its valid is
+    not 0."""
     import torch
     from vampire_tpu_torch.core import sampling as S
     field, coords, valid = args[:3]
     D, H, W, C = field.shape
-    live = (torch.arange(valid.shape[1], device=valid.device)[None, :]
-            < stop[:, None])
+    s = torch.arange(valid.shape[1], device=valid.device)[None, :]
+    live = (s >= begin) & (s < stop[:, None])
     read = live & (valid > 0)
     c = coords[read]
     vox, _, w8 = S.field_corners(c, (D, H, W))
@@ -729,81 +734,132 @@ def stop_read_bytes(args, stop):
             + int(read.sum()) * 12)
 
 
+def check_close(what, got, want, rtol):
+    """max |got - want| within rtol of max(1, max |want|); returns the
+    error."""
+    err = (got - want).abs().max().item()
+    tol = rtol * max(1.0, want.abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f'{what}: {err} > {tol}')
+    return err
+
+
 def ray_stop_check(card, bc, dev, args):
-    """The ray kernel's stop mode against its plain version on
+    """The ray kernel's stop mode against its plain versions on
     `ray_field`, as the early-termination sampler (ET_FRACS, the flagship's
-    ray_et_chunk and ray_et_prefix) launches it: launch 1 stops every ray
-    at prefix * chunk samples and gives the sort key, launch 2 stops each
-    ray where its last pass ends (`earlyterm_stops` of the kernel's key).
-    Both versions get the same stops, so the renders and optical depths
-    must agree within RAY_RTOL; the stops the plain key would give are
-    counted where they differ (the two sum a ray's optical depth in
-    different orders). Each launch is timed beside its plain version and
-    its bound, the bytes of the samples before its stops; the frame's bound
-    is launch 2's, one read of each sample before its final stop."""
+    ray_et_chunk and ray_et_prefix) launches it: launch 1 marches every
+    ray's samples [0, p), p = prefix * chunk, into its carried state (the
+    render sums, sum w, sum w * mid and the optical depth, the sort key);
+    launch 2 resumes each ray at p from that state and marches it to its
+    stop (`earlyterm_stops` of the kernel's key). Launch 1's state must
+    agree with the plain prefix's within RAY_RTOL and its key be the
+    one-shot stop mode's at p bit for bit; launch 2 with the plain resume
+    from the same state; the frame with the one-shot plain march to the
+    same stops. The stops the plain key would give are counted where they
+    differ (the two sum a ray's optical depth in different orders). Each
+    launch is timed beside its plain version and its bound, the bytes of
+    its own range of samples and the state it writes or reads; the frame's
+    bound is one read of each sample before its final stop, with the
+    carried state's bytes (written once, read once) beside it. The dense
+    march and the whole early-termination op are timed in the same call."""
     import torch
     from vampire_tpu_torch.core import rendering as R
     from vampire_tpu_torch.ops import rays
     K = bc.num_classes
-    valid = args[2]
+    field, valid = args[0], args[2]
     Rn, Sn = valid.shape
+    C = field.shape[3]
     chunk, prefix = bc.ray_et_chunk, bc.ray_et_prefix
-    first = torch.full((Rn,), min(Sn, prefix * chunk), dtype=torch.int32,
-                       device=valid.device)
+    p = min(Sn, prefix * chunk)
+    first = torch.full((Rn,), p, dtype=torch.int32, device=valid.device)
+    state = rays.sample_and_composite_rays_prefix(*args, p)
+    pstate = R.sample_and_composite_rays_field_prefix_reference(*args, p)
     _, sd1 = rays.sample_and_composite_rays(*args, stop=first, with_sd=True)
-    _, psd1 = R.sample_and_composite_rays_field_reference(
-        *args, stop=first, with_sd=True)
-    stop, exited, misses = R.earlyterm_stops(sd1, valid, chunk, prefix,
-                                             ET_FRACS)
-    crossed = int((R.earlyterm_stops(psd1, valid, chunk, prefix,
+    torch.cuda.synchronize()
+    if not torch.equal(state[:, -1], sd1):
+        raise AssertionError('ray kernel stop mode: launch 1\'s key is not '
+                             'the one-shot stop mode\'s bit for bit')
+    err = 0.0
+    cols = (('rgb', slice(0, 3)), ('seg', slice(3, K + 3)),
+            ('acc_w', slice(C - 1, C)), ('acc_d', slice(C, C + 1)),
+            ('od', slice(C + 1, C + 2)))
+    for name, sl in cols:
+        err = max(err, check_close(f'ray kernel stop mode, launch 1 {name}',
+                                   state[:, sl], pstate[:, sl], RAY_RTOL))
+    stop, exited, misses = R.earlyterm_stops(state[:, -1], valid, chunk,
+                                             prefix, ET_FRACS)
+    crossed = int((R.earlyterm_stops(pstate[:, -1], valid, chunk, prefix,
                                      ET_FRACS)[0] != stop).sum())
     if crossed > ET_CROSSED_MAX * Rn:
         raise AssertionError(f'ray kernel stop mode: the plain key moves '
                              f'{crossed} of {Rn} stops')
-    result = dict(max_abs_err=0.0, launch_ms=[], launch_plain_ms=[],
-                  launch_bound_ms=[], crossed=crossed)
-    for launch, st in ((1, first), (2, stop)):
-        got, sd = rays.sample_and_composite_rays(*args, stop=st,
-                                                 with_sd=True)
-        want, wsd = R.sample_and_composite_rays_field_reference(
-            *args, stop=st, with_sd=True)
-        torch.cuda.synchronize()
-        for name, sl in ray_groups(K) + (('sd', None),):
-            g, w = (sd, wsd) if sl is None else (got[:, sl], want[:, sl])
-            err = (g - w).abs().max().item()
-            tol = RAY_RTOL * max(1.0, w.abs().max().item())
-            if not err <= tol:
-                raise AssertionError(f'ray kernel stop mode, launch '
-                                     f'{launch}, {name}: {err} > {tol}')
-            result['max_abs_err'] = max(result['max_abs_err'], err)
-        result['launch_ms'].append(cuda_ms(
-            lambda st=st: rays.sample_and_composite_rays(
-                *args, stop=st, with_sd=True), 20))
-        result['launch_plain_ms'].append(cuda_ms(
-            lambda st=st: R.sample_and_composite_rays_field_reference(
-                *args, stop=st, with_sd=True), 3))
-        result['launch_bound_ms'].append(hbm_ms(
-            stop_read_bytes(args, st), args[4], st, got, sd))
+    got, sd = rays.sample_and_composite_rays_resume(*args, state, p, stop)
+    want, wsd = R.sample_and_composite_rays_field_resume_reference(
+        *args, state, p, stop)
+    once, osd = R.sample_and_composite_rays_field_reference(
+        *args, stop=stop, with_sd=True)
+    torch.cuda.synchronize()
+    for name, sl in ray_groups(K) + (('sd', None),):
+        for what, ref, rsd in (('launch 2', want, wsd),
+                               ('the frame vs the one-shot march', once,
+                                osd)):
+            g, w = (sd, rsd) if sl is None else (got[:, sl], ref[:, sl])
+            err = max(err, check_close(f'ray kernel stop mode, {what}, '
+                                       f'{name}', g, w, RAY_RTOL))
+    result = dict(max_abs_err=err, crossed=crossed,
+                  plan=ray_plan(args, 'stop'))
+    result['launch_ms'] = [
+        cuda_ms(lambda: rays.sample_and_composite_rays_prefix(*args, p), 20),
+        cuda_ms(lambda: rays.sample_and_composite_rays_resume(
+            *args, state, p, stop), 20)]
+    result['launch_plain_ms'] = [
+        cuda_ms(lambda: R.sample_and_composite_rays_field_prefix_reference(
+            *args, p), 3),
+        cuda_ms(lambda: R.sample_and_composite_rays_field_resume_reference(
+            *args, state, p, stop), 3)]
+    result['dense_ms'] = cuda_ms(
+        lambda: rays.sample_and_composite_rays(*args), 20)
+    with torch.no_grad():
+        result['op_ms'] = cuda_ms(lambda: rays.render_rays_earlyterm(
+            *args, chunk, prefix, ET_FRACS, bc.ray_et_tau), 20)
+        result['dense_op_ms'] = cuda_ms(
+            lambda: rays.render_rays(*args), 20)
+    # each launch's own samples and the state it writes or reads; the
+    # frame's work reads each sample before its final stop once and writes
+    # the renders and the optical depth; the carried state between the
+    # launches is the design's, counted apart
+    result['state_bytes'] = 2 * state.numel() * state.element_size()
+    result['launch_bound_ms'] = [
+        hbm_ms(stop_read_bytes(args, first), args[4], state),
+        hbm_ms(stop_read_bytes(args, stop, p), args[4], stop, state, got,
+               sd)]
+    result['bound_ms'] = hbm_ms(stop_read_bytes(args, stop), args[4], stop,
+                                got, sd)
     for k in ('ms', 'plain_ms'):
         result[k] = sum(result[f'launch_{k}'])
-    # the frame's work reads each sample before its final stop once, as
-    # launch 2 does; launch 1 re-reads the first prefix * chunk of them
-    result['bound_ms'] = result['launch_bound_ms'][1]
     live = ~exited
     result['diag'] = int(R.earlyterm_uncovered_drops(sd, exited, misses,
                                                      bc.ray_et_tau))
-    say(f'rays stop mode (early termination, fracs {ET_FRACS}): '
-        f'{int(exited.sum())} exited rays, {int((live & (stop < Sn)).sum())} '
-        f'of {int(live.sum())} others stopped early, '
-        f'{int(stop.sum())} of {Rn * Sn} samples marched; max abs err '
-        f'{result["max_abs_err"]:.3e}; {crossed} rays whose stop the plain '
+    say(f'rays stop mode (early termination, fracs {ET_FRACS}, resumed at '
+        f'{p}): {int(exited.sum())} exited rays, '
+        f'{int((live & (stop < Sn)).sum())} of {int(live.sum())} others '
+        f'stopped early, {int(stop.sum())} of {Rn * Sn} samples marched; '
+        f'max abs err {result["max_abs_err"]:.3e}; launch 1\'s key bit-equal '
+        f'to the one-shot stop mode\'s; {crossed} rays whose stop the plain '
         f'key would move; uncovered drops {result["diag"]}; launch 1 / 2 '
         f'kernel {result["launch_ms"][0]:.4f} / {result["launch_ms"][1]:.4f}'
         f' ms, plain {result["launch_plain_ms"][0]:.4f} / '
         f'{result["launch_plain_ms"][1]:.4f} ms, bound '
         f'{result["launch_bound_ms"][0]:.4f} / '
         f'{result["launch_bound_ms"][1]:.4f} ms; frame kernel '
-        f'{result["ms"]:.4f} ms, bound {result["bound_ms"]:.4f} ms [{card}]')
+        f'{result["ms"]:.4f} ms against the dense march\'s '
+        f'{result["dense_ms"]:.4f} ({result["ms"] / result["dense_ms"]:.3f}x)'
+        f', bound {result["bound_ms"]:.4f} ms (share '
+        f'{result["bound_ms"] / result["ms"]:.3f}), the carried state '
+        f'{result["state_bytes"]} B written and read (at the memory\'s rate '
+        f'{hbm_ms(result["state_bytes"]):.4f} ms) apart; the early-term op {result["op_ms"]:.4f} ms, the dense '
+        f'op {result["dense_op_ms"]:.4f} ms; launch {result["plan"]} '
+        f'[{card}]')
     return result
 
 
@@ -970,7 +1026,7 @@ def ray_bwd_check(card, bc, dev, args):
     plain = cuda_ms(
         lambda: R.sample_and_composite_rays_field_backward_reference(
             *args, g), 3)
-    plan = ray_plan(args, True)
+    plan = ray_plan(args, 'backward')
     say(f'rays_bwd bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms per frame, '
         f'bound {bound:.4f} ms (through the table {table_bound:.4f} ms); '
         f'launch {plan} [{card}]')
@@ -3437,12 +3493,14 @@ def main():
         'source': f'{csrc}/rays.cu',
         'replaces': 'vampire_tpu/core/rendering.py:331',
         'replaces_on': 'the early-termination sampler (XLA there), two '
-                       'launches of rays_kernel\'s stop mode a frame',
+                       'launches of rays_kernel\'s stop mode a frame, the '
+                       'second resumed from the first\'s carried state',
         'launches': extras['earlyterm']['launched']['rays_stop'],
         'extras_launches': extras_launches(extras, 'rays_stop'),
         'train_launches': tl['rays_stop'],
         'per': 'frame (ms: launch 1 + launch 2; bound: one read of each '
-               'sample before its final stop, launch 2\'s)',
+               'sample before its final stop; the carried state apart, '
+               'state_bytes)',
         'max_abs_err': k['rays_stop']['max_abs_err'],
         'ms': k['rays_stop']['ms'],
         'plain_ms': k['rays_stop']['plain_ms'],
@@ -3452,7 +3510,12 @@ def main():
         'launch_ms': k['rays_stop']['launch_ms'],
         'launch_plain_ms': k['rays_stop']['launch_plain_ms'],
         'launch_bound_ms': k['rays_stop']['launch_bound_ms'],
+        'state_bytes': k['rays_stop']['state_bytes'],
+        'dense_ms': k['rays_stop']['dense_ms'],
+        'op_ms': k['rays_stop']['op_ms'],
+        'dense_op_ms': k['rays_stop']['dense_op_ms'],
         'crossed': k['rays_stop']['crossed'],
+        'plan': k['rays_stop']['plan'],
     }, {
         'name': 'lift_backward',
         'route': 'cuda',

@@ -4,8 +4,10 @@ validity) and the early-termination sampler (`render_rays_earlyterm`,
 two runs of the march's stop mode), against
 `sample_and_composite_rays_compact` and
 `sample_and_composite_rays_earlyterm` on the corner table of the same
-field, and the model's choice of sampler against the JAX model's; on a
-card only, the stop mode of the ray kernel against its plain version.
+field, and the model's choice of sampler against the JAX model's; the
+plain versions of the stop mode's two resumed launches against the
+one-shot march; on a card only, the stop mode of the ray kernel, one-shot
+and resumed, against its plain versions.
 
 JAX is imported inside the parity tests only, so that the card-only case
 runs where JAX is not installed:
@@ -229,6 +231,18 @@ def _port_et(vol, coords, valid, deltas, mids, fracs):
     return out.numpy(), int(diag)
 
 
+def _count_calls(monkeypatch, *names):
+    """Wrap these functions of `ops.rays` to count their calls; returns the
+    counts by name, updated as they are called."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*a, _fn=getattr(rays, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(rays, name, counted)
+    return calls
+
+
 @pytest.mark.parametrize('regime', ['full-caps', 'full-caps-prefix',
                                     'exited-only'])
 def test_earlyterm_sampler_exact_regimes_match_jax(regime):
@@ -271,18 +285,23 @@ def test_earlyterm_sampler_saturated_drops_match_jax():
     assert np.abs(want - dense).max() <= bound
 
 
-def test_earlyterm_sampler_uncovered_drops_match_jax():
+def test_earlyterm_sampler_uncovered_drops_match_jax(monkeypatch):
     """Tight caps on a field whose rays stay partly transparent: non-exited
     rays are dropped before they saturate. Their renders stop where their
     last pass ends, with no fog, as in JAX (3e-5 where both sides sort the
     rays alike, which the distinct sort keys here make sure of), and the
     diagnostic, the drops of rays below tau, equals the JAX one (no ray's
-    optical depth at its stop lies within 1e-4 of tau)."""
+    optical depth at its stop lies within 1e-4 of tau). The port's sampler
+    goes through the resumed pair of launches, once each."""
     pytest.importorskip('jax')
     vol, coords, valid, deltas, mids, _ = _et_case(21, True, exit_share=0.1)
     fracs = ET_TIGHT
     want, jdiag = _jax_et(vol, coords, valid, deltas, mids, fracs)
+    calls = _count_calls(monkeypatch, 'sample_and_composite_rays_prefix',
+                         'sample_and_composite_rays_resume')
     got, diag = _port_et(vol, coords, valid, deltas, mids, fracs)
+    assert calls == {'sample_and_composite_rays_prefix': 1,
+                     'sample_and_composite_rays_resume': 1}
     args = _port_args(vol, coords, valid, deltas, mids)
     first = torch.full((ET_RAYS,), ET_PREFIX * ET_CHUNK, dtype=torch.int32)
     _, sd0 = rays.sample_and_composite_rays(*args, stop=first, with_sd=True)
@@ -375,6 +394,79 @@ def test_stop_mode_reference_stops_each_ray():
         torch.testing.assert_close(got[r:r + 1], want, rtol=1e-6, atol=1e-5)
         torch.testing.assert_close(sd[r:r + 1], want_sd, rtol=1e-6,
                                    atol=1e-6)
+
+
+def _resume_stops(case, valid, n):
+    """Stops for the resumed pair: every ray at the prefix end `n`, inside
+    the passes after it, at S (every ray exited), the mix that
+    `earlyterm_stops` gives, or S below n."""
+    n_rays, n_samp = valid.shape
+    rng = np.random.RandomState(7)
+    if case == 'at-prefix':
+        stop = np.full(n_rays, n)
+    elif case == 'later-passes':
+        stop = np.minimum(n_samp, n + ET_CHUNK * rng.randint(1, 4, n_rays))
+    elif case in ('exited', 'S-below-prefix'):
+        stop = np.full(n_rays, n_samp)
+    else:
+        return None
+    return torch.from_numpy(stop.astype(np.int32))
+
+
+@pytest.mark.parametrize('case', ['at-prefix', 'later-passes', 'exited',
+                                  'earlyterm-stops', 'S-below-prefix'])
+def test_resumed_pair_matches_the_one_shot_march(case):
+    """The plain versions of the stop mode's two launches (the prefix's
+    carried state, then each ray resumed from it to its stop) against the
+    one-shot plain march to the same stops, renders and optical depth
+    within 1e-6 of each output's magnitude (fp32: the sums split at the
+    prefix and added back); the kernel wrappers on the CPU give the same.
+    'S-below-prefix' has 3 samples a ray under a prefix of 4."""
+    n_samp = 3 if case == 'S-below-prefix' else N_SAMP
+    vol, coords, valid, deltas, mids, _ = _et_case(13, True, exit_share=0.1)
+    args = _port_args(vol, coords[:, :n_samp], valid[:, :n_samp],
+                      deltas[:, :n_samp], mids[:n_samp])
+    n = min(n_samp, ET_PREFIX * ET_CHUNK)
+    state = R.sample_and_composite_rays_field_prefix_reference(
+        *args, ET_PREFIX * ET_CHUNK)
+    assert state.shape == (ET_RAYS, C + 2) and state.dtype == torch.float32
+    stop = _resume_stops(case, args[2], n)
+    if stop is None:
+        stop = R.earlyterm_stops(state[:, -1], args[2], ET_CHUNK, ET_PREFIX,
+                                 ET_TIGHT)[0]
+        assert len(set(stop.tolist())) >= 3    # stops at n, after it, at S
+    got, sd = R.sample_and_composite_rays_field_resume_reference(
+        *args, state, n, stop)
+    want, want_sd = R.sample_and_composite_rays_field_reference(
+        *args, stop=stop, with_sd=True)
+    _close(got.numpy(), want.numpy(), 1e-6, case)
+    np.testing.assert_allclose(sd.numpy(), want_sd.numpy(), rtol=1e-6,
+                               atol=1e-6 * max(1.0, want_sd.abs().max()))
+    if case == 'at-prefix':               # nothing is marched after n
+        assert torch.equal(sd, state[:, -1])
+    w_state = rays.sample_and_composite_rays_prefix(*args,
+                                                    ET_PREFIX * ET_CHUNK)
+    w_out, w_sd = rays.sample_and_composite_rays_resume(*args, w_state, n,
+                                                        stop)
+    assert torch.equal(w_state, state)
+    assert torch.equal(w_out, got) and torch.equal(w_sd, sd)
+
+
+@pytest.mark.parametrize('n', [1, ET_CHUNK, 11, N_SAMP, N_SAMP + 5])
+def test_prefix_key_is_the_one_shot_key_bit_for_bit(n):
+    """The prefix launch's optical depth, the sort key of the stops, is the
+    one-shot stop mode's `with_sd` at a stop of min(S, n) for every ray,
+    bit for bit, and its sums are that march's before compositing."""
+    vol, coords, valid, deltas, mids, _ = _et_case(21, False)
+    args = _port_args(vol, coords, valid, deltas, mids)
+    state = R.sample_and_composite_rays_field_prefix_reference(*args, n)
+    stop = torch.full((ET_RAYS,), min(N_SAMP, n), dtype=torch.int32)
+    out, sd = R.sample_and_composite_rays_field_reference(
+        *args, stop=stop, with_sd=True)
+    assert torch.equal(state[:, -1], sd)
+    assert torch.equal(state[:, :C - 1], out[:, :C - 1])
+    depth = state[:, C] + (1.0 - state[:, C - 1]) * BG
+    assert torch.equal(depth, out[:, C - 1])
 
 
 # ---------------------------------------------------------------------------
@@ -555,3 +647,60 @@ def test_stop_mode_kernel_matches_its_plain_version():
         torch.testing.assert_close(
             plain, R.sample_and_composite_rays_field_reference(*args),
             rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_resumed_stop_mode_kernels_match_their_plain_versions():
+    """The stop mode's two launches on the card against their plain
+    versions, in fp32 and bf16 at the chip check's RAY_RTOL (1e-4 of each
+    output's magnitude): the prefix's carried state (its optical depth bit
+    for bit the one-shot kernel's `with_sd` at the same stop: the 8 lanes a
+    ray sum its 4 samples in the one-shot warp's tree), and the resumed
+    launch from the plain state to `earlyterm_stops`' stops; each adds one
+    stop-mode launch. Then the refusals, and the one-shot stop mode at 31
+    channels, which carries no state and so takes C + 2 > 32."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the ray kernel has no CPU mode)')
+    vol, coords, valid, deltas, mids, _ = _et_case(13, True)
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a
+            for a in _port_args(vol, coords, valid, deltas, mids)]
+    n = ET_PREFIX * ET_CHUNK
+    for dtype in (torch.float32, torch.bfloat16):
+        args[0] = rays.channels_last_field(
+            torch.from_numpy(vol).cuda().to(dtype))
+        before = rays.STOP_LAUNCHES
+        state = rays.sample_and_composite_rays_prefix(*args, n)
+        assert rays.STOP_LAUNCHES == before + 1
+        want = R.sample_and_composite_rays_field_prefix_reference(*args, n)
+        for col in range(C + 2):
+            torch.testing.assert_close(
+                state[:, col], want[:, col], rtol=1e-4,
+                atol=1e-4 * max(1.0, want[:, col].abs().max().item()))
+        first = torch.full((ET_RAYS,), n, dtype=torch.int32, device='cuda')
+        _, sd1 = rays.sample_and_composite_rays(*args, stop=first,
+                                                with_sd=True)
+        assert torch.equal(state[:, -1], sd1)
+        stop = R.earlyterm_stops(want[:, -1], args[2], ET_CHUNK, ET_PREFIX,
+                                 ET_TIGHT)[0]
+        got, sd = rays.sample_and_composite_rays_resume(*args, want, n, stop)
+        assert rays.STOP_LAUNCHES == before + 3
+        w_out, w_sd = R.sample_and_composite_rays_field_resume_reference(
+            *args, want, n, stop)
+        _close(got.cpu().numpy(), w_out.cpu().numpy(), 1e-4, str(dtype))
+        torch.testing.assert_close(sd, w_sd, rtol=1e-4, atol=1e-4)
+    wide = rays.channels_last_field(torch.from_numpy(
+        np.random.RandomState(3).randn(31, *VOL).astype(np.float32)).cuda())
+    wide_args = [wide] + args[1:]            # C + 2 = 33 columns a ray
+    with pytest.raises(ValueError, match='at most 32'):
+        rays.sample_and_composite_rays_prefix(*wide_args, n)
+    with pytest.raises(ValueError, match='at most 32'):
+        rays.sample_and_composite_rays_resume(
+            *wide_args, torch.zeros((ET_RAYS, 33), device='cuda'), n, stop)
+    with pytest.raises(ValueError, match='samples'):
+        rays.sample_and_composite_rays_resume(*args, want, -1, stop)
+    got, sd = rays.sample_and_composite_rays(*wide_args, stop=stop,
+                                             with_sd=True)
+    w_out, w_sd = R.sample_and_composite_rays_field_reference(
+        *wide_args, stop=stop, with_sd=True)
+    _close(got.cpu().numpy(), w_out.cpu().numpy(), 1e-4, 'one-shot C 31')
+    torch.testing.assert_close(sd, w_sd, rtol=1e-4, atol=1e-4)

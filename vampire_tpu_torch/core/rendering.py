@@ -9,7 +9,11 @@ channels-last field instead of the table
 (`sample_and_composite_rays_field_reference` and
 `sample_and_composite_rays_field_backward_reference`), the plain versions
 of the CUDA kernels in `ops/rays.py`, which also take a per-ray stop
-(the samples from it on add nothing) and give each ray's optical depth.
+(the samples from it on add nothing) and give each ray's optical depth;
+and the plain versions of the early-termination sampler's two launches,
+the march over each ray's prefix into a carried state and the march
+resumed from it (`sample_and_composite_rays_field_prefix_reference`,
+`sample_and_composite_rays_field_resume_reference`).
 
 The JAX package's two pass-structured samplers reduce to that march on
 changed inputs (`compact_valid`, `earlyterm_stops`): the train-mode compact
@@ -155,52 +159,74 @@ def render_camera_rays(sdf: torch.Tensor, seg_logits: torch.Tensor,
 _CHUNK_BYTES = 1 << 30
 
 
-def _composite(samp, vm, dl, mids, bg_depth, density_mode, beta, sdf_bias,
-               live=None):
-    """[rgb | seg | depth] of a chunk from its (cr, S, Ct) samples, and
-    each ray's optical depth; `live` (cr, S), 1 before each ray's stop and
-    0 from it on, zeroes the optical depth and so the weight of the samples
-    past the stop (None: every sample counts)."""
+def _sums(samp, vm, dl, mids, density_mode, beta, sdf_bias, live=None,
+          od0=None):
+    """What a chunk's (cr, S, Ct) samples add to each ray, (cr, Ct + 2)
+    fp32 [rgb | seg | acc_w | acc_d | od]: the render sums sum_i w_i v_i in
+    the output's column order, sum_i w_i, sum_i w_i mid_i and the optical
+    depth. `live` (cr, S), 1 where a sample is marched and 0 elsewhere,
+    zeroes the optical depth and so the weight of the others (None: every
+    sample counts); `od0` (cr,) is the optical depth before the first
+    marched sample (None: 0), and counts in the returned optical depth."""
     K = samp.shape[-1] - 4
     samp = samp * vm[..., None]
     sd = density(samp[..., 0], density_mode, beta, sdf_bias) * dl
     if live is not None:
         sd = sd * live
     alpha = 1.0 - torch.exp(-sd)
-    w = alpha * torch.exp(-(torch.cumsum(sd, dim=-1) - sd))   # (cr, S)
-    acc = torch.sum(w, dim=-1)
+    before = torch.cumsum(sd, dim=-1) - sd
+    od = torch.sum(sd, dim=-1)
+    if od0 is not None:
+        before = od0[:, None] + before
+        od = od0 + od
+    w = alpha * torch.exp(-before)                              # (cr, S)
     rgb_o = torch.sum(w[..., None] * samp[..., K + 1:K + 4], dim=1)
     seg_o = torch.sum(w[..., None] * samp[..., 1:K + 1], dim=1)
-    depth_o = torch.sum(w * mids[None, :], dim=1) + (1.0 - acc) * bg_depth
-    return (torch.cat([rgb_o, seg_o, depth_o[:, None]], dim=-1),
-            torch.sum(sd, dim=-1))
+    return torch.cat([rgb_o, seg_o, torch.sum(w, dim=-1)[:, None],
+                      torch.sum(w * mids[None, :], dim=1)[:, None],
+                      od[:, None]], dim=-1)
 
 
-def _march(sample, Ct, coords, valid, deltas, camera_mids, bg_depth,
-           density_mode, beta, sdf_bias, chunk_rays, stop=None):
-    """Composite whole rays, chunk by chunk; `sample(c)` gives the (P, Ct)
-    fp32 samples at the (P, 3) coords c. Returns ([rgb | seg | depth],
-    optical depth) per ray; a ray's samples from `stop` (R,) on add
-    nothing."""
+def _composite(sums, bg_depth):
+    """[rgb | seg | depth] per ray from its `_sums` row: the depth is
+    acc_d + (1 - acc_w) * bg_depth."""
+    C = sums.shape[-1] - 2
+    depth = sums[:, C] + (1.0 - sums[:, C - 1]) * bg_depth
+    return torch.cat([sums[:, :C - 1], depth[:, None]], dim=-1)
+
+
+def _march(sample, Ct, coords, valid, deltas, camera_mids, density_mode,
+           beta, sdf_bias, chunk_rays, begin=0, stop=None, state=None):
+    """The `_sums` of whole rays, chunk by chunk; `sample(c)` gives the
+    (P, Ct) fp32 samples at the (P, 3) coords c. A ray's samples before
+    `begin` and from `stop` (R,) on add nothing; `state` (R, Ct + 2), the
+    sums of the samples before `begin`, is carried in: its optical depth
+    goes before the first marched sample and its sums are added."""
     R_, S_n = coords.shape[:2]
     if chunk_rays is None:
         chunk_rays = max(1, _CHUNK_BYTES // (S_n * 8 * Ct * 4))
     mids = camera_mids.to(torch.float32)
     s_idx = torch.arange(S_n, device=coords.device)
-    outs, sds = [], []
+    sums = []
     for r0 in range(0, R_, chunk_rays):
         cc = coords[r0:r0 + chunk_rays]
         samp = sample(cc.reshape(-1, 3)).reshape(cc.shape[0], S_n, Ct)
-        live = (None if stop is None else
-                (s_idx[None, :] < stop[r0:r0 + chunk_rays, None]).to(
-                    torch.float32))
-        out, sd = _composite(
+        live = None
+        if begin or stop is not None:
+            live = s_idx[None, :] >= begin
+            if stop is not None:
+                live = live & (s_idx[None, :] < stop[r0:r0 + chunk_rays, None])
+        carried = None if state is None else state[r0:r0 + chunk_rays]
+        part = _sums(
             samp, valid[r0:r0 + chunk_rays].to(torch.float32),
-            deltas[r0:r0 + chunk_rays].to(torch.float32), mids, bg_depth,
-            density_mode, beta, sdf_bias, live)
-        outs.append(out)
-        sds.append(sd)
-    return torch.cat(outs, dim=0), torch.cat(sds, dim=0)
+            deltas[r0:r0 + chunk_rays].to(torch.float32), mids, density_mode,
+            beta, sdf_bias, None if live is None else live.to(torch.float32),
+            None if carried is None else carried[:, -1])
+        if carried is not None:
+            part = torch.cat([carried[:, :-1] + part[:, :-1], part[:, -1:]],
+                             dim=-1)
+        sums.append(part)
+    return torch.cat(sums, dim=0)
 
 
 def sample_and_composite_rays_reference(
@@ -236,9 +262,9 @@ def sample_and_composite_rays_reference(
     def sample(c):
         rows, w8 = S.corner_rows_weights(c, vol_shape, True, False)
         return S.gather_corners(flat, rows, w8)
-    return _march(sample, flat.shape[1] // 8, coords, valid, deltas,
-                  camera_mids, bg_depth, density_mode, beta, sdf_bias,
-                  chunk_rays)[0]
+    return _composite(_march(sample, flat.shape[1] // 8, coords, valid,
+                             deltas, camera_mids, density_mode, beta,
+                             sdf_bias, chunk_rays), bg_depth)
 
 
 def sample_and_composite_rays_field_reference(
@@ -257,11 +283,52 @@ def sample_and_composite_rays_field_reference(
     weight where i >= stop[ray] (the early-termination sampler's cut;
     None: every sample counts). `with_sd`: also return each ray's optical
     depth summed over its samples before the stop, (R,) fp32."""
-    C = field.shape[-1]
-    out, sd = _march(lambda c: S.gather_field_corners(field, c), C, coords,
-                     valid, deltas, camera_mids, bg_depth, density_mode,
-                     beta, sdf_bias, chunk_rays, stop)
-    return (out, sd) if with_sd else out
+    sums = _march(lambda c: S.gather_field_corners(field, c),
+                  field.shape[-1], coords, valid, deltas, camera_mids,
+                  density_mode, beta, sdf_bias, chunk_rays, stop=stop)
+    out = _composite(sums, bg_depth)
+    return (out, sums[:, -1]) if with_sd else out
+
+
+def sample_and_composite_rays_field_prefix_reference(
+        field: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+        deltas: torch.Tensor, camera_mids: torch.Tensor, bg_depth: float,
+        density_mode: str, beta: torch.Tensor, sdf_bias: float, n: int,
+        chunk_rays: Optional[int] = None) -> torch.Tensor:
+    """The first launch of the resumed stop mode: each ray's samples [0,
+    min(S, n)) marched, and its carried state (R, C + 2) fp32 returned,
+    [rgb | seg | acc_w | acc_d | od] (the render sums in the output's
+    column order, sum w, sum w * mid, the optical depth). The optical depth
+    is the early-termination sampler's sort key, bit for bit `with_sd`'s at
+    a stop of n. `bg_depth` is not read (the depth is composited at the
+    end). The plain version of `ops.rays.sample_and_composite_rays_prefix`."""
+    R_, S_n = valid.shape
+    stop = torch.full((R_,), min(S_n, n), dtype=torch.int32,
+                      device=valid.device)
+    return _march(lambda c: S.gather_field_corners(field, c),
+                  field.shape[-1], coords, valid, deltas, camera_mids,
+                  density_mode, beta, sdf_bias, chunk_rays, stop=stop)
+
+
+def sample_and_composite_rays_field_resume_reference(
+        field: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+        deltas: torch.Tensor, camera_mids: torch.Tensor, bg_depth: float,
+        density_mode: str, beta: torch.Tensor, sdf_bias: float,
+        state: torch.Tensor, begin: int, stop: torch.Tensor,
+        chunk_rays: Optional[int] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second launch: each ray resumed at sample `begin` from its
+    carried `state` (the first launch's, over [0, begin)) and marched to
+    its `stop` (R,) int32; a ray whose stop is at most `begin` only
+    composites its state. Returns ((R, C) [rgb | seg | depth], the optical
+    depth at the stop (R,)): the one-shot march to the same stops, its sums
+    split at `begin`. The plain version of
+    `ops.rays.sample_and_composite_rays_resume`."""
+    sums = _march(lambda c: S.gather_field_corners(field, c),
+                  field.shape[-1], coords, valid, deltas, camera_mids,
+                  density_mode, beta, sdf_bias, chunk_rays, begin=begin,
+                  stop=stop, state=state)
+    return _composite(sums, bg_depth), sums[:, -1]
 
 
 def _sample_grads(samp, vm, dl, g, mids, bg_depth, density_mode, beta,

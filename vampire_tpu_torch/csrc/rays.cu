@@ -81,17 +81,44 @@
 // one atomic per block. What bounds it: the reductions in L2, 8 corners of
 // C channels for each of the 2.9 M valid samples.
 //
-// Stop mode (`stop`, `sd_out`, both optional): the forward of the JAX
-// package's early-termination sampler (vampire_tpu/core/rendering.py:331,
-// plain XLA there; its passes over sorted, capped rays reduce to a march
-// stopped per ray, core/rendering.py `earlyterm_stops`). Sample i of a ray
-// with i >= stop[ray] is not read and adds no optical depth and no weight:
-// the warp's chunk loop ends at min(S, stop[ray]). `sd_out[ray]` gets the
-// optical depth summed over the samples before the stop (the sort key of
-// the first of the sampler's two launches, the coverage diagnostic's input
-// in the second). With both pointers null it computes what it did before
-// the stop mode, bit for bit. What bounds it: the same reads, of the
-// samples before each stop only.
+// Stop mode (`rays_kernel<..., true, G>`): the forward of the JAX package's
+// early-termination sampler (vampire_tpu/core/rendering.py:331, plain XLA
+// there; its passes over sorted, capped rays reduce to a march stopped per
+// ray, core/rendering.py `earlyterm_stops`), in two launches a frame.
+// Launch 1 marches every ray's samples [0, p), p = prefix * chunk, and
+// writes no renders: only each ray's carried state, a row of C + 2 fp32
+// [rgb | seg | acc_w | acc_d | od], whose optical depth od is the sort key
+// of the stops. Launch 2 starts each ray at sample p from that state (od
+// before its first chunk, the sums added at the end) and marches [p,
+// stop[ray]); a ray whose stop is p only composites its state. So each
+// sample before a ray's final stop is read once: a stop is at least p by
+// the stops' definition. Without a state (begin 0, `stop`, `sd_out`) it
+// is the one-shot stop mode, a warp a ray.
+//
+// The stop mode takes G lanes a ray, 32 / G rays a warp, with the scans
+// and sums over each group of G lanes and the warp looping to the longest
+// of its rays: G = kStopLanes = 8 for the two resumed launches, 32 for the
+// one-shot mode. A ray's ranges in the resumed launches are short and
+// ragged ([0, 24) at the flagship, then passes of 12 samples), so at 32
+// lanes a warp left a quarter to most of its lanes idle on a chunk that
+// costs about as much full; at 8 lanes the prefix fills every lane and the
+// passes most. At 8 lanes and p <= 24 the key is the 32-lane scan's sum
+// tree (the groups' sums added in order, then zeros), so it equals the
+// one-shot stop mode's `sd_out` at a stop of p bit for bit, and the stops
+// do not move. The carried state needs a lane a column (C <= 30); the
+// one-shot mode takes every C the dense march takes. The dense instance
+// (`false`, 32) computes what it computed before the stop mode, bit for
+// bit.
+//
+// What bounds it: as the dense march, the corner reads and the
+// instructions that make them, here over [0, p) (launch 1) and [p, stop)
+// (launch 2). Measured on an NVIDIA H100 80GB HBM3 at 700 W over
+// chip_smoke's flagship frame (tools/ray_stop.py): launch 1 0.183-0.210
+// ms, launch 2 0.220-0.250 ms, the frame 0.40-0.46 ms against the dense
+// march's 0.38-0.42 in the same runs (the one-shot pair it replaced
+// 0.70-0.73), 0.078 of the frame's byte bound (each sample before its
+// final stop read once; the 13 MB of carried state apart). At 32 lanes a
+// ray the resumed pair took 0.585 ms, at 16 0.451, at 4 0.423 (PERF.md).
 //
 // The kernels allocate nothing; the caller owns every buffer.
 
@@ -249,6 +276,38 @@ __device__ __forceinline__ float warp_scan(float v, int lane) {
   return v;
 }
 
+// The same over each group of G consecutive lanes (G a power of 2 <= 32;
+// G = 32 is the warp's, the same shuffles in the same order)
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(kFull, v, off);
+  }
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ float group_scan(float v, int gl) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const float t = __shfl_up_sync(kFull, v, off, G);
+    if (gl >= off) v += t;
+  }
+  return v;
+}
+
+// column `col` of a group's row held G columns a lane (lane gl of the
+// group holds columns gl, gl + G, ...), broadcast over the group
+template <int G, int NCOL>
+__device__ __forceinline__ float group_col(const float (&row)[NCOL],
+                                           int col) {
+  float v = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) v = (col / G == k) ? row[k] : v;
+  return __shfl_sync(kFull, v, col % G, G);
+}
+
 // density, d density / d sdf and d density / d beta (mode 0: Laplace of
 // beta_eff = |beta| + 1e-4 around sdf_bias; mode 1: sigmoid)
 struct Density {
@@ -304,7 +363,18 @@ __device__ __forceinline__ int out_col(int c, int K) {
   return c == 0 ? -1 : (c <= K ? 3 + c - 1 : c - K - 1);
 }
 
-template <typename T, int CMAX>
+// The carried state of a ray between the stop mode's launches: a row of
+// C + 2 fp32, [rgb | seg | acc_w | acc_d | od] (the render sums in the
+// output's column order, sum w, sum w * mid, the optical depth).
+__host__ __device__ constexpr int state_cols(int C) { return C + 2; }
+
+// kStop false: the dense march, every sample of every ray, a warp a ray
+// (G = 32). kStop true: the stop mode, samples [begin, min(end, stop[ray]))
+// of each ray (`stop` optional), G lanes a ray, starting from the carried
+// state `state_in` (optional: none is a ray at its first sample) and
+// ending in `state_out` (if given) or in the renders `out` and the optical
+// depth `sd_out` (optional).
+template <typename T, int CMAX, bool kStop, int G>
 __global__ void __launch_bounds__(kThreads, min_blocks(CMAX))
     rays_kernel(const T* __restrict__ field, const float* __restrict__ coords,
                 const float* __restrict__ valid,
@@ -312,24 +382,55 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CMAX))
                 const float* __restrict__ mids,
                 const float* __restrict__ beta, float* __restrict__ out,
                 const int* __restrict__ stop, float* __restrict__ sd_out,
-                int R, int S, int C, int CS, int D, int H, int W, int mode,
+                const float* __restrict__ state_in,
+                float* __restrict__ state_out, int begin, int end, int R,
+                int S, int C, int CS, int D, int H, int W, int mode,
                 float sdf_bias, float bg_depth) {
-  const int64_t ray =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (ray >= R) return;  // the whole warp leaves together
+  static_assert(kStop || G == 32, "the dense march takes a warp a ray");
+  // the columns a lane holds of its ray's output or state row
+  constexpr int NCOL = 32 / G;
+  const int64_t thread =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // the whole warp leaves together: its first ray is past the last
+  if (((thread >> 5) << 5) / G >= R) return;
+  const int64_t ray = thread / G;
+  const bool real = ray < R;  // false for the tail of the last warp only
   const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);  // the lane within the ray's group
   const int K = C - 4;
   const Density dn = density_of(beta, mode, sdf_bias);
-  // the samples this ray marches: all S, or those before its stop
-  const int n = stop == nullptr ? S : min(S, max(stop[ray], 0));
+  // the samples this ray marches: all S, or [begin, its stop); the group's
+  // loop runs to the largest of the warp's
+  int s_begin = 0, n = S, n_warp = S;
+  // this lane's columns of the carried state (0 without one)
+  float carried[NCOL];
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) carried[k] = 0.0f;
+  if constexpr (kStop) {
+    s_begin = begin;
+    n = !real ? 0 : (stop == nullptr ? end : min(end, max(stop[ray], 0)));
+    n_warp = n;
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+      n_warp = max(n_warp, __shfl_xor_sync(kFull, n_warp, off));
+    }
+#pragma unroll
+    for (int k = 0; k < NCOL; ++k) {
+      const int col = gl + k * G;
+      if (real && state_in != nullptr && col < state_cols(C)) {
+        carried[k] = state_in[ray * state_cols(C) + col];
+      }
+    }
+  }
 
   float acc[CMAX];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) acc[c] = 0.0f;
   float acc_w = 0.0f, acc_d = 0.0f;
-  float od = 0.0f;  // optical depth of the chunks before this one
-  for (int s0 = 0; s0 < n; s0 += 32) {
-    const int i = s0 + lane;
+  float od = 0.0f;  // optical depth of the samples before this chunk
+  if constexpr (kStop) od = group_col<G>(carried, C + 1);
+  for (int s0 = s_begin; s0 < n_warp; s0 += G) {
+    const int i = s0 + gl;
     const bool in = i < n;
     const int64_t si = ray * S + i;
     const float vm = in ? valid[si] : 0.0f;
@@ -338,11 +439,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CMAX))
     if (vm != 0.0f) win = window_of(coords, si, D, H, W);
     sample_field<T, CMAX>(field, win, vm, C, CS, D, H, W, v);
     const float sd = in ? dn.value(v[0]) * deltas[si] : 0.0f;
-    const float incl = warp_scan(sd, lane);
-    const float prev = __shfl_up_sync(kFull, incl, 1);
-    const float excl = lane == 0 ? 0.0f : prev;
+    const float incl = group_scan<G>(sd, gl);
+    const float prev = __shfl_up_sync(kFull, incl, 1, G);
+    const float excl = gl == 0 ? 0.0f : prev;
     const float w = (1.0f - expf(-sd)) * expf(-(od + excl));
-    od = od + __shfl_sync(kFull, incl, 31);
+    od = od + __shfl_sync(kFull, incl, G - 1, G);
     if (in) {
 #pragma unroll
       for (int c = 0; c < CMAX; ++c) acc[c] = acc[c] + w * v[c];
@@ -351,19 +452,48 @@ __global__ void __launch_bounds__(kThreads, min_blocks(CMAX))
     }
   }
 
-  float mine = 0.0f;  // the value of this lane's output column
+  // the values of this lane's output columns gl, gl + G, ...
+  float mine[NCOL];
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) mine[k] = 0.0f;
 #pragma unroll
   for (int c = 1; c < CMAX; ++c) {
     if (c < C) {
-      const float s = warp_sum(acc[c]);
-      if (lane == out_col(c, K)) mine = s;
+      const float s = group_sum<G>(acc[c]);
+#pragma unroll
+      for (int k = 0; k < NCOL; ++k) {
+        if (gl + k * G == out_col(c, K)) mine[k] = s;
+      }
     }
   }
-  acc_w = warp_sum(acc_w);
-  acc_d = warp_sum(acc_d);
-  if (lane == K + 3) mine = acc_d + (1.0f - acc_w) * bg_depth;
-  if (lane < C) out[ray * C + lane] = mine;
-  if (sd_out != nullptr && lane == 0) sd_out[ray] = od;
+  acc_w = group_sum<G>(acc_w);
+  acc_d = group_sum<G>(acc_d);
+  if constexpr (kStop) {
+    // the carried sums plus this launch's
+    acc_w = group_col<G>(carried, C - 1) + acc_w;
+    acc_d = group_col<G>(carried, C) + acc_d;
+#pragma unroll
+    for (int k = 0; k < NCOL; ++k) {
+      const int col = gl + k * G;
+      mine[k] = carried[k] + mine[k];
+      if (state_out != nullptr) {
+        if (col == C - 1) mine[k] = acc_w;
+        if (col == C) mine[k] = acc_d;
+        if (col == C + 1) mine[k] = od;
+        if (real && col < state_cols(C)) {
+          state_out[ray * state_cols(C) + col] = mine[k];
+        }
+      }
+    }
+    if (state_out != nullptr) return;
+    if (real && sd_out != nullptr && gl == 0) sd_out[ray] = od;
+  }
+#pragma unroll
+  for (int k = 0; k < NCOL; ++k) {
+    const int col = gl + k * G;
+    if (col == K + 3) mine[k] = acc_d + (1.0f - acc_w) * bg_depth;
+    if (real && col < C) out[ray * C + col] = mine[k];
+  }
 }
 
 template <typename T, int CMAX>
@@ -508,31 +638,47 @@ bool bad_shape(const void* field, int C, int CS, int mode) {
          (mode != 0 && mode != 1);
 }
 
-unsigned int n_blocks(int R) {
+// the lanes a ray of the resumed launches (a state read or written): 4
+// rays a warp; the dense march and the one-shot stop mode take a warp a ray
+constexpr int kStopLanes = 8;
+
+// blocks for R rays of `lanes` threads each
+unsigned int n_blocks(int R, int lanes = 32) {
   return static_cast<unsigned int>(
-      (static_cast<int64_t>(R) * 32 + kThreads - 1) / kThreads);
+      (static_cast<int64_t>(R) * lanes + kThreads - 1) / kThreads);
 }
 
 template <typename T>
 int launch(const void* field, const void* coords, const void* valid,
            const void* deltas, const void* mids, const void* beta, void* out,
-           const void* stop, void* sd_out, int R, int S, int C, int CS,
+           const void* stop, void* sd_out, const void* state_in,
+           void* state_out, int begin, int end, int R, int S, int C, int CS,
            int D, int H, int W, int mode, float sdf_bias, float bg_depth,
            void* stream) {
-  if (bad_shape<T>(field, C, CS, mode)) {
+  const bool dense = stop == nullptr && sd_out == nullptr &&
+                     state_in == nullptr && state_out == nullptr &&
+                     begin == 0 && end == S;
+  const bool resumed = state_in != nullptr || state_out != nullptr;
+  // the carried state needs a lane a column; the samples lie in [0, S]
+  if (bad_shape<T>(field, C, CS, mode) ||
+      (resumed && state_cols(C) > 32) || begin < 0 || end > S) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R == 0) return static_cast<int>(cudaSuccess);
   return with_cmax(C, [&](auto cm) {
-    rays_kernel<T, decltype(cm)::value>
-        <<<n_blocks(R), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(field), static_cast<const float*>(coords),
-            static_cast<const float*>(valid),
-            static_cast<const float*>(deltas),
-            static_cast<const float*>(mids), static_cast<const float*>(beta),
-            static_cast<float*>(out), static_cast<const int*>(stop),
-            static_cast<float*>(sd_out), R, S, C, CS, D, H, W, mode,
-            sdf_bias, bg_depth);
+    constexpr int CM = decltype(cm)::value;
+    auto kernel = dense     ? rays_kernel<T, CM, false, 32>
+                  : resumed ? rays_kernel<T, CM, true, kStopLanes>
+                            : rays_kernel<T, CM, true, 32>;
+    kernel<<<n_blocks(R, resumed ? kStopLanes : 32), kThreads, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(field), static_cast<const float*>(coords),
+        static_cast<const float*>(valid), static_cast<const float*>(deltas),
+        static_cast<const float*>(mids), static_cast<const float*>(beta),
+        static_cast<float*>(out), static_cast<const int*>(stop),
+        static_cast<float*>(sd_out), static_cast<const float*>(state_in),
+        static_cast<float*>(state_out), begin, end, R, S, C, CS, D, H, W,
+        mode, sdf_bias, bg_depth);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -562,14 +708,22 @@ int launch_backward(const void* field, const void* coords, const void* valid,
   });
 }
 
+// kind 0: the dense forward, 1: the backward, 2: the forward's stop mode
+// as the resumed launches run it (kStopLanes lanes a ray)
 template <typename T>
-int plan(int C, int backward, int* info) {
-  if (C < 5 || C > 32) return static_cast<int>(cudaErrorInvalidValue);
+int plan(int C, int kind, int* info) {
+  if (C < 5 || C > 32 || kind < 0 || kind > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return with_cmax(C, [&](auto cm) {
     constexpr int CM = decltype(cm)::value;
     const void* fn =
-        backward ? reinterpret_cast<const void*>(rays_backward_kernel<T, CM>)
-                 : reinterpret_cast<const void*>(rays_kernel<T, CM>);
+        kind == 1
+            ? reinterpret_cast<const void*>(rays_backward_kernel<T, CM>)
+        : kind == 2
+            ? reinterpret_cast<const void*>(rays_kernel<T, CM, true,
+                                                        kStopLanes>)
+            : reinterpret_cast<const void*>(rays_kernel<T, CM, false, 32>);
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -578,6 +732,7 @@ int plan(int C, int backward, int* info) {
     info[1] = attr.numRegs;
     info[2] = CM;
     info[3] = kThreads;
+    info[4] = kind == 2 ? kStopLanes : 32;
     return static_cast<int>(err);
   });
 }
@@ -587,28 +742,35 @@ int plan(int C, int backward, int* info) {
 // Plain C entry points (loaded with ctypes). Each returns the CUDA error code
 // of the launch: 0 on success. `field` is (D, H, W, C) channels-last with
 // voxel stride CS (>= C, a multiple of 16 bytes, the field 16-byte
-// aligned), `out` (R, C) fp32; `stop` (R,) int32 and `sd_out` (R,) fp32
-// are the stop mode's, each optional (null).
+// aligned), `out` (R, C) fp32. The stop mode's arguments: `stop` (R,)
+// int32, `sd_out` (R,) fp32, `state_in` and `state_out` (R, C + 2) fp32,
+// each optional (null), and the samples [begin, end) with 0 <= begin and
+// end <= S; with every pointer null, begin 0 and end S the launch is the
+// dense march. A launch that reads or writes a state (C <= 30) runs
+// kStopLanes lanes a ray, any other a warp a ray.
 extern "C" int rays_f32(const void* field, const void* coords,
                         const void* valid, const void* deltas,
                         const void* mids, const void* beta, void* out,
-                        const void* stop, void* sd_out, int R, int S, int C,
-                        int CS, int D, int H, int W, int mode, float sdf_bias,
-                        float bg_depth, void* stream) {
+                        const void* stop, void* sd_out, const void* state_in,
+                        void* state_out, int begin, int end, int R, int S,
+                        int C, int CS, int D, int H, int W, int mode,
+                        float sdf_bias, float bg_depth, void* stream) {
   return launch<float>(field, coords, valid, deltas, mids, beta, out, stop,
-                       sd_out, R, S, C, CS, D, H, W, mode, sdf_bias, bg_depth,
-                       stream);
+                       sd_out, state_in, state_out, begin, end, R, S, C, CS,
+                       D, H, W, mode, sdf_bias, bg_depth, stream);
 }
 
 extern "C" int rays_bf16(const void* field, const void* coords,
                          const void* valid, const void* deltas,
                          const void* mids, const void* beta, void* out,
-                         const void* stop, void* sd_out, int R, int S, int C,
-                         int CS, int D, int H, int W, int mode,
+                         const void* stop, void* sd_out, const void* state_in,
+                         void* state_out, int begin, int end, int R, int S,
+                         int C, int CS, int D, int H, int W, int mode,
                          float sdf_bias, float bg_depth, void* stream) {
   return launch<__nv_bfloat16>(field, coords, valid, deltas, mids, beta, out,
-                               stop, sd_out, R, S, C, CS, D, H, W, mode,
-                               sdf_bias, bg_depth, stream);
+                               stop, sd_out, state_in, state_out, begin, end,
+                               R, S, C, CS, D, H, W, mode, sdf_bias, bg_depth,
+                               stream);
 }
 
 // d field (fp32, (D, H, W, CS), zeroed by the caller) and d beta (one
@@ -640,10 +802,12 @@ extern "C" int rays_backward_bf16(const void* field, const void* coords,
                                         bg_depth, stream);
 }
 
-// The launch of the kernel for C channels (bf16 field if `bf16`, the
-// backward if `backward`): info[0] blocks per SM (the occupancy API),
-// info[1] registers a thread, info[2] CMAX, info[3] threads a block.
-extern "C" int rays_plan(int bf16, int C, int backward, int* info) {
-  return bf16 ? plan<__nv_bfloat16>(C, backward, info)
-              : plan<float>(C, backward, info);
+// The launch of the kernel for C channels (bf16 field if `bf16`; `kind` 0
+// the dense forward, 1 the backward, 2 the forward's stop mode as the
+// resumed launches run it): info[0] blocks per SM (the occupancy API),
+// info[1] registers a thread, info[2] CMAX, info[3] threads a block,
+// info[4] lanes a ray.
+extern "C" int rays_plan(int bf16, int C, int kind, int* info) {
+  return bf16 ? plan<__nv_bfloat16>(C, kind, info)
+              : plan<float>(C, kind, info);
 }

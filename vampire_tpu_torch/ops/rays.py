@@ -17,11 +17,24 @@ The forward also takes a per-ray `stop` (a ray's samples from it on add
 nothing) and gives each ray's optical depth (`with_sd`): its stop mode.
 `render_rays_earlyterm(...)` is the JAX package's early-termination
 sampler (vampire_tpu/core/rendering.py:331, an eval-mode forward with
-`ray_et_fracs` set) in two launches of the stop mode a frame: every ray up
-to prefix * chunk samples for the sort key, then every ray to its stop
-(`core.rendering.earlyterm_stops`). It is forward only, as the JAX package
-uses it in inference only. The train-mode compact sampler is `render_rays`
-on `core.rendering.compact_valid`'s validity.
+`ray_et_fracs` set) in two launches of the stop mode a frame:
+`sample_and_composite_rays_prefix` marches every ray's first prefix *
+chunk samples into its carried state (the render sums, sum w, sum w *
+mid, the optical depth: the sort key), then
+`sample_and_composite_rays_resume` resumes each ray there and marches it
+to its stop (`core.rendering.earlyterm_stops`), so each sample before a
+ray's final stop is read once; both run 8 lanes a ray, 4 rays a warp
+(`kStopLanes` of csrc/rays.cu: at 8 the flagship's 24-sample prefix fills
+every lane and its optical depth is the one-shot stop mode's bit for
+bit; 4 and 16 lanes measured no faster, 32 slower). What bounds them is
+what bounds the dense march, the corner reads and the instructions that
+make them. On an NVIDIA H100 80GB HBM3 at 700 W, over `chip_smoke.py`'s
+flagship frame, the two launches take 0.40-0.46 ms against the dense
+march's 0.38-0.42 (the one-shot pair they replaced, which marched every
+ray again from sample 0, 0.70-0.73), 0.078 of the frame's byte bound
+(PERF.md). The sampler is forward only, as the JAX package uses it in
+inference only. The train-mode compact sampler is `render_rays` on
+`core.rendering.compact_valid`'s validity.
 
 On CUDA tensors both launch hand-written kernels of `csrc/rays.cu`. The
 forward replaces the JAX package's dense ray sampler
@@ -124,23 +137,80 @@ def _check(field, coords, valid, deltas, mids, beta, **more):
     return R, S, C, CS
 
 
-def _kernel(symbols, dtype, n_ptr):
-    """The typed entry point: n_ptr pointers, 8 ints, 2 floats, the
+def _kernel(symbols, dtype, n_ptr, n_int=8):
+    """The typed entry point: n_ptr pointers, n_int ints, 2 floats, the
     stream (a null pointer is passed as None)."""
     return _build.kernel('rays', symbols[dtype], [ctypes.c_void_p] * n_ptr
-                         + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+                         + [ctypes.c_int] * n_int + [ctypes.c_float] * 2
                          + [ctypes.c_void_p])
 
 
 def _launch(fn, field, ptrs, R, S, C, CS, density_mode, sdf_bias, bg_depth):
     """Launch on the current stream of the field's card; returns the CUDA
-    error code."""
+    error code. `ptrs` may end in ints that come before R."""
     if density_mode not in _MODES:
         raise ValueError(f'rays: density_mode {density_mode!r}')
     D, H, W = field.shape[:3]
     return _build.launch(fn, field.device, field.data_ptr(), *ptrs, R, S, C,
                          CS, D, H, W, _MODES[density_mode], float(sdf_bias),
                          float(bg_depth))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(field, coords, valid, deltas, mids, bg_depth, density_mode,
+             beta, sdf_bias, stop=None, with_sd=False, state=None,
+             keep_state=False, begin=0, end=None):
+    """One launch of the forward kernel (`csrc/rays.cu`): the dense march
+    with the defaults, else its stop mode over samples [begin, end) and
+    each ray's `stop`, from the carried `state` if given (a launch that
+    reads or writes a state runs 8 lanes a ray). Returns the
+    carried state (R, C + 2) with `keep_state`, else (the renders (R, C),
+    the optical depth (R,) with `with_sd` or None). Raises where the
+    arguments do not fit the kernel or the launch fails."""
+    R, S, C, CS = _check(field, coords, valid, deltas, mids, beta)
+    end = S if end is None else end
+    named = dict(stop=(stop, torch.int32, (R,)),
+                 state=(state, torch.float32, (R, C + 2)))
+    for name, (t, dtype, shape) in named.items():
+        if t is not None and (t.device != field.device or t.dtype != dtype
+                              or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f'rays: {name} must be a contiguous {dtype} '
+                             f'{shape} tensor on {field.device}, got '
+                             f'{t.dtype} {tuple(t.shape)} on {t.device}')
+    if (state is not None or keep_state) and C + 2 > 32:
+        raise ValueError(f'rays: the stop mode carries C + 2 = {C + 2} '
+                         f'columns a ray, one a lane; at most 32')
+    if not 0 <= begin <= end <= S:
+        raise ValueError(f'rays: samples [{begin}, {end}) of {S}')
+    out = sd = state_out = None
+    if keep_state:
+        state_out = torch.empty((R, C + 2), dtype=torch.float32,
+                                device=field.device)
+    else:
+        out = torch.empty((R, C), dtype=torch.float32, device=field.device)
+        if with_sd:
+            sd = torch.empty((R,), dtype=torch.float32, device=field.device)
+    err = _launch(_kernel(_SYMBOLS, field.dtype, 11, 10), field,
+                  (coords.data_ptr(), valid.data_ptr(), deltas.data_ptr(),
+                   mids.data_ptr(), beta.data_ptr(), _ptr(out), _ptr(stop),
+                   _ptr(sd), _ptr(state), _ptr(state_out), begin, end),
+                  R, S, C, CS, density_mode, sdf_bias, bg_depth)
+    if err != 0:
+        raise RuntimeError(f'rays: kernel launch failed with CUDA error {err}')
+    return state_out if keep_state else (out, sd)
+
+
+def _device(field):
+    """True where the kernels run (a CUDA field), False for the plain
+    versions (a CPU field); raises on any other device."""
+    if field.device.type == 'cpu':
+        return False
+    if field.device.type != 'cuda':
+        raise NotImplementedError(f'rays: no kernel for {field.device}')
+    return True
 
 
 def sample_and_composite_rays(field: torch.Tensor, coords: torch.Tensor,
@@ -169,35 +239,68 @@ def sample_and_composite_rays(field: torch.Tensor, coords: torch.Tensor,
     Returns (R, 3 + K + 1) float32, and the optical depth with `with_sd`.
     """
     global LAUNCHES, STOP_LAUNCHES
-    if field.device.type == 'cpu':
+    if not _device(field):
         return sample_and_composite_rays_field_reference(
             field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
             sdf_bias, stop=stop, with_sd=with_sd)
-    if field.device.type != 'cuda':
-        raise NotImplementedError(f'rays: no kernel for {field.device}')
-    R, S, C, CS = _check(field, coords, valid, deltas, mids, beta)
-    if stop is not None:
-        if stop.device != field.device or stop.dtype != torch.int32 \
-                or stop.shape != (R,) or not stop.is_contiguous():
-            raise ValueError(f'rays: stop must be a contiguous int32 ({R},) '
-                             f'tensor on {field.device}, got {stop.dtype} '
-                             f'{tuple(stop.shape)} on {stop.device}')
-    out = torch.empty((R, C), dtype=torch.float32, device=field.device)
-    sd = (torch.empty((R,), dtype=torch.float32, device=field.device)
-          if with_sd else None)
-    err = _launch(_kernel(_SYMBOLS, field.dtype, 9), field,
-                  (coords.data_ptr(), valid.data_ptr(), deltas.data_ptr(),
-                   mids.data_ptr(), beta.data_ptr(), out.data_ptr(),
-                   None if stop is None else stop.data_ptr(),
-                   None if sd is None else sd.data_ptr()),
-                  R, S, C, CS, density_mode, sdf_bias, bg_depth)
-    if err != 0:
-        raise RuntimeError(f'rays: kernel launch failed with CUDA error {err}')
-    if stop is None:
+    out, sd = _forward(field, coords, valid, deltas, mids, bg_depth,
+                       density_mode, beta, sdf_bias, stop=stop,
+                       with_sd=with_sd)
+    if stop is None and not with_sd:
         LAUNCHES += 1
     else:
         STOP_LAUNCHES += 1
     return (out, sd) if with_sd else out
+
+
+def sample_and_composite_rays_prefix(
+        field: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+        deltas: torch.Tensor, mids: torch.Tensor, bg_depth: float,
+        density_mode: str, beta: torch.Tensor, sdf_bias: float,
+        n: int) -> torch.Tensor:
+    """The first launch of the resumed stop mode: the samples [0, min(S,
+    n)) of every ray (the arguments of `sample_and_composite_rays`;
+    `bg_depth` is not read). Returns each ray's carried state (R, C + 2)
+    float32, [rgb | seg | acc_w | acc_d | od]: the render sums in the
+    output's column order, sum w, sum w * mid and the optical depth, whose
+    last column is the early-termination sampler's sort key.
+    `core.rendering.sample_and_composite_rays_field_prefix_reference` is
+    the plain version."""
+    global STOP_LAUNCHES
+    if not _device(field):
+        return R.sample_and_composite_rays_field_prefix_reference(
+            field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
+            sdf_bias, n)
+    state = _forward(field, coords, valid, deltas, mids, bg_depth,
+                     density_mode, beta, sdf_bias, keep_state=True,
+                     end=min(valid.shape[1], n))
+    STOP_LAUNCHES += 1
+    return state
+
+
+def sample_and_composite_rays_resume(
+        field: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+        deltas: torch.Tensor, mids: torch.Tensor, bg_depth: float,
+        density_mode: str, beta: torch.Tensor, sdf_bias: float,
+        state: torch.Tensor, begin: int, stop: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The second launch: every ray resumed at sample `begin` from its
+    carried `state` (`sample_and_composite_rays_prefix`'s to n = begin)
+    and marched to its `stop` (R,) int32. Returns ((R, 3 + K + 1) float32
+    renders, (R,) float32 optical depth at each stop), as the one-shot
+    stop mode gives them. `core.rendering.
+    sample_and_composite_rays_field_resume_reference` is the plain
+    version."""
+    global STOP_LAUNCHES
+    if not _device(field):
+        return R.sample_and_composite_rays_field_resume_reference(
+            field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
+            sdf_bias, state, begin, stop)
+    out, sd = _forward(field, coords, valid, deltas, mids, bg_depth,
+                       density_mode, beta, sdf_bias, stop=stop, with_sd=True,
+                       state=state, begin=min(valid.shape[1], begin))
+    STOP_LAUNCHES += 1
+    return out, sd
 
 
 def sample_and_composite_rays_backward(
@@ -213,12 +316,10 @@ def sample_and_composite_rays_backward(
     'naive'). The plain version ignores `out` and sums the ray's tail
     directly."""
     global BWD_LAUNCHES
-    if field.device.type == 'cpu':
+    if not _device(field):
         return sample_and_composite_rays_field_backward_reference(
             field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
             sdf_bias, g_out)
-    if field.device.type != 'cuda':
-        raise NotImplementedError(f'rays: no kernel for {field.device}')
     R, S, C, CS = _check(field, coords, valid, deltas, mids, beta, out=out,
                          g_out=g_out)
     D, H, W = field.shape[:3]
@@ -237,20 +338,24 @@ def sample_and_composite_rays_backward(
     return d_field[..., :C], d_beta
 
 
-def plan(dtype: torch.dtype, channels: int, backward: bool = False) -> dict:
-    """The launch of the kernel (or of its backward) for a field of
-    `channels` channels on the current card: blocks per SM (the occupancy
-    API's count), registers a thread, the channels the registers hold
-    (CMAX), threads a block."""
+_PLAN_KINDS = {'forward': 0, 'backward': 1, 'stop': 2}
+
+
+def plan(dtype: torch.dtype, channels: int, kind: str = 'forward') -> dict:
+    """The launch of a kernel for a field of `channels` channels on the
+    current card, `kind` 'forward' (the dense march), 'backward' or 'stop'
+    (the forward's stop mode as the resumed launches run it): blocks per SM
+    (the occupancy API's count), registers a thread, the channels the
+    registers hold (CMAX), threads a block, lanes a ray."""
     fn = _build.kernel('rays', 'rays_plan',
                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    info = (ctypes.c_int * 4)()
-    err = fn(int(dtype == torch.bfloat16), channels, int(backward),
+    info = (ctypes.c_int * 5)()
+    err = fn(int(dtype == torch.bfloat16), channels, _PLAN_KINDS[kind],
              ctypes.cast(info, ctypes.c_void_p))
     if err != 0:
         raise RuntimeError(f'rays: rays_plan failed with CUDA error {err}')
     return dict(blocks_per_sm=info[0], regs=info[1], cmax=info[2],
-                threads=info[3])
+                threads=info[3], lanes=info[4])
 
 
 class ChannelsLastField(torch.autograd.Function):
@@ -324,25 +429,29 @@ class RenderRays(torch.autograd.Function):
 
 class RenderRaysEarlyTerm(torch.autograd.Function):
     """The early-termination sampler: two launches of the stop mode, the
-    stops between them (`core.rendering.earlyterm_stops`). Returns the
-    (R, 3 + K + 1) renders and the coverage diagnostic. Forward only: the
-    JAX package runs it in inference only, and its backward raises."""
+    first over every ray's prefix, the second resuming each ray there from
+    the first's carried state to its stop (`core.rendering.earlyterm_stops`
+    of the first's optical depth). Returns the (R, 3 + K + 1) renders and
+    the coverage diagnostic. Forward only: the JAX package runs it in
+    inference only, and its backward raises."""
 
     @staticmethod
     def forward(ctx, field, beta, coords, valid, deltas, mids, bg_depth,
                 density_mode, sdf_bias, chunk, prefix, caps_fracs, tau,
                 plain):
-        fwd = (sample_and_composite_rays_field_reference if plain
-               else sample_and_composite_rays)
+        if plain:
+            first = R.sample_and_composite_rays_field_prefix_reference
+            then = R.sample_and_composite_rays_field_resume_reference
+        else:
+            first = sample_and_composite_rays_prefix
+            then = sample_and_composite_rays_resume
         args = (field, coords, valid, deltas, mids, bg_depth, density_mode,
                 beta, sdf_bias)
-        n_rays, n_samp = valid.shape
-        first = torch.full((n_rays,), min(n_samp, prefix * chunk),
-                           dtype=torch.int32, device=valid.device)
-        _, sd = fwd(*args, stop=first, with_sd=True)
-        stop, exited, misses = R.earlyterm_stops(sd, valid, chunk, prefix,
-                                                 caps_fracs)
-        out, sd = fwd(*args, stop=stop, with_sd=True)
+        n = min(valid.shape[1], prefix * chunk)
+        state = first(*args, n)
+        stop, exited, misses = R.earlyterm_stops(state[:, -1], valid, chunk,
+                                                 prefix, caps_fracs)
+        out, sd = then(*args, state, n, stop)
         diag = R.earlyterm_uncovered_drops(sd, exited, misses, tau)
         ctx.mark_non_differentiable(diag)
         return out, diag
