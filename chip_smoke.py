@@ -21,7 +21,8 @@ nonzero without printing a result:
                geometry, torch.topk selection) in fp32 and bf16, also with
                every selected block selected by two cameras, and the same
                in its depth-less mode (`lift_bilinear`: the bilinear
-               variant's frame, no depth, z > 0 validity); the corner
+               variant's frame, no depth, z > 0 validity; its slot-map
+               kernel exactly equal to its plain version); the corner
                table of a (22, 20, 256, 256) field in fp32 and bf16, which
                must be byte-identical and launched on its plan's staging
                route (its plan and the route the kernel's C entry reports
@@ -40,12 +41,18 @@ nonzero without printing a result:
                the same call). Then the three backward
                kernels: the lift's
                per frame in fp32 and bf16 (the same two cases, and its
-               depth-less mode, d feat only), the corner
+               depth-less mode, d feat only, with each CTA's route, sorted
+               or direct, equal to the plain rule's, the share of direct
+               CTAs and the terms a (CTA, pixel) pair), the corner
                table's from an fp32
                and a bf16 (21, 257, 257, 176) cotangent (byte-identical;
                timed beside a one-hot conv_transpose3d),
                and the rays' over the same 67,584 rays (d field and d
-               beta).
+               beta). Last, the ray op above one launch's channels: at
+               num_classes 29 (C = 33, two channel groups) the dense march
+               and its backward, at 27 (C = 31, a state of 33 columns)
+               the early-termination sampler, against their plain
+               versions.
   4. slice   - InferenceServer(flagship_config(), device='cuda') in bf16 with
                seeded random weights (BN calibrated on one frame) serves 3
                full-width requests (6x256x704 images, 36,864 points) on each
@@ -305,6 +312,10 @@ ET_FRACS = (0.71, 0.47, 0.37, 0.14, 0.06, 0.03)
 # orders (kernel and plain) differ only where a key ties at a cap: at most
 # this share of the rays may stop differently
 ET_CROSSED_MAX = 0.01
+# the kernel phase's wide ray checks: C = 33 (two channel groups a launch)
+# and, for the early-termination sampler, C = 31 (a state of 33 columns)
+WIDE_CLASSES = 29
+WIDE_ET_CLASSES = 27
 COMPACT_KEEP = 3
 N_EXTRA_BATCHES = 2
 N_EXTRA_TIMED = 3
@@ -357,12 +368,21 @@ def reset_counts():
     reset_launch_counts()
 
 
+def lift_forward_keys(cfg):
+    """The launch-count keys of the kernels a config's lift forward runs,
+    once each a frame: the depth-less mode and its slot map for the
+    bilinear variant."""
+    if cfg.backbone.variant == 'bilinear':
+        return 'lift_bilinear', 'slot_map'
+    return ('lift',)
+
+
 def lift_keys(cfg):
     """The launch-count keys of the lift kernels a config's model runs,
-    forward and backward: the depth-less mode for the bilinear variant."""
-    if cfg.backbone.variant == 'bilinear':
-        return 'lift_bilinear', 'lift_bilinear_bwd'
-    return 'lift', 'lift_bwd'
+    forward (`lift_forward_keys`) and backward: the forward's first."""
+    bwd = ('lift_bilinear_bwd' if cfg.backbone.variant == 'bilinear'
+           else 'lift_bwd')
+    return lift_forward_keys(cfg) + (bwd,)
 
 
 def hbm_ms(*tensors_or_bytes):
@@ -441,6 +461,7 @@ def lift_check(card, bc, dev):
     bilinear lift's geometry (z > 0 valid, z = 0)."""
     import torch
     from vampire_tpu_torch.ops import lift
+    from vampire_tpu_torch.tools.lift_bilinear import batched_ms
 
     dev = torch.device(dev)
     (depth, feat, ids, coords, valid), (G, Q, C, K, n_valid) = \
@@ -488,10 +509,87 @@ def lift_check(card, bc, dev):
         # the frame's inputs read once, numer and denom written once
         bound = hbm_ms(*[t for t in (dep, fea) if t is not None], ids,
                        coords, valid, 2 * G * Q * C * 4)
-        say(f'{what} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
-            f'frame, bound {bound:.4f} ms (share {bound / ms:.3f}) [{card}]')
-        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+        back = batched_ms(lambda: lift.lift_frame_accumulate(
+            dep, fea, ids, coords, valid, G))
+        say(f'{what} {name}: kernel {ms:.4f} ms ({back:.4f} a call back to '
+            f'back), plain {plain:.4f} ms per frame, bound {bound:.4f} ms '
+            f'(share {bound / ms:.3f}; {bound / back:.3f} back to back) '
+            f'[{card}]')
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                            batched_ms=back)
+    if what == 'lift_bilinear':
+        result['slot_map'] = slot_map_check(card, ids, G)
     return result
+
+
+def slot_map_check(card, ids, G):
+    """The depth-less forward's slot-map kernel against its plain version
+    on the frame's ids and on `paired_ids`: exactly equal. Timed beside
+    the plain version; bound: the ids read once, the (N, G) int32 map
+    written once."""
+    import torch
+    from vampire_tpu_torch.ops import lift
+    from vampire_tpu_torch.tools.lift_bilinear import batched_ms
+    for case, ii in (('frame', ids), ('paired cameras', paired_ids(ids))):
+        got = lift.slot_map(ii, G)
+        if not torch.equal(got, lift.slot_map_reference(ii, G)):
+            raise AssertionError(f'slot map kernel {case}: not its plain '
+                                 f'version')
+    # a call alone measures the host's launch path: time calls back to back
+    ms = batched_ms(lambda: lift.slot_map(ids, G))
+    plain = cuda_ms(lambda: lift.slot_map_reference(ids, G), 5)
+    bound = hbm_ms(ids, got)
+    say(f'slot_map: ({ids.shape[0]}, {G}) int32 equal to its plain version '
+        f'on the frame and on paired cameras; kernel {ms:.4f} ms a call back '
+        f'to back, plain {plain:.4f} ms, bound {bound:.4f} ms (share '
+        f'{bound / ms:.3f}) [{card}]')
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound)
+
+
+def bilinear_bwd_routes(card, feat_hw, frame, g, G):
+    """The depth-less backward's routes on the frame: the kernel's (its
+    `routes` output) equal to the plain rule's; the share of CTAs with a
+    block that scatter directly; and the duplication the sorted route
+    removes: the (query, corner) terms of nonzero weight against the
+    distinct (CTA, pixel) pairs they land on."""
+    import torch
+    from vampire_tpu_torch.ops import lift
+    feat, ids, coords, valid = frame
+    H, W = feat_hw
+    N, K, Q = valid.shape
+    routes = torch.full((N, K), -1, dtype=torch.int32, device=ids.device)
+    lift.lift_frame_backward(None, feat, ids, coords, valid, g,
+                             routes=routes)
+    want = lift.bilinear_backward_routes_reference(feat_hw, ids, coords,
+                                                   valid, G)
+    if not torch.equal(routes, want):
+        raise AssertionError('lift_bilinear_bwd: the kernel\'s routes are '
+                             'not the plain rule\'s')
+    live = int((routes != lift.ROUTE_NONE).sum())
+    direct = int((routes == lift.ROUTE_DIRECT).sum())
+    x = ((coords[..., 0] + 1.0) * W - 1.0) / 2.0
+    y = ((coords[..., 1] + 1.0) * H - 1.0) / 2.0
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    cta = torch.arange(N * K, device=ids.device).reshape(N, K, 1)
+    terms, keys = 0, []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yi, xi = y0 + dy, x0 + dx
+            w = (fy if dy else 1.0 - fy) * (fx if dx else 1.0 - fx)
+            hit = ((valid != 0) & (w != 0) & (yi >= 0) & (yi < H)
+                   & (xi >= 0) & (xi < W))
+            terms += int(hit.sum())
+            keys.append((cta * (H * W) + (yi * W + xi).long())[hit])
+    pairs = torch.unique(torch.cat(keys)).numel()
+    say(f'lift_bilinear_bwd routes: the kernel\'s equal the plain rule\'s; '
+        f'{direct} of {live} CTAs with a block scatter directly (share '
+        f'{direct / max(live, 1):.3f}), {live - direct} sort into at most '
+        f'{lift.MAX_BINS} bins; {terms} terms of nonzero weight land on '
+        f'{pairs} distinct (CTA, pixel) pairs: {terms / max(pairs, 1):.2f} '
+        f'terms a reduction where sorted [{card}]')
+    return dict(direct_ctas=direct, live_ctas=live, terms=terms,
+                pairs=pairs, duplication=terms / max(pairs, 1))
 
 
 def table_check(card, bc, dev):
@@ -883,10 +981,12 @@ def lift_bwd_check(card, bc, dev):
     runs the depth-less mode (d feat only)."""
     import torch
     from vampire_tpu_torch.ops import lift
+    from vampire_tpu_torch.tools.lift_bilinear import batched_ms
 
     dev = torch.device(dev)
     (depth, feat, ids, coords, valid), (G, Q, C, K, n_valid) = \
         lift_cameras(bc, dev)
+    h, w = depth.shape[2:]
     g = torch.randn(G, Q, C, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(3))
     live = int((valid.sum(-1) > 0).sum())
@@ -896,10 +996,12 @@ def lift_bwd_check(card, bc, dev):
          torch.arange(Q, device=dev).expand_as(valid)[valid > 0]] = True
     n_rows = int(rows.sum())
     what = 'lift_bilinear_bwd' if bc.variant == 'bilinear' else 'lift_bwd'
+    how = ('sorts its queries by pixel in shared memory and adds a '
+           'pixel\'s sum, or scatters each term' if bc.variant == 'bilinear'
+           else 'adds straight into device memory')
     say(f'{what}: {ids.numel()} CTAs, one a (camera, selected block), '
-        f'{live} with a valid query; every CTA adds straight into device '
-        f'memory (float4 reductions); {n_valid} valid queries read '
-        f'{n_rows} d numer rows')
+        f'{live} with a valid query; every CTA {how} (float4 reductions); '
+        f'{n_valid} valid queries read {n_rows} d numer rows')
     result = dict(max_abs_err=0.0, ctas=ids.numel(), live_ctas=live)
     for dt in (torch.float32, torch.bfloat16):
         dep = None if what == 'lift_bilinear_bwd' else depth.to(dt)
@@ -934,9 +1036,18 @@ def lift_bwd_check(card, bc, dev):
         else:
             bound = hbm_ms(dep, fea, ids, valid, n_valid * 3 * 4,
                            n_rows * C * 4, dep.numel() * 4, fea.numel() * 4)
-        say(f'{what} {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms per '
-            f'frame, bound {bound:.4f} ms (share {bound / ms:.3f}) [{card}]')
-        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound)
+        back = batched_ms(lambda: lift.lift_frame_backward(
+            dep, fea, ids, coords, valid, g))
+        say(f'{what} {name}: kernel {ms:.4f} ms ({back:.4f} a call back to '
+            f'back), plain {plain:.4f} ms per frame, bound {bound:.4f} ms '
+            f'(share {bound / ms:.3f}; {bound / back:.3f} back to back) '
+            f'[{card}]')
+        result[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                            batched_ms=back)
+    if what == 'lift_bilinear_bwd':
+        result['routes'] = bilinear_bwd_routes(
+            card, (h, w), (feat.to(torch.bfloat16), ids, coords, valid), g,
+            G)
     return result
 
 
@@ -1034,6 +1145,85 @@ def ray_bwd_check(card, bc, dev, args):
                 table_bound_ms=table_bound, plan=plan)
 
 
+def wide_ray_check(card, bc, dev):
+    """The ray op above one launch's channels, on `ray_field`'s rays with
+    more classes: at num_classes WIDE_CLASSES (C = 33) the dense march and
+    its backward through the wrappers (two channel groups each, a launch a
+    group) against their plain versions: renders within RAY_RTOL, d field
+    within BWD_RTOL, d beta within BETA_RTOL; at WIDE_ET_CLASSES (C = 31,
+    C + 2 = 33 state columns) the early-termination sampler (both launches
+    in two groups) against the plain sampler: at most ET_CROSSED_MAX of the
+    stops moved by the kernel's key, the other rays within RAY_RTOL."""
+    import torch
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.ops import rays
+    wide = dataclasses.replace(bc, num_classes=WIDE_CLASSES)
+    args = ray_field(wide, dev)
+    C = args[0].shape[3]
+    groups = len(rays.channel_groups(C, rays.MOST))
+    before = (rays.LAUNCHES, rays.BWD_LAUNCHES)
+    out = rays.sample_and_composite_rays(*args)
+    want = R.sample_and_composite_rays_field_reference(*args)
+    g = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(device=out.device).manual_seed(8))
+    g[:, -1] *= 0.05
+    d_field, d_beta = rays.sample_and_composite_rays_backward(*args, out, g)
+    w_field, w_beta = R.sample_and_composite_rays_field_backward_reference(
+        *args, g)
+    torch.cuda.synchronize()
+    if (rays.LAUNCHES, rays.BWD_LAUNCHES) != (before[0] + groups,
+                                              before[1] + groups):
+        raise AssertionError(f'wide rays: {groups} groups, launches '
+                             f'{rays.LAUNCHES - before[0]} and '
+                             f'{rays.BWD_LAUNCHES - before[1]}')
+    err = 0.0
+    for name, sl in ray_groups(WIDE_CLASSES):
+        err = max(err, check_close(f'wide rays C={C} {name}', out[:, sl],
+                                   want[:, sl], RAY_RTOL))
+    err = max(err, check_grad(f'wide rays_bwd C={C} d field', d_field,
+                              w_field, BWD_RTOL))
+    b_rel = abs(d_beta.item() - w_beta.item()) / abs(w_beta.item())
+    if not b_rel <= BETA_RTOL:
+        raise AssertionError(f'wide rays_bwd d beta: rel err {b_rel}')
+    del d_field, w_field
+    ms = cuda_ms(lambda: rays.sample_and_composite_rays(*args), 20)
+    bwd_ms = cuda_ms(lambda: rays.sample_and_composite_rays_backward(
+        *args, out, g), 10)
+    del args
+    et = dataclasses.replace(bc, num_classes=WIDE_ET_CLASSES)
+    args = ray_field(et, dev)
+    Cet = args[0].shape[3]
+    before = rays.STOP_LAUNCHES
+    ek = (bc.ray_et_chunk, bc.ray_et_prefix, ET_FRACS, bc.ray_et_tau)
+    got, diag, stop = rays.earlyterm_march(
+        rays.sample_and_composite_rays_prefix,
+        rays.sample_and_composite_rays_resume, args, *ek)
+    want, wdiag, wstop = rays.earlyterm_march(
+        R.sample_and_composite_rays_field_prefix_reference,
+        R.sample_and_composite_rays_field_resume_reference, args, *ek)
+    torch.cuda.synchronize()
+    et_groups = len(rays.channel_groups(Cet, rays.MOST_CARRIED))
+    if rays.STOP_LAUNCHES != before + 2 * et_groups:
+        raise AssertionError(f'wide early-term: {et_groups} groups, '
+                             f'{rays.STOP_LAUNCHES - before} launches')
+    same = stop == wstop
+    crossed = int((~same).sum())
+    if crossed > ET_CROSSED_MAX * stop.numel():
+        raise AssertionError(f'wide early-term: {crossed} stops moved')
+    for name, sl in ray_groups(WIDE_ET_CLASSES):
+        err = max(err, check_close(f'wide early-term C={Cet} {name}',
+                                   got[same][:, sl], want[same][:, sl],
+                                   RAY_RTOL))
+    say(f'wide rays: C={C} in {groups} channel groups, dense march and '
+        f'backward against their plain versions (d beta rel err '
+        f'{b_rel:.3e}), {ms:.4f} and {bwd_ms:.4f} ms a frame; early-term '
+        f'C={Cet} in {et_groups} groups a launch, {crossed} of '
+        f'{stop.numel()} stops moved by the kernel\'s key, diagnostic '
+        f'{int(diag)} (plain {int(wdiag)}); max abs err {err:.3e} [{card}]')
+    return dict(max_abs_err=err, groups=groups, et_groups=et_groups,
+                crossed=crossed, ms=ms, bwd_ms=bwd_ms)
+
+
 def kernel_phase(card, bc=None, dev='cuda'):
     """Every kernel against its plain version at the flagship's shapes (`bc`,
     the flagship backbone by default); the lift's depth-less mode at the
@@ -1051,6 +1241,8 @@ def kernel_phase(card, bc=None, dev='cuda'):
     out['lift_bilinear_bwd'] = lift_bwd_check(card, bil, dev)
     out['corner_table_bwd'] = table_bwd_check(card, bc, dev)
     out['rays_bwd'] = ray_bwd_check(card, bc, dev, args)
+    del args
+    out['rays_wide'] = wide_ray_check(card, bc, dev)
     return out
 
 
@@ -1322,7 +1514,7 @@ def slice_phase(card, cfg=None, dev='cuda', label=''):
     from vampire_tpu_torch.serving import InferenceServer
 
     cfg = cfg or flagship_config()
-    lk = lift_keys(cfg)[0]
+    fk = dict.fromkeys(lift_forward_keys(cfg), 1)
     samples, calib = request_frames(cfg)
     metric, full = served_shapes(cfg, samples[0]['imgs'].shape[0])
     launched, ms = {}, {}
@@ -1333,7 +1525,7 @@ def slice_phase(card, cfg=None, dev='cuda', label=''):
     name = f'{label}metrics'
     outs, launched['metrics'], ms['metrics'] = serve_path(
         card, server, calib, samples, name)
-    check_launches(name, launched['metrics'], {lk: 1})
+    check_launches(name, launched['metrics'], fk)
     check_outputs(name, outs, metric, cfg)
     check_against_plain(name, server, samples[0], outs[0], metric)
     del server, outs
@@ -1346,7 +1538,7 @@ def slice_phase(card, cfg=None, dev='cuda', label=''):
     name = f'{label}full-render'
     outs, launched['full'], ms['full'] = serve_path(card, server, calib,
                                                     samples, name)
-    check_launches(name, launched['full'], {lk: 1, 'rays': 1})
+    check_launches(name, launched['full'], {**fk, 'rays': 1})
     check_outputs(name, outs, full, cfg)
     check_against_plain(name, server, samples[0], outs[0], metric,
                         ('rgb_preds', 'seg_logits_preds', 'depth_preds'))
@@ -2116,7 +2308,7 @@ def data_phase(card, synthetic_step_ms, cfg=None, dev='cuda'):
         n = len(loader)
         per_step = dict(lift=1, corner_table=0, rays=1, rays_stop=0,
                         lift_bwd=1, corner_table_bwd=0, rays_bwd=1,
-                        lift_bilinear=0, lift_bilinear_bwd=0)
+                        lift_bilinear=0, lift_bilinear_bwd=0, slot_map=0)
         if launched != {k: v * n for k, v in per_step.items()}:
             raise AssertionError(f'data fit: kernel launches {launched} for '
                                  f'{n} steps, want {per_step} a step')
@@ -2244,7 +2436,7 @@ def validate_row(card, cfg, dev, label):
             torch.cuda.synchronize()
         ms = (time.perf_counter() - h0) * 1e3
         launched = counts()
-    want = {k: int(k == lift_keys(cfg)[0]) for k in launched}
+    want = {k: int(k in lift_forward_keys(cfg)) for k in launched}
     if launched != want:
         raise AssertionError(f'{label} validate: kernel launches {launched}, '
                              f'want {want}')
@@ -3287,7 +3479,8 @@ def multi_phase(card, cfg=None, dev='cuda', world=None):
                         for k in ref if k != 'det'}
                 raise AssertionError(f'multi pool request {j}: not the '
                                      f'single server\'s result ({diff})')
-        pool_want = {k: (N_POOL_REQUESTS if k in (lk[0], 'rays') else 0)
+        pool_want = {k: (N_POOL_REQUESTS if k in lift_forward_keys(cfg)
+                         + ('rays',) else 0)
                      for k in launched}
         say(f'multi pool: {N_POOL_REQUESTS} requests over {devs}, served '
             f'{served}, each equal to the single server\'s; kernel '
@@ -3487,6 +3680,7 @@ def main():
         'library_ms': None,
         'table_bound_ms': k['rays']['table_bound_ms'],
         'plan': k['rays']['plan'],
+        'wide': k['rays_wide'],
     }, {
         'name': 'sample_and_composite_rays_stop',
         'route': 'cuda',
@@ -3559,6 +3753,27 @@ def main():
         'library_ms': None,
         'fp32_ms': k['lift_bilinear']['float32']['ms'],
         'fp32_plain_ms': k['lift_bilinear']['float32']['plain_ms'],
+        'batched_ms': k['lift_bilinear']['bfloat16']['batched_ms'],
+        'fp32_batched_ms': k['lift_bilinear']['float32']['batched_ms'],
+    }, {
+        'name': 'slot_map',
+        'route': 'cuda',
+        'source': f'{csrc}/lift.cu',
+        'replaces': 'vampire_tpu/ops/pallas_tables.py:73',
+        'replaces_on': 'none by itself: the depth-less lift\'s first '
+                       'launch, each camera\'s slot of each block, which '
+                       'every CTA of the forward found by scanning the ids',
+        'launches': bil['serve']['full']['slot_map'],
+        'metrics_launches': bil['serve']['metrics']['slot_map'],
+        'train_launches': bil['train']['launched']['slot_map'],
+        'validate_launches': bil['validate']['launched']['slot_map'],
+        'per': 'frame (ms: a call back to back)',
+        'max_abs_err': k['lift_bilinear']['slot_map']['max_abs_err'],
+        'ms': k['lift_bilinear']['slot_map']['ms'],
+        'plain_ms': k['lift_bilinear']['slot_map']['plain_ms'],
+        'bound_ms': k['lift_bilinear']['slot_map']['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
     }, {
         'name': 'lift_bilinear_backward',
         'route': 'cuda',
@@ -3571,6 +3786,7 @@ def main():
         'per': 'frame',
         'ctas': k['lift_bilinear_bwd']['ctas'],
         'live_ctas': k['lift_bilinear_bwd']['live_ctas'],
+        'routes': k['lift_bilinear_bwd']['routes'],
         'max_abs_err': k['lift_bilinear_bwd']['max_abs_err'],
         'ms': k['lift_bilinear_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bilinear_bwd']['bfloat16']['plain_ms'],
@@ -3579,6 +3795,8 @@ def main():
         'library_ms': None,
         'fp32_ms': k['lift_bilinear_bwd']['float32']['ms'],
         'fp32_plain_ms': k['lift_bilinear_bwd']['float32']['plain_ms'],
+        'batched_ms': k['lift_bilinear_bwd']['bfloat16']['batched_ms'],
+        'fp32_batched_ms': k['lift_bilinear_bwd']['float32']['batched_ms'],
     }, {
         'name': 'corner_table_backward',
         'route': 'cuda',

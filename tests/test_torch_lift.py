@@ -397,6 +397,67 @@ def test_bilinear_wrappers_check_and_run_the_plain_versions_on_the_cpu():
         lift._check(None, t['feat'].double(), *args[1:], G)
 
 
+@pytest.mark.parametrize('N,K,G,seed', [(6, 264, 1024, 0), (3, 5, 9, 1),
+                                         (1, 7, 7, 2), (2, 4, 5000, 3)])
+def test_slot_map_is_its_definition(N, K, G, seed):
+    """The slot map's plain version against its definition, element by
+    element: slots[n, ids[n, k]] = k, -1 where no k of camera n selects the
+    block, ids outside [0, G) ignored (some are -1 or G and above here); on
+    CPU tensors the wrapper is the plain version and counts no launch."""
+    rng = np.random.RandomState(seed)
+    ids = np.stack([rng.permutation(G + 3)[:K] - 1 for _ in range(N)])
+    got = lift.slot_map_reference(torch.from_numpy(ids), G)
+    want = np.full((N, G), -1, np.int32)
+    for n in range(N):
+        for k in range(K):
+            if 0 <= ids[n, k] < G:
+                want[n, ids[n, k]] = k
+    assert got.dtype == torch.int32 and got.shape == (N, G)
+    np.testing.assert_array_equal(got.numpy(), want)
+    before = lift.SLOT_MAP_LAUNCHES
+    assert torch.equal(lift.slot_map(torch.from_numpy(ids), G), got)
+    assert lift.SLOT_MAP_LAUNCHES == before
+
+
+def test_bilinear_backward_routes_by_hand():
+    """The depth-less backward's route rule on hand-made CTAs of an 8 x 40
+    image: an id outside [0, G) takes no route; a CTA whose valid queries'
+    bins (their top-left pixel corners, one before the image counted) span
+    at most MAX_BINS sorts, a wider one scatters directly; queries of zero
+    validity or wholly outside the image do not widen the box."""
+    H, W, G, Q = 8, 40, 10, 6
+    ids = torch.tensor([[0, 1, 2, 3, G]])
+
+    def norm(px, size):                 # the pixel coordinate's norm coord
+        return (2.0 * px + 1.0) / size - 1.0
+    coords = torch.zeros(1, 5, Q, 3)
+    valid = torch.ones(1, 5, Q)
+    coords[0, :, :, 0] = norm(torch.tensor(3.5), W)
+    coords[0, :, :, 1] = norm(torch.tensor(2.5), H)
+    # CTA 1: x from -1 to 38 and y from -1 to 6: 8 x 40 bins
+    coords[0, 1, 0, :2] = torch.tensor([norm(-0.5, W), norm(-0.5, H)])
+    coords[0, 1, 1, :2] = torch.tensor([norm(38.5, W), norm(6.5, H)])
+    # CTA 2: the same box, but the far query has no validity and another
+    # lies wholly outside the image
+    coords[0, 2] = coords[0, 1]
+    valid[0, 2, 1] = 0.0
+    coords[0, 2, 2, :2] = torch.tensor([norm(-3.0, W), norm(2.5, H)])
+    # CTA 3: 32 x 1 bins in a row
+    coords[0, 3, 0, 0] = norm(-0.5, W)
+    coords[0, 3, 1, 0] = norm(30.5, W)
+    got = lift.bilinear_backward_routes_reference((H, W), ids, coords, valid,
+                                                  G)
+    S, D, Nn = lift.ROUTE_SORTED, lift.ROUTE_DIRECT, lift.ROUTE_NONE
+    assert lift.MAX_BINS == 1024
+    assert got.tolist() == [[S, S, S, S, Nn]]
+    # the same coords in a 200 pixels wide image: CTA 1's bins span x from
+    # -1 to 194 (196 x 8 = 1,568 bins); CTA 2's from -1 to 19 (the query
+    # at -3 pixels there lies at -13); CTA 3's 156 x 1
+    got = lift.bilinear_backward_routes_reference((H, 200), ids, coords,
+                                                  valid, G)
+    assert got.tolist() == [[S, D, S, S, Nn]]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_bilinear_kernel_matches_plain_on_gpu(dtype):
@@ -436,5 +497,67 @@ def test_bilinear_kernel_matches_plain_on_gpu(dtype):
         torch.testing.assert_close(numer, want[0], rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(denom, want[1], rtol=0, atol=0)
         assert not numer[G - spare:].any() and not denom[G - spare:].any()
+        assert (d_feat - want_d).abs().max().item() <= \
+            1e-5 * want_d.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_slot_map_kernel_matches_plain_on_gpu():
+    """The slot-map kernel equals its plain version exactly, one launch a
+    call: the flagship's 6 x 264 of 1,024 blocks, ids outside [0, G)
+    among them, and 5,000 blocks (two of the kernel's 4,096-block tiles)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    rng = np.random.RandomState(0)
+    for N, K, G in ((6, 264, 1024), (3, 40, 5000), (1, 1, 1)):
+        ids = torch.from_numpy(np.stack(
+            [rng.permutation(G + 3)[:K] - 1 for _ in range(N)])).cuda()
+        before = lift.SLOT_MAP_LAUNCHES
+        got = lift.slot_map(ids, G)
+        assert lift.SLOT_MAP_LAUNCHES == before + 1
+        assert torch.equal(got, lift.slot_map_reference(ids, G))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bilinear_kernels_take_both_backward_routes_on_gpu(dtype):
+    """The depth-less kernels on a 64 x 176 image whose blocks' queries
+    either cluster (a few pixels: the backward sorts them into shared bins)
+    or spread over the whole image (over MAX_BINS bins: it scatters each
+    term directly), at C = 16, 32 (V = 4), 8 and 5 (V = 1 forward at 5):
+    each CTA's route equals the plain rule's and both routes are taken;
+    the forward within 1e-5 and its counts exact, d feat within 1e-5 of
+    the largest (fp32 reductions in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    g = torch.Generator().manual_seed(7)
+    N, H, W, G, K, Q = 6, 64, 176, 40, 24, 640
+    for C in (16, 32, 8, 5):
+        feat = torch.randn(N, H, W, C, generator=g).to(dtype)
+        centre = torch.rand(N, K, 1, 2, generator=g) * 2.0 - 1.0
+        spread = torch.where(torch.rand(N, K, 1, 1, generator=g) < 0.5,
+                             0.05, 1.2)
+        xy = centre + spread * (torch.rand(N, K, Q, 2, generator=g) * 2 - 1)
+        coords = torch.cat([xy, torch.zeros(N, K, Q, 1)], dim=-1)
+        valid = (torch.rand(N, K, Q, generator=g) > 0.2).float()
+        ids = torch.stack([torch.randperm(G, generator=g)[:K]
+                           for _ in range(N)])
+        ids[2, 3] = G
+        g_numer = torch.randn(G, Q, C, generator=g)
+        t = [x.cuda() for x in (feat, ids, coords, valid)]
+        numer, denom = lift.lift_frame_accumulate(None, *t, G)
+        want = lift.bilinear_lift_frame_accumulate_reference(*t, G)
+        torch.testing.assert_close(numer, want[0], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(denom, want[1], rtol=0, atol=0)
+        routes = torch.full((N, K), -1, dtype=torch.int32, device='cuda')
+        _, d_feat = lift.lift_frame_backward(None, *t, g_numer.cuda(),
+                                             routes=routes)
+        want_d = lift.bilinear_lift_frame_backward_reference(
+            *t, g_numer.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(routes, lift.bilinear_backward_routes_reference(
+            (H, W), *t[1:], G))
+        assert {lift.ROUTE_SORTED, lift.ROUTE_DIRECT,
+                lift.ROUTE_NONE} <= set(routes.flatten().tolist())
         assert (d_feat - want_d).abs().max().item() <= \
             1e-5 * want_d.abs().max().item()

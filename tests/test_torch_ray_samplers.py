@@ -469,6 +469,68 @@ def test_prefix_key_is_the_one_shot_key_bit_for_bit(n):
     assert torch.equal(depth, out[:, C - 1])
 
 
+def _wide_et_args(seed, width):
+    """`_et_case`'s rays (prefix masks) through a field of `width` channels
+    whose sdf lies around the density's knee; the sampler's arguments."""
+    vol, coords, valid, deltas, mids, _ = _et_case(seed, True,
+                                                   exit_share=0.1)
+    rng = np.random.RandomState(seed)
+    wide = rng.randn(width, *VOL).astype(np.float32)
+    wide[0] = vol[0]
+    return _port_args(wide, coords, valid, deltas, mids)
+
+
+@pytest.mark.parametrize('width', [31, 33, 44])
+def test_grouped_earlyterm_matches_the_whole(width):
+    """The early-termination sampler whose two launches each run over
+    channel groups (a carried state holds at most 30 channels: two groups
+    here), driven by the plain versions, against the whole plain sampler
+    in fp32: the same stops (the key, the first group's optical depth, is
+    the density's alone), the same diagnostic, the renders within 1e-6 of
+    each output's magnitude; the merged state, key included, within 1e-6
+    of the whole prefix's (the plain sample of a narrower field may round
+    its last bit otherwise)."""
+    args = _wide_et_args(5, width)
+    n = ET_PREFIX * ET_CHUNK
+    calls = []
+
+    def first(*a):
+        def launch(f, st):
+            assert st is None and f.shape[3] <= rays.MOST_CARRIED
+            calls.append('first')
+            return R.sample_and_composite_rays_field_prefix_reference(
+                f, *a[1:])
+        return rays.march_in_groups(launch, a[0], rays.MOST_CARRIED)
+
+    def then(*a):
+        state, begin, stop = a[-3:]
+
+        def launch(f, st):
+            assert st.shape == (ET_RAYS, f.shape[3] + 2)
+            assert torch.equal(st[:, -3:], state[:, -3:])
+            calls.append('then')
+            return R.sample_and_composite_rays_field_resume_reference(
+                f, *a[1:-3], st, begin, stop)
+        return rays.march_in_groups(launch, a[0], rays.MOST_CARRIED,
+                                    state=state)
+    got, diag, stop = rays.earlyterm_march(first, then, args, ET_CHUNK,
+                                           ET_PREFIX, ET_TIGHT, TAU)
+    want, want_diag, want_stop = rays.earlyterm_march(
+        R.sample_and_composite_rays_field_prefix_reference,
+        R.sample_and_composite_rays_field_resume_reference, args, ET_CHUNK,
+        ET_PREFIX, ET_TIGHT, TAU)
+    assert calls == ['first', 'first', 'then', 'then']
+    assert torch.equal(stop, want_stop)
+    assert len(set(stop.tolist())) >= 3
+    assert int(diag) == int(want_diag)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * max(1.0, want.abs().max()))
+    state = first(*args, n)
+    whole = R.sample_and_composite_rays_field_prefix_reference(*args, n)
+    torch.testing.assert_close(state, whole, rtol=0,
+                               atol=1e-6 * max(1.0, whole.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # the model's choice of sampler
 # ---------------------------------------------------------------------------
@@ -657,8 +719,10 @@ def test_resumed_stop_mode_kernels_match_their_plain_versions():
     for bit the one-shot kernel's `with_sd` at the same stop: the 8 lanes a
     ray sum its 4 samples in the one-shot warp's tree), and the resumed
     launch from the plain state to `earlyterm_stops`' stops; each adds one
-    stop-mode launch. Then the refusals, and the one-shot stop mode at 31
-    channels, which carries no state and so takes C + 2 > 32."""
+    stop-mode launch. Then the refusals of one launch (a state of 31
+    channels: C + 2 > 32, which the wrappers split into channel groups),
+    and the one-shot stop mode at 31 channels, which carries no state and
+    so takes C + 2 > 32."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the ray kernel has no CPU mode)')
     vol, coords, valid, deltas, mids, _ = _et_case(13, True)
@@ -692,10 +756,11 @@ def test_resumed_stop_mode_kernels_match_their_plain_versions():
         np.random.RandomState(3).randn(31, *VOL).astype(np.float32)).cuda())
     wide_args = [wide] + args[1:]            # C + 2 = 33 columns a ray
     with pytest.raises(ValueError, match='at most 32'):
-        rays.sample_and_composite_rays_prefix(*wide_args, n)
+        rays._forward(*wide_args, keep_state=True, end=n)
     with pytest.raises(ValueError, match='at most 32'):
-        rays.sample_and_composite_rays_resume(
-            *wide_args, torch.zeros((ET_RAYS, 33), device='cuda'), n, stop)
+        rays._forward(*wide_args, stop=stop, with_sd=True,
+                      state=torch.zeros((ET_RAYS, 33), device='cuda'),
+                      begin=n)
     with pytest.raises(ValueError, match='samples'):
         rays.sample_and_composite_rays_resume(*args, want, -1, stop)
     got, sd = rays.sample_and_composite_rays(*wide_args, stop=stop,
@@ -704,3 +769,111 @@ def test_resumed_stop_mode_kernels_match_their_plain_versions():
         *wide_args, stop=stop, with_sd=True)
     _close(got.cpu().numpy(), w_out.cpu().numpy(), 1e-4, 'one-shot C 31')
     torch.testing.assert_close(sd, w_sd, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_classes', [27, 28, 29, 40])
+def test_wide_earlyterm_kernels_match_their_plain_versions(n_classes):
+    """The early-termination sampler on the card at num_classes 27, 28, 29
+    and 40 (C + 2 = 33 to 46 state columns: its launches run in two channel
+    groups) against the whole plain sampler, in fp32 and bf16: the same
+    stops but for rays whose key the kernel's summation order moves across
+    a cap (at most 1 %), every other ray within 1e-4 of each output's
+    magnitude, two stop-mode launches a group and launch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the ray kernel has no CPU mode)')
+    args = [a.cuda() if isinstance(a, torch.Tensor) else a
+            for a in _wide_et_args(7, n_classes + 4)]
+    vol = args[0].permute(3, 0, 1, 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        args[0] = rays.channels_last_field(vol.to(dtype))
+        before = rays.STOP_LAUNCHES
+        got, diag, stop = rays.earlyterm_march(
+            rays.sample_and_composite_rays_prefix,
+            rays.sample_and_composite_rays_resume, tuple(args), ET_CHUNK,
+            ET_PREFIX, ET_TIGHT, TAU)
+        assert rays.STOP_LAUNCHES == before + 4
+        want, _, want_stop = rays.earlyterm_march(
+            R.sample_and_composite_rays_field_prefix_reference,
+            R.sample_and_composite_rays_field_resume_reference, tuple(args),
+            ET_CHUNK, ET_PREFIX, ET_TIGHT, TAU)
+        same = stop == want_stop
+        assert int((~same).sum()) <= 0.01 * ET_RAYS
+        g, w = got[same], want[same]
+        for col in range(g.shape[1]):
+            torch.testing.assert_close(
+                g[:, col], w[:, col], rtol=1e-4,
+                atol=1e-4 * max(1.0, w[:, col].abs().max().item()))
+        assert int(diag) >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_classes,sampler', [(29, 'dense'), (40, 'dense'),
+                                               (27, 'earlyterm'),
+                                               (28, 'earlyterm')])
+def test_wide_field_backbone_on_gpu(n_classes, sampler):
+    """A tiny FieldBackbone (seeded weights, fp32) on the card at
+    num_classes above one ray launch's channels, against the same module
+    with plain=True on the same inputs: at 29 and 40 (C = 33, 44: two
+    channel groups a launch) an eval-mode full-render forward (the dense
+    march) and a train step's gradients (each parameter tensor's |d| / |g|
+    within 1e-2, chip_smoke.py's TRAIN_GRAD_RTOL for the same comparison,
+    cuDNN's TF32 off: fp32 sums in another order through the lift's and
+    the rays' atomics, which vary run to run); at 27 and 28 (C + 2 = 33, 34
+    state columns) the
+    eval-mode early-termination sampler. Renders within 1e-4 of each
+    output's magnitude; the early-term renders at 99 % of the upsampled
+    pixels at least (a ray that the key's summation order moves across a
+    cap stops elsewhere and moves the pixels around it)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    from vampire_tpu.data.synthetic import tiny_config
+    from vampire_tpu_torch.configs import camera_rig
+    from vampire_tpu_torch.models.field import FieldBackbone
+    bc = dataclasses.replace(
+        tiny_config().backbone, num_classes=n_classes,
+        x_bound_seg=(-12.0, 12.0, 1.5), y_bound_seg=(-12.0, 12.0, 1.5),
+        ray_et_chunk=2, ray_et_prefix=1,
+        ray_et_fracs=(0.6, 0.3, 0.1) if sampler == 'earlyterm' else ())
+    torch.manual_seed(0)
+    fb = FieldBackbone(bc).cuda()
+    rng = np.random.RandomState(1)
+    imgs = torch.from_numpy(rng.randn(1, 6, *bc.final_dim, 3).astype(
+        np.float32)).cuda()
+    mats = {k: torch.from_numpy(v).cuda() for k, v in
+            camera_rig(1, 6, bc.final_dim, seed=0).items()}
+    keys = ('rgb_preds', 'seg_logits_preds', 'depth_preds')
+    fb.eval()
+    with torch.no_grad():
+        got, want = (fb(imgs, mats, plain=plain) for plain in (False, True))
+    for k in keys:
+        g, w = got[k], want[k]
+        if sampler == 'earlyterm':          # per upsampled pixel
+            err = (g - w).abs()
+            err = err.amax(-1) if err.dim() == 5 else err
+            same = err <= 1e-4 * max(1.0, w.abs().max().item())
+            assert same.float().mean() >= 0.99, k
+            continue
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * max(1.0, w.abs().max().item()))
+    if sampler == 'earlyterm':
+        return
+    fb.train()
+    weights = {k: torch.from_numpy(rng.randn(*got[k].shape).astype(
+        np.float32)).cuda() for k in keys}
+    grads = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for plain in (False, True):
+            fb.zero_grad()
+            out = fb(imgs, mats, plain=plain)
+            sum((out[k] * weights[k]).sum() for k in keys).backward()
+            grads.append({n: p.grad.clone()
+                          for n, p in fb.named_parameters()
+                          if p.grad is not None})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert grads[0].keys() == grads[1].keys() and len(grads[0]) > 10
+    for n, w in grads[1].items():
+        assert (grads[0][n] - w).norm() <= 1e-2 * w.norm(), n

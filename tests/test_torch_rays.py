@@ -26,12 +26,12 @@ K = 4
 BETA, BIAS, BG = 0.1, -1.0, 70.4
 
 
-def _case(seed=0, n_rays=60, n_samp=9):
-    """A fused (C, D, H, W) field and rays whose samples fall inside, on and
-    beyond the field's borders; the sdf is spread so that the rays end
-    anywhere from transparent to opaque."""
+def _case(seed=0, n_rays=60, n_samp=9, n_classes=K):
+    """A fused (C, D, H, W) field of `n_classes` seg channels and rays whose
+    samples fall inside, on and beyond the field's borders; the sdf is
+    spread so that the rays end anywhere from transparent to opaque."""
     rng = np.random.RandomState(seed)
-    C = 1 + K + 3
+    C = 1 + n_classes + 3
     vol = rng.randn(C, *VOL).astype(np.float32)
     vol[0] = rng.uniform(-1.2, 0.2, VOL)           # around sdf_bias
     coords = rng.uniform(-1.3, 1.3, (n_rays, n_samp, 3)).astype(np.float32)
@@ -44,7 +44,7 @@ def _case(seed=0, n_rays=60, n_samp=9):
 
 def _jax_render(vol, coords, valid, deltas, mids, mode, dtype):
     """The JAX dense sampler on `build_neighborhood_table` of the field in
-    `dtype`: (rgb, seg, depth) numpy."""
+    `dtype`: (rgb, seg, depth) numpy; the field's seg channels are C - 4."""
     jax = pytest.importorskip('jax')
     import jax.numpy as jnp
     from vampire_tpu.core import rendering as JR
@@ -56,7 +56,8 @@ def _jax_render(vol, coords, valid, deltas, mids, mode, dtype):
     else:
         dens = JR.naive_density
     return jax.device_get(JR.sample_and_composite_rays(
-        JS.build_neighborhood_table(jvol), VOL, K, jnp.asarray(coords),
+        JS.build_neighborhood_table(jvol), VOL, vol.shape[0] - 4,
+        jnp.asarray(coords),
         jnp.asarray(valid), jnp.asarray(deltas), jnp.asarray(mids), dens, BG,
         chunk_rays=16))
 
@@ -65,6 +66,7 @@ def _assert_render_close(got, want):
     """The JAX package's own tolerances (tests/test_rendering.py): 1e-5 for
     rgb/seg, 1e-4 for depth."""
     jr, js, jd = want
+    K = js.shape[1]
     assert got.shape == (len(jr), 3 + K + 1)
     np.testing.assert_allclose(got[:, :3].numpy(), jr, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got[:, 3:K + 3].numpy(), js, rtol=1e-5,
@@ -282,6 +284,112 @@ def test_kernel_argument_checks_pass_a_padded_field():
     assert got == (8, 8, 1 + K + 3, 16)
 
 
+@pytest.mark.parametrize('most', [rays.MOST, rays.MOST_CARRIED])
+@pytest.mark.parametrize('C', [5, 30, 31, 32, 33, 44, 62, 100])
+def test_channel_groups_cover_the_field(C, most):
+    """Each launch's channels: the whole field where C <= most, else groups
+    of the density channel and at most most - 1 others, each of the others
+    in exactly one group, in order, and every group wide enough for the
+    kernel (5 channels or more)."""
+    groups = rays.channel_groups(C, most)
+    if C <= most:
+        assert groups == [list(range(C))]
+        return
+    assert all(g[0] == 0 and 5 <= len(g) <= most for g in groups)
+    assert sum((g[1:] for g in groups), []) == list(range(1, C))
+    assert max(map(len, groups)) - min(map(len, groups)) <= 1
+
+
+def _plain_geometry(coords, valid, deltas, mids, mode='sdf'):
+    return tuple(_torch_args(coords, valid, deltas, mids)) + (
+        BG, mode, torch.tensor(BETA), BIAS)
+
+
+@pytest.mark.parametrize('mode', ['sdf', 'naive'])
+@pytest.mark.parametrize('C', [33, 44])
+def test_grouped_plain_march_matches_the_whole(C, mode):
+    """The channel-group split and merge driven by the plain versions, as
+    the op runs the kernel above 32 channels (two groups here, the field's
+    channels copied into a field of each), against the whole plain march
+    in fp32: the renders within 1e-6 of each output's magnitude (each
+    group samples its channels and the density as the whole march does; a
+    group's march may chunk its rays otherwise), also in the stop mode with
+    the optical depth; the field gradient and d beta from a random d out
+    within 1e-5 (the density channel's and d beta are sums over the groups,
+    in another order), and each group's launch given its own columns."""
+    vol, coords, valid, deltas, mids = _case(seed=9, n_rays=80,
+                                             n_classes=C - 4)
+    field = rays.channels_last_field(torch.from_numpy(vol))
+    geo = _plain_geometry(coords, valid, deltas, mids, mode)
+    seen = []
+
+    def fwd(f, _):
+        seen.append(f.shape[3])
+        assert rays.channel_stride(f) % 4 == 0
+        return R.sample_and_composite_rays_field_reference(f, *geo)
+    got = rays.march_in_groups(fwd, field, rays.MOST)
+    want = R.sample_and_composite_rays_field_reference(field, *geo)
+    assert len(seen) == 2 and sum(seen) == C + 1
+    assert got.shape == want.shape == (80, C)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * max(1.0, want.abs().max()))
+    stop = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 10, 80).astype(np.int32))
+    got, sd = rays.march_in_groups(
+        lambda f, _: R.sample_and_composite_rays_field_reference(
+            f, *geo, stop=stop, with_sd=True), field, rays.MOST)
+    want, want_sd = R.sample_and_composite_rays_field_reference(
+        field, *geo, stop=stop, with_sd=True)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * max(1.0, want.abs().max()))
+    torch.testing.assert_close(sd, want_sd, rtol=1e-6, atol=1e-6)
+
+    g = torch.from_numpy(np.random.RandomState(2).randn(80, C).astype(
+        np.float32))
+    out = R.sample_and_composite_rays_field_reference(field, *geo)
+
+    def bwd(f, o, gg):
+        i = len(seen) - 2
+        seen.append(f.shape[3])
+        own = [rays._column(j, f.shape[3]) for j in range(1, f.shape[3])]
+        whole = [rays._column(c, C) for c in rays.channel_groups(
+            C, rays.MOST)[i][1:]]
+        assert torch.equal(o[:, own], out[:, whole])
+        assert torch.equal(gg[:, own], g[:, whole])
+        assert torch.equal(gg[:, -1], g[:, -1] if i == 0
+                           else torch.zeros(80))
+        return R.sample_and_composite_rays_field_backward_reference(
+            f, *geo, gg)
+    d_field, d_beta = rays.backward_in_groups(bwd, field, rays.MOST, out, g)
+    w_field, w_beta = R.sample_and_composite_rays_field_backward_reference(
+        field, *geo, g)
+    assert len(seen) == 4 and d_field.shape == w_field.shape
+    torch.testing.assert_close(d_field, w_field, rtol=0,
+                               atol=1e-5 * w_field.abs().max())
+    torch.testing.assert_close(d_beta, w_beta, rtol=1e-5,
+                               atol=1e-5 * max(1.0, abs(w_beta.item())))
+
+
+@pytest.mark.parametrize('grouped', [False, True])
+def test_render_rays_matches_jax_at_29_classes(grouped):
+    """At num_classes 29 (33 channels, above one launch's 32): the port's
+    `render_rays` on the CPU (the plain versions, which take any C) and
+    the plain march split into channel groups as the op splits it on a
+    card, against the JAX dense sampler on the same seeded inputs, at the
+    JAX package's tolerances."""
+    vol, coords, valid, deltas, mids = _case(seed=1, n_classes=29)
+    want = _jax_render(vol, coords, valid, deltas, mids, 'sdf', 'float32')
+    field = rays.channels_last_field(torch.from_numpy(vol))
+    geo = _plain_geometry(coords, valid, deltas, mids)
+    if grouped:
+        got = rays.march_in_groups(
+            lambda f, _: R.sample_and_composite_rays_field_reference(
+                f, *geo), field, rays.MOST)
+    else:
+        got = rays.render_rays(field, *geo)
+    _assert_render_close(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_on_gpu(dtype):
@@ -362,3 +470,46 @@ def test_corner_table_kernel_matches_plain_on_gpu(dtype):
         want = S.corner_table_reference(vol)
         view = torch.int16 if dtype == torch.bfloat16 else torch.int32
         assert torch.equal(got.view(view), want.view(view)), (shape, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('n_classes', [27, 28, 29, 40])
+def test_wide_ray_kernels_match_plain_on_gpu(n_classes):
+    """On the card at num_classes 27, 28, 29 and 40 (C = 31 to 44): the
+    differentiable op `render_rays` through the kernels (one launch a
+    direction up to 32 channels, two channel groups above) against
+    `plain=True`, in fp32 and bf16: the renders within 1e-4 of each
+    output's magnitude, the field's gradient and d beta from a random d
+    out within 1e-4 (1e-2 in bf16: one rounding to the field's dtype) and
+    1e-3 of their magnitude (fp32 sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    vol, coords, valid, deltas, mids = _case(seed=4, n_rays=1000, n_samp=85,
+                                             n_classes=n_classes)
+    C = n_classes + 4
+    args = [a.cuda() for a in _torch_args(coords, valid, deltas, mids)]
+    g = torch.from_numpy(np.random.RandomState(6).randn(1000, C).astype(
+        np.float32)).cuda()
+    groups = len(rays.channel_groups(C, rays.MOST))
+    for dtype in (torch.float32, torch.bfloat16):
+        outs, grads = [], []
+        for plain in (False, True):
+            v = torch.from_numpy(vol).cuda().to(dtype).requires_grad_()
+            beta = torch.tensor(BETA, device='cuda', requires_grad=True)
+            before = (rays.LAUNCHES, rays.BWD_LAUNCHES)
+            out = rays.render_rays(rays.channels_last_field(v), *args, BG,
+                                   'sdf', beta, BIAS, plain)
+            out.backward(g)
+            if not plain:
+                assert (rays.LAUNCHES, rays.BWD_LAUNCHES) == (
+                    before[0] + groups, before[1] + groups)
+            outs.append(out.detach())
+            grads.append((v.grad.float(), beta.grad))
+        for sl in (slice(0, 3), slice(3, C - 1), slice(C - 1, C)):
+            ref = outs[1][:, sl]
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            assert (outs[0][:, sl] - ref).abs().max().item() <= tol, sl
+        (d_got, b_got), (d_want, b_want) = grads
+        rtol = 1e-4 if dtype == torch.float32 else 1e-2   # a bf16 ulp
+        assert (d_got - d_want).abs().max() <= rtol * d_want.abs().max()
+        assert abs(b_got.item() - b_want.item()) <= 1e-3 * abs(b_want.item())

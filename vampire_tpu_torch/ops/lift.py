@@ -28,9 +28,16 @@ the JAX package.
 `depth=None` is the depth-less mode of the `bilinear` field variant: v is
 a 2-D bilinear sample of `feat` at the query's (x, y) (`sample_bilinear`;
 zeros padding, align_corners=False), with no depth factor, and the
-backward returns (None, d feat). On CUDA tensors it is the same two kernels
-in their depth-less mode, counted apart (`BILINEAR_LAUNCHES`,
-`BILINEAR_BWD_LAUNCHES`). It replaces, on the bilinear lift, the JAX
+backward returns (None, d feat). On CUDA tensors it runs kernels of its own
+in `csrc/lift.cu`, counted apart (`BILINEAR_LAUNCHES`,
+`BILINEAR_BWD_LAUNCHES`): the forward first builds the frame's slot map
+(`slot_map`: slots[n, g] = the k with ids[n, k] == g, else -1; one
+launch, `SLOT_MAP_LAUNCHES`), then each output block reads its N slots;
+the backward sorts each CTA's queries into bins by their top-left pixel
+corner and sums a bin's terms for each of its 4 corner pixels before one
+reduction into d feat, or scatters each term where a block's footprint
+exceeds its shared-memory bins (`bilinear_backward_routes_reference` gives
+each CTA's route). It replaces, on the bilinear lift, the JAX
 package's corner table of each camera's depth-1 feature volume
 (`_corner_table_pallas`, vampire_tpu/ops/pallas_tables.py:73) with the row
 gather over it, and the table's VJP (`_corner_table_bwd_impl`, :214).
@@ -67,14 +74,23 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 BILINEAR_LAUNCHES = 0
 BILINEAR_BWD_LAUNCHES = 0
+# kernel launches made by slot_map (the depth-less forward's first launch)
+SLOT_MAP_LAUNCHES = 0
 
 # the most cameras a frame may have (the forward's shared slot array)
 MAX_CAMERAS = 32
+# the depth-less backward: the most bins (a block's valid queries' top-left
+# pixel corners, their bounding box) a CTA sorts in shared memory, as
+# kMaxBins of csrc/lift.cu; the routes of a CTA, as kRoute* there
+MAX_BINS = 1024
+ROUTE_NONE, ROUTE_SORTED, ROUTE_DIRECT = 0, 1, 2
 
 _SYMBOLS = {torch.float32: 'lift_frame_f32',
             torch.bfloat16: 'lift_frame_bf16'}
 _BWD_SYMBOLS = {torch.float32: 'lift_frame_backward_f32',
                 torch.bfloat16: 'lift_frame_backward_bf16'}
+_BILINEAR_SYMBOLS = {torch.float32: 'lift_bilinear_f32',
+                     torch.bfloat16: 'lift_bilinear_bf16'}
 
 
 def lift_accumulate_reference(depth, feat, ids, coords, valid, numer, denom):
@@ -178,6 +194,80 @@ def lift_frame_backward_reference(depth, feat, ids, coords, valid, g_numer):
     return torch.stack([g[0] for g in grads]), d_feat
 
 
+def slot_map_reference(ids: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Plain version of `slot_map` (any device): (N, n_blocks) int32,
+    slots[n, ids[n, k]] = k, else -1; ids outside [0, n_blocks) are
+    ignored."""
+    N, K = ids.shape
+    slots = torch.full((N, n_blocks), -1, dtype=torch.int32,
+                       device=ids.device)
+    ks = torch.arange(K, dtype=torch.int32, device=ids.device)
+    for n in range(N):
+        keep = (ids[n] >= 0) & (ids[n] < n_blocks)
+        slots[n, ids[n][keep]] = ks[keep]
+    return slots
+
+
+def slot_map(ids: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Each camera's slot of each block, (N, n_blocks) int32: the k with
+    ids[n, k] == g, else -1 (ids (N, K) int64, distinct within a camera;
+    ids outside [0, n_blocks) ignored). On CUDA tensors one launch of the
+    hand-written `slot_map_kernel` (csrc/lift.cu: a CTA a camera stages its
+    row in shared memory and writes it once); it replaces the scan of the
+    frame's N x K ids that every CTA of the depth-less forward made. On CPU
+    tensors its plain version. The depth-less forward launches the same
+    kernel itself, in the call that launches its own."""
+    global SLOT_MAP_LAUNCHES
+    if ids.device.type == 'cpu':
+        return slot_map_reference(ids, n_blocks)
+    if ids.device.type != 'cuda':
+        raise NotImplementedError(f'lift: no kernel for {ids.device}')
+    if ids.dtype != torch.int64 or ids.dim() != 2 or not ids.is_contiguous():
+        raise ValueError(f'lift: ids must be a contiguous (N, K) int64 '
+                         f'tensor, got {ids.dtype} {tuple(ids.shape)}')
+    N, K = ids.shape
+    slots = torch.empty((N, int(n_blocks)), dtype=torch.int32,
+                        device=ids.device)
+    fn = _build.kernel('lift', 'slot_map', [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = _build.launch(fn, ids.device, ids.data_ptr(), slots.data_ptr(), N,
+                        K, int(n_blocks))
+    if err != 0:
+        raise RuntimeError(f'lift: slot map launch failed with CUDA error '
+                           f'{err}')
+    SLOT_MAP_LAUNCHES += 1
+    return slots
+
+
+def bilinear_backward_routes_reference(feat_hw, ids, coords, valid,
+                                       n_blocks):
+    """The route each CTA (camera n, selected block k) of the depth-less
+    backward takes, (N, K) int32, by the kernel's rule: ROUTE_NONE where
+    ids[n, k] lies outside [0, n_blocks); else ROUTE_SORTED where the
+    bounding box of its valid queries' bins (each query's unclamped
+    top-left pixel corner (y0, x0), those with a corner in the (h, w)
+    image) holds at most MAX_BINS bins and Q fits the shared arrays;
+    ROUTE_DIRECT otherwise."""
+    H, W = feat_hw
+    N, K, Q = valid.shape
+    x = ((coords[..., 0] + 1.0) * W - 1.0) / 2.0
+    y = ((coords[..., 1] + 1.0) * H - 1.0) / 2.0
+    x0, y0 = torch.floor(x), torch.floor(y)
+    live = ((valid != 0) & (x0 >= -1) & (x0 <= W - 1) & (y0 >= -1)
+            & (y0 <= H - 1))
+    big, small = torch.finfo(torch.float32).max, torch.finfo(
+        torch.float32).min
+    span = [(torch.where(live, a, small).amax(-1)
+             - torch.where(live, a, big).amin(-1) + 1) for a in (y0, x0)]
+    bins = torch.where(live.any(-1), span[0] * span[1], 0.0)
+    sortable = Q < 65536 and H < 32767 and W < 65535 and (
+        Q * 18 + (MAX_BINS + 1) * 4 <= 48 * 1024)
+    routes = torch.where((bins <= MAX_BINS) & sortable, ROUTE_SORTED,
+                         ROUTE_DIRECT)
+    routes = torch.where((ids >= 0) & (ids < n_blocks), routes, ROUTE_NONE)
+    return routes.to(torch.int32)
+
+
 def bilinear_lift_frame_backward_reference(feat, ids, coords, valid,
                                            g_numer):
     """The depth-less frame lift's backward in plain torch: d feat
@@ -242,9 +332,9 @@ def _check(depth, feat, ids, coords, valid, n_blocks, g_numer=None):
         raise ValueError(f'lift: a camera of {D}x{H}x{W}x{C} exceeds the '
                          f'kernels\' 32-bit offsets')
     # where the kernels read 4 channels at a time (the forward at C = 16,
-    # the backward at C % 4 == 0), feat must start on 4 elements and
-    # g_numer on 16 bytes
-    if C == 16 or (g_numer is not None and C % 4 == 0):
+    # its depth-less mode and the backward at C % 4 == 0), feat must start
+    # on 4 elements and g_numer on 16 bytes
+    if C == 16 or (C % 4 == 0 and (g_numer is not None or depth is None)):
         if feat.data_ptr() % (4 * feat.element_size()):
             raise ValueError(f'lift: feat must start on '
                              f'{4 * feat.element_size()} bytes')
@@ -277,7 +367,7 @@ def lift_frame_accumulate(depth: torch.Tensor, feat: torch.Tensor,
 
     Returns (numer, denom).
     """
-    global LAUNCHES, BILINEAR_LAUNCHES
+    global LAUNCHES, BILINEAR_LAUNCHES, SLOT_MAP_LAUNCHES
     if feat.device.type == 'cpu':
         return lift_frame_accumulate_reference(depth, feat, ids, coords,
                                                valid, n_blocks)
@@ -287,14 +377,26 @@ def lift_frame_accumulate(depth: torch.Tensor, feat: torch.Tensor,
                                     n_blocks)
     numer = torch.empty((G, Q, C), dtype=torch.float32, device=feat.device)
     denom = torch.empty_like(numer)
-    err = _build.launch(_kernel(_SYMBOLS[feat.dtype], 7), feat.device,
-                        None if depth is None else depth.data_ptr(),
-                        feat.data_ptr(), ids.data_ptr(), coords.data_ptr(),
-                        valid.data_ptr(), numer.data_ptr(), denom.data_ptr(),
-                        N, D, H, W, C, K, Q, G)
+    if depth is None:
+        # one call launches the slot map and the forward that reads it
+        slots = torch.empty((N, G), dtype=torch.int32, device=feat.device)
+        err = _build.launch(
+            _build.kernel('lift', _BILINEAR_SYMBOLS[feat.dtype],
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p]), feat.device,
+            feat.data_ptr(), ids.data_ptr(), slots.data_ptr(),
+            coords.data_ptr(), valid.data_ptr(), numer.data_ptr(),
+            denom.data_ptr(), N, H, W, C, K, Q, G)
+    else:
+        err = _build.launch(_kernel(_SYMBOLS[feat.dtype], 7), feat.device,
+                            depth.data_ptr(), feat.data_ptr(),
+                            ids.data_ptr(), coords.data_ptr(),
+                            valid.data_ptr(), numer.data_ptr(),
+                            denom.data_ptr(), N, D, H, W, C, K, Q, G)
     if err != 0:
         raise RuntimeError(f'lift: kernel launch failed with CUDA error {err}')
     if depth is None:
+        SLOT_MAP_LAUNCHES += 1
         BILINEAR_LAUNCHES += 1
     else:
         LAUNCHES += 1
@@ -303,12 +405,16 @@ def lift_frame_accumulate(depth: torch.Tensor, feat: torch.Tensor,
 
 def lift_frame_backward(depth: torch.Tensor, feat: torch.Tensor,
                         ids: torch.Tensor, coords: torch.Tensor,
-                        valid: torch.Tensor, g_numer: torch.Tensor
+                        valid: torch.Tensor, g_numer: torch.Tensor,
+                        routes: torch.Tensor = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame's lift backward: (d depth (N, D, h, w), d feat
     (N, h, w, C)), float32, from g_numer = d numer (G, Q, C) float32 and the
     forward's inputs (see `lift_frame_accumulate`); (None, d feat) with
-    depth None."""
+    depth None. `routes`, a contiguous (N, K) int32 tensor on the card,
+    receives the route of each CTA of the depth-less kernel
+    (`bilinear_backward_routes_reference`); the plain versions and the
+    depth mode do not write it."""
     global BWD_LAUNCHES, BILINEAR_BWD_LAUNCHES
     if feat.device.type == 'cpu':
         return lift_frame_backward_reference(depth, feat, ids, coords, valid,
@@ -325,12 +431,28 @@ def lift_frame_backward(depth: torch.Tensor, feat: torch.Tensor,
                         device=feat.device)
     d_depth = None if depth is None else grads[:nd].view(N, D, H, W)
     d_feat = grads[off:].view(N, H, W, C)
-    err = _build.launch(_kernel(_BWD_SYMBOLS[feat.dtype], 8), feat.device,
-                        None if depth is None else depth.data_ptr(),
-                        feat.data_ptr(), ids.data_ptr(), coords.data_ptr(),
-                        valid.data_ptr(), g_numer.data_ptr(),
-                        None if depth is None else d_depth.data_ptr(),
-                        d_feat.data_ptr(), N, D, H, W, C, K, Q, G)
+    if depth is None:
+        if routes is not None and (
+                routes.shape != (N, K) or routes.dtype != torch.int32
+                or routes.device != feat.device
+                or not routes.is_contiguous()):
+            raise ValueError(f'lift: routes must be a contiguous ({N}, {K}) '
+                             f'int32 tensor on {feat.device}')
+        err = _build.launch(
+            _build.kernel('lift', 'lift_bilinear_backward',
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p]), feat.device,
+            ids.data_ptr(), coords.data_ptr(), valid.data_ptr(),
+            g_numer.data_ptr(), d_feat.data_ptr(),
+            None if routes is None else routes.data_ptr(), N, H, W, C, K, Q,
+            G)
+    else:
+        err = _build.launch(_kernel(_BWD_SYMBOLS[feat.dtype], 8),
+                            feat.device, depth.data_ptr(), feat.data_ptr(),
+                            ids.data_ptr(), coords.data_ptr(),
+                            valid.data_ptr(), g_numer.data_ptr(),
+                            d_depth.data_ptr(), d_feat.data_ptr(), N, D, H, W,
+                            C, K, Q, G)
     if err != 0:
         raise RuntimeError(f'lift: backward kernel launch failed with CUDA '
                            f'error {err}')

@@ -47,6 +47,22 @@ after it: one launch walks every ray again and scatters into the field's
 gradient. On CPU tensors both run their plain versions; a CUDA tensor never
 falls back: the kernel launches or the call raises.
 
+A launch carries at most `MOST` = 32 channels, `MOST_CARRIED` = 30 where
+it reads or writes a carried state (one lane a column of C + 2). Above
+that the op marches the field in channel groups (`channel_groups`): each
+group is the density channel 0 and an even share of the others, copied
+into a field of its own and run through the same kernel. The sampled
+channels composite independently with the same weights, so the groups'
+outputs merge by column (`march_in_groups`); the first group keeps the
+depth column (and a state's acc_w, acc_d and optical depth). In the
+backward (`backward_in_groups`) each group's field gradient lands in its
+channels, while the density channel's gradient and d beta are summed over
+the groups; only the first group receives the depth's cotangent. In the
+early-termination sampler the stops come from the density alone, so the
+prefix's key and the stops are computed once and shared by every group.
+At C <= 32 (30 with a state) the one group is the field itself: a single
+launch, as before.
+
 The kernels read each voxel in 16-byte loads, so on a card the field's
 voxels must start 16 bytes apart: `channels_last_field` makes it the
 channel slice `padded[..., :C]` of a zero-padded channels-last (D, H, W,
@@ -56,7 +72,7 @@ channels). The plain versions take any strides.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -77,6 +93,142 @@ _SYMBOLS = {torch.float32: 'rays_f32', torch.bfloat16: 'rays_bf16'}
 _BWD_SYMBOLS = {torch.float32: 'rays_backward_f32',
                 torch.bfloat16: 'rays_backward_bf16'}
 _MODES = {'sdf': 0, 'naive': 1}
+
+# the most channels one launch carries, without and with a carried state
+MOST = 32
+MOST_CARRIED = 30
+
+
+def channel_groups(C: int, most: int) -> List[List[int]]:
+    """The channels of each launch over a C-channel field [sdf | seg |
+    rgb] whose launches carry at most `most` channels: the whole field where
+    C <= most, else groups of the density channel 0 and an even share of
+    the others in order (each group within one channel of the others, so
+    every group has 16 or more)."""
+    if C <= most:
+        return [list(range(C))]
+    n = -(-(C - 1) // (most - 1))
+    cuts = [1 + (C - 1) * i // n for i in range(n + 1)]
+    return [[0] + list(range(a, b)) for a, b in zip(cuts, cuts[1:])]
+
+
+def _column(c: int, C: int) -> int:
+    """The output column [rgb | seg | depth] of channel c >= 1 of a
+    C-channel field [sdf | seg (C - 4) | rgb (3)]."""
+    return c - (C - 3) if c >= C - 3 else c + 2
+
+
+class _Groups:
+    """The channel groups of a field of more than one group
+    (`channel_groups`) and the column maps between each group's outputs and
+    the whole field's."""
+
+    def __init__(self, field: torch.Tensor, chans: List[List[int]]):
+        self.field = field
+        self.C = C = field.shape[3]
+        self.chans = chans
+        dev = field.device
+        self.cols = [(torch.tensor([_column(i, len(ch))
+                                    for i in range(1, len(ch))], device=dev),
+                      torch.tensor([_column(c, C) for c in ch[1:]],
+                                   device=dev)) for ch in chans]
+
+    def fields(self):
+        """Each group's field: a copy of the group's channels whose voxels
+        start on 16 bytes."""
+        return [_aligned(self.field.index_select(
+            3, torch.tensor(ch, device=self.field.device)))
+            for ch in self.chans]
+
+    def split(self, x: torch.Tensor, i: int, tail: bool = True):
+        """Group i's columns of an (R, C + e) tensor laid out as the
+        output or the carried state (the per-channel columns, then from
+        column C - 1 on the tail: the depth, or acc_w, acc_d and the
+        optical depth); the tail copied where `tail`, else zeros."""
+        own, whole = self.cols[i]
+        Cg = len(self.chans[i])
+        part = torch.zeros((x.shape[0], Cg + x.shape[1] - self.C),
+                           dtype=x.dtype, device=x.device)
+        part[:, own] = x[:, whole]
+        if tail:
+            part[:, Cg - 1:] = x[:, self.C - 1:]
+        return part.contiguous()
+
+    def merge(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The (R, C + e) tensor of the groups' (R, Cg + e) ones: each
+        group's columns, the tail from the first group."""
+        first = parts[0]
+        Cg0 = len(self.chans[0])
+        out = torch.empty((first.shape[0], self.C + first.shape[1] - Cg0),
+                          dtype=first.dtype, device=first.device)
+        for (own, whole), part in zip(self.cols, parts):
+            out[:, whole] = part[:, own]
+        out[:, self.C - 1:] = first[:, Cg0 - 1:]
+        return out
+
+
+def _aligned(field: torch.Tensor) -> torch.Tensor:
+    """A channels-last (D, H, W, C) field as the channel slice of a copy
+    zero-padded to the least voxel stride whose bytes are a multiple of 16
+    (the field itself where C already is and it is contiguous)."""
+    C = field.shape[-1]
+    pad = -C % (16 // field.element_size())
+    if pad == 0:
+        return field.contiguous()
+    return torch.nn.functional.pad(field, (0, pad))[..., :C]
+
+
+def march_in_groups(launch: Callable, field: torch.Tensor, most: int,
+                    state: Optional[torch.Tensor] = None):
+    """A forward over the field's channel groups (`channel_groups` at
+    `most`), merged. `launch(group_field, group_state)` marches one group
+    and returns its (R, Cg) renders or (R, Cg + 2) carried state, or a
+    tuple whose first element is such and whose others (the optical depth)
+    are the same for every group; `group_state` is group i's columns of
+    `state` (None without one). Returns the launch's result for the whole
+    field: the per-channel columns from their groups, the depth (a state's
+    acc_w, acc_d and optical depth) and the other tuple elements from the
+    first group. One group: `launch(field, state)` itself."""
+    chans = channel_groups(field.shape[3], most)
+    if len(chans) == 1:
+        return launch(field, state)
+    groups = _Groups(field, chans)
+    outs = [launch(f, None if state is None else groups.split(state, i))
+            for i, f in enumerate(groups.fields())]
+    if isinstance(outs[0], tuple):
+        return (groups.merge([o[0] for o in outs]),) + tuple(outs[0][1:])
+    return groups.merge(outs)
+
+
+def backward_in_groups(launch: Callable, field: torch.Tensor, most: int,
+                       out: torch.Tensor, g_out: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of `march_in_groups`' renders. `launch(group_field,
+    group_out, group_g_out)` returns the group's (d field (D, H, W, Cg)
+    fp32, d beta); each group gets its columns of `out` and `g_out`, and
+    only the first the depth's cotangent (the others zeros). Returns (d
+    field (D, H, W, C) fp32: each group's channels, the density channel's
+    summed over the groups in order; d beta summed likewise). One group:
+    `launch(field, out, g_out)` itself."""
+    chans = channel_groups(field.shape[3], most)
+    if len(chans) == 1:
+        return launch(field, out, g_out)
+    groups = _Groups(field, chans)
+    d_field = torch.empty(field.shape, dtype=torch.float32,
+                          device=field.device)
+    d_beta = None
+    for i, f in enumerate(groups.fields()):
+        dg, db = launch(f, groups.split(out, i),
+                        groups.split(g_out, i, tail=i == 0))
+        ch = torch.tensor(groups.chans[i][1:], device=field.device)
+        d_field.index_copy_(3, ch, dg[..., 1:])
+        if i == 0:
+            d_field[..., 0] = dg[..., 0]
+            d_beta = db
+        else:
+            d_field[..., 0] += dg[..., 0]
+            d_beta = d_beta + db
+    return d_field, d_beta
 
 
 def channel_stride(field: torch.Tensor) -> int:
@@ -238,18 +390,22 @@ def sample_and_composite_rays(field: torch.Tensor, coords: torch.Tensor,
 
     Returns (R, 3 + K + 1) float32, and the optical depth with `with_sd`.
     """
-    global LAUNCHES, STOP_LAUNCHES
     if not _device(field):
         return sample_and_composite_rays_field_reference(
             field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
             sdf_bias, stop=stop, with_sd=with_sd)
-    out, sd = _forward(field, coords, valid, deltas, mids, bg_depth,
+
+    def launch(f, _):
+        global LAUNCHES, STOP_LAUNCHES
+        res = _forward(f, coords, valid, deltas, mids, bg_depth,
                        density_mode, beta, sdf_bias, stop=stop,
                        with_sd=with_sd)
-    if stop is None and not with_sd:
-        LAUNCHES += 1
-    else:
-        STOP_LAUNCHES += 1
+        if stop is None and not with_sd:
+            LAUNCHES += 1
+        else:
+            STOP_LAUNCHES += 1
+        return res
+    out, sd = march_in_groups(launch, field, MOST)
     return (out, sd) if with_sd else out
 
 
@@ -266,16 +422,19 @@ def sample_and_composite_rays_prefix(
     last column is the early-termination sampler's sort key.
     `core.rendering.sample_and_composite_rays_field_prefix_reference` is
     the plain version."""
-    global STOP_LAUNCHES
     if not _device(field):
         return R.sample_and_composite_rays_field_prefix_reference(
             field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
             sdf_bias, n)
-    state = _forward(field, coords, valid, deltas, mids, bg_depth,
-                     density_mode, beta, sdf_bias, keep_state=True,
-                     end=min(valid.shape[1], n))
-    STOP_LAUNCHES += 1
-    return state
+
+    def launch(f, _):
+        global STOP_LAUNCHES
+        state = _forward(f, coords, valid, deltas, mids, bg_depth,
+                         density_mode, beta, sdf_bias, keep_state=True,
+                         end=min(valid.shape[1], n))
+        STOP_LAUNCHES += 1
+        return state
+    return march_in_groups(launch, field, MOST_CARRIED)
 
 
 def sample_and_composite_rays_resume(
@@ -291,16 +450,19 @@ def sample_and_composite_rays_resume(
     stop mode gives them. `core.rendering.
     sample_and_composite_rays_field_resume_reference` is the plain
     version."""
-    global STOP_LAUNCHES
     if not _device(field):
         return R.sample_and_composite_rays_field_resume_reference(
             field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
             sdf_bias, state, begin, stop)
-    out, sd = _forward(field, coords, valid, deltas, mids, bg_depth,
+
+    def launch(f, st):
+        global STOP_LAUNCHES
+        res = _forward(f, coords, valid, deltas, mids, bg_depth,
                        density_mode, beta, sdf_bias, stop=stop, with_sd=True,
-                       state=state, begin=min(valid.shape[1], begin))
-    STOP_LAUNCHES += 1
-    return out, sd
+                       state=st, begin=min(valid.shape[1], begin))
+        STOP_LAUNCHES += 1
+        return res
+    return march_in_groups(launch, field, MOST_CARRIED, state=state)
 
 
 def sample_and_composite_rays_backward(
@@ -315,11 +477,21 @@ def sample_and_composite_rays_backward(
     (D, H, W, CS) buffer on the card; d beta float32 0-dim, zero for
     'naive'). The plain version ignores `out` and sums the ray's tail
     directly."""
-    global BWD_LAUNCHES
     if not _device(field):
         return sample_and_composite_rays_field_backward_reference(
             field, coords, valid, deltas, mids, bg_depth, density_mode, beta,
             sdf_bias, g_out)
+    return backward_in_groups(
+        lambda f, o, g: _backward(f, coords, valid, deltas, mids, bg_depth,
+                                  density_mode, beta, sdf_bias, o, g),
+        field, MOST, out, g_out)
+
+
+def _backward(field, coords, valid, deltas, mids, bg_depth, density_mode,
+              beta, sdf_bias, out, g_out):
+    """One launch of the backward kernel; raises where the arguments do
+    not fit it or the launch fails."""
+    global BWD_LAUNCHES
     R, S, C, CS = _check(field, coords, valid, deltas, mids, beta, out=out,
                          g_out=g_out)
     D, H, W = field.shape[:3]
@@ -366,13 +538,7 @@ class ChannelsLastField(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, vol):
-        C = vol.shape[0]
-        per = 16 // vol.element_size()
-        pad = -C % per
-        field = vol.permute(1, 2, 3, 0)
-        if pad == 0:
-            return field.contiguous()
-        return torch.nn.functional.pad(field, (0, pad))[..., :C]
+        return _aligned(vol.permute(1, 2, 3, 0))
 
     @staticmethod
     def backward(ctx, g):
@@ -427,6 +593,23 @@ class RenderRays(torch.autograd.Function):
                 + (None,) * 8)
 
 
+def earlyterm_march(first: Callable, then: Callable, args: tuple,
+                    chunk: int, prefix: int, caps_fracs, tau: float):
+    """The early-termination sampler over the arguments `args` of
+    `sample_and_composite_rays`: `first(*args, n)` gives each ray's carried
+    state over its first n = prefix * chunk samples (the prefix launch, or
+    its plain version), whose optical depth decides the stops once; then
+    `then(*args, state, n, stop)` resumes each ray to its stop. Returns
+    (the (R, 3 + K + 1) renders, the coverage diagnostic, the stops)."""
+    valid = args[2]
+    n = min(valid.shape[1], prefix * chunk)
+    state = first(*args, n)
+    stop, exited, misses = R.earlyterm_stops(state[:, -1], valid, chunk,
+                                             prefix, caps_fracs)
+    out, sd = then(*args, state, n, stop)
+    return out, R.earlyterm_uncovered_drops(sd, exited, misses, tau), stop
+
+
 class RenderRaysEarlyTerm(torch.autograd.Function):
     """The early-termination sampler: two launches of the stop mode, the
     first over every ray's prefix, the second resuming each ray there from
@@ -445,14 +628,10 @@ class RenderRaysEarlyTerm(torch.autograd.Function):
         else:
             first = sample_and_composite_rays_prefix
             then = sample_and_composite_rays_resume
-        args = (field, coords, valid, deltas, mids, bg_depth, density_mode,
-                beta, sdf_bias)
-        n = min(valid.shape[1], prefix * chunk)
-        state = first(*args, n)
-        stop, exited, misses = R.earlyterm_stops(state[:, -1], valid, chunk,
-                                                 prefix, caps_fracs)
-        out, sd = then(*args, state, n, stop)
-        diag = R.earlyterm_uncovered_drops(sd, exited, misses, tau)
+        out, diag, _ = earlyterm_march(
+            first, then, (field, coords, valid, deltas, mids, bg_depth,
+                          density_mode, beta, sdf_bias),
+            chunk, prefix, caps_fracs, tau)
         ctx.mark_non_differentiable(diag)
         return out, diag
 
