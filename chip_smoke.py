@@ -7,7 +7,7 @@ probes once on one NVIDIA GPU.
     python3 chip_smoke.py
 
 Phases, each printing a line; any failure raises and the script exits
-nonzero without printing a result:
+nonzero without printing a result (numbered as they run):
 
   1. device  - a CUDA card must be present (no CPU fallback); prints
                `nvidia-smi --query-gpu=name,power.limit`.
@@ -151,7 +151,28 @@ nonzero without printing a result:
                `serve_tcp`: 8 requests through `TcpClient`, byte for byte
                equal to `infer`'s, and the median ms a request over TCP
                and direct.
- 10. extras  - the flagship (bf16, B=1, seeded weights, BN calibrated)
+ 10. cam     - the camera axis of the dp x cam layout
+               (`parallel/mesh.py`). (a) On the flagship frame in fp32 and
+               bf16: the dense lift over cameras 0-2 plus the lift over
+               3-5 against the lift over 0-5 (denominators equal,
+               numerators within CAM_SPLIT_ULPS fp32 units of the lift of
+               |feat|), each half against its plain version, the lift of 3
+               cameras timed against 6; the ray kernel over cameras 3-5
+               bit for bit rows 3-5 of the six-camera march, and against
+               its plain version. (b) `Trainer.fit` (flagship, fp32, B=1
+               a rank, 3 steps, then 5 timed) at dp 1 x cam 2: NCCL on two
+               cards, else two ranks on cuda:0 over gloo, asked for by
+               name (the line says which), against one process with the
+               dense lift on the same global batches: step 0's loss terms
+               and unclipped gradients (within twice what a dp 2 x cam 1
+               step, the control, differs by: the flagship's fp32
+               gradients move ~2.5 % in any other sum order), the fit's
+               launches, each rank's step time and peak memory. (c) `validate` on the 2 rows of
+               a global batch at the same layout against the one process
+               (both on the initial weights, BN calibrated on another
+               batch): the confusions' totals equal, at most 1e-4 of
+               their entries moved by argmax near-ties.
+ 11. extras  - the flagship (bf16, B=1, seeded weights, BN calibrated)
                beyond the paths above. The early-termination sampler
                (ray_et_fracs = ET_FRACS) under a partly-opaque density
                head: 3 full-render requests (the lift once and the ray
@@ -175,7 +196,7 @@ nonzero without printing a result:
                seeded generator, saved, grafted by `init_state` (every
                backbone tensor bit for bit), then one request under
                `run_time`. Prints the phase's wall time.
- 11. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
+ 12. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
                layouts and dma sub-commands and its scale sub-command on
                the ray stage's 1,387,029-row tables of 256 and 176 bf16
                (depths 1, 8 and 32, issued 1 and 4 at a time, random and
@@ -206,7 +227,9 @@ Each model kernel's entry also gives its launches in each call of the eval
 phase (`eval_launches`), of the data phase (`data_launches`) and of the
 variants phase (`variant_launches`; the depth-less lift's entries give the
 bilinear variant's), of the multi-device phase (`multi_launches`: rank
-0's fit, the pool's requests) and of the extras phase (`extras_launches`:
+0's fit, the pool's requests), of the cam phase (`cam_launches`: rank 0's
+fit; the lift's entry also the cam phase's times of the lift over 3 and 6
+cameras, `cam_split_ms`) and of the extras phase (`extras_launches`:
 the early-termination requests, the fit with panels, the grafted
 request); the ray kernel's stop mode has an entry of its own
 (`sample_and_composite_rays_stop`, its launches the early-termination
@@ -214,8 +237,9 @@ requests'); the object also holds the eval calls' ms a row,
 validate's peak memory, the data phase's numbers (`data`) and the variants
 phase's request, step and validate times and peak memory (`variants`,
 `sweeps`, `dense`), the multi-device phase's world, step times, rates
-and TCP overhead (`multi`) and the extras phase's times, diagnostic and
-trace size (`extras`). The last three lines are a JSON object of the
+and TCP overhead (`multi`), the cam phase's backend, step times, peak
+memory a rank and gradient differences (`cam`) and the extras phase's
+times, diagnostic and trace size (`extras`). The last three lines are a JSON object of the
 kernels run, the card's name and power limit, and `{"ok": true, "device":
 {...}}`.
 """
@@ -3314,9 +3338,10 @@ def multi_phase(card, cfg=None, dev='cuda', world=None):
         if cuda:
             torch.cuda.empty_cache()
         t1 = time.perf_counter()
+        # cam=1: the dp layout (the cam phase runs the camera split)
         ranks = spawn(trainer_run, world,
                       (sized(1, world), by_rank, os.path.join(wd, 'dist'),
-                       None, None, None, N_TIMED_STEPS),
+                       None, None, None, N_TIMED_STEPS, None, 1),
                       device=dev, timeout_s=300)
         spawn_s = time.perf_counter() - t1
     r0 = ranks[0]
@@ -3532,6 +3557,350 @@ def multi_phase(card, cfg=None, dev='cuda', world=None):
     return out
 
 
+# The camera axis (phase 10). The lift's numerator sums the cameras in
+# order in fp32 (`acc += v` a camera, csrc/lift.cu); two partial sums met in
+# one more add change the rounding: each order is within (n - 1) u sum|v|
+# of the exact sum (n = 6 cameras, u = 2^-24), so two orders differ by at
+# most 2 (n - 1) u sum|v|, sum|v| the lift of |feat| (the depth and the
+# bilinear weights are >= 0).
+CAM_SPLIT_ULPS = 10
+N_CAM_STEPS = 3
+# The dp 1 x cam 2 step against one process in fp32: the loss terms within
+# 1e-5 (multi's floor). The flagship's fp32 step-0 gradients are chaotic in
+# the forward's sum order: any layout moves them. On an H100 (700 W;
+# `python vampire_tpu_torch/tools/layout_spread.py`) one process against
+# itself in a fresh process moved the unclipped per-tensor |d| / |g| by a
+# median 4.0e-7, but dp 2 x cam 1 (two ranks, a row each:
+# only the BatchNorm and loss sums run in another order) by a median
+# 2.6e-2 and at most 7.4e-2, and dp 1 x cam 2 by 2.5e-2 and 6.6e-2 (the
+# image backbone's tensors most, ~5e-2; the head's 3e-4). So the phase
+# runs the dp layout beside the cam layout as its control, a layout the
+# CPU tests hold to one process (tests/test_torch_parallel.py), and holds
+# the cam layout's median, largest and grad_norm within SPREAD_FACTOR times
+# the control's; the control itself within CAM_CONTROL_MAX, so that a
+# broken control fails.
+CAM_LOSS_RTOL = 1e-5
+CAM_CONTROL_MAX = 0.25
+
+
+def dense_lift_frame(bc, dev):
+    """One flagship frame's dense lift inputs (every block selected by
+    every camera, `lift_layout(dense=True)`): depth (6, D, h, w), feat
+    (6, h, w, C) fp32 from a seed, ids (6, G), coords (6, G, Q, 3), valid
+    (6, G, Q) of the camera_rig geometry. Returns those and G."""
+    import torch
+    from vampire_tpu_torch.configs import camera_rig
+    from vampire_tpu_torch.core.geometry import get_pixel
+    from vampire_tpu_torch.models.field import (block_major_voxels,
+                                                coords_valid, lift_layout)
+
+    D, (h, w), C = bc.depth_channels, bc.feat_hw, bc.mid_channels
+    rig = {k: torch.from_numpy(v).to(dev)
+           for k, v in camera_rig(1, 6, bc.final_dim, seed=0).items()}
+    blk = lift_layout(bc, dense=True)[0]
+    vox = torch.from_numpy(block_major_voxels(bc, blk)).to(dev)
+    pix = get_pixel(vox[:, :, None], rig['sensor2ego'], rig['intrin'],
+                    rig['ida'], rig['bda'])[..., 0, :]
+    coords, valid = coords_valid(pix, bc)
+    G = valid.shape[2]
+    g = torch.Generator(device=dev).manual_seed(5)
+    depth = torch.softmax(torch.randn(6, D, h, w, device=dev, generator=g),
+                          dim=1)
+    feat = torch.randn(6, h, w, C, device=dev, generator=g)
+    ids = torch.arange(G, device=dev, dtype=torch.int64).expand(6, G)
+    return (depth, feat, ids.contiguous(), coords[0].contiguous(),
+            valid[0].contiguous()), G
+
+
+def cam_kernel_check(card, bc, dev):
+    """(a) The kernels over a frame's camera halves, in fp32 and bf16: the
+    dense lift over cameras 0-2 plus the lift over 3-5 against the lift over
+    0-5 (denominators equal, numerators within CAM_SPLIT_ULPS u of the
+    lift of |feat|), each half against its plain version, and the time of
+    the lift over 3 cameras against 6; the ray kernel over cameras 3-5
+    against rows 3-5 of the six-camera march, bit for bit, and against its
+    plain version."""
+    import torch
+    from vampire_tpu_torch.core import rendering as R
+    from vampire_tpu_torch.ops import lift, rays
+
+    dev = torch.device(dev)
+    (depth, feat, ids, coords, valid), G = dense_lift_frame(bc, dev)
+    u = 2.0 ** -24
+    out = dict(max_abs_err=0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace('torch.', '')
+        dep, fea = depth.to(dt), feat.to(dt)
+
+        def half(c, f=fea):
+            return lift.lift_frame_accumulate(
+                dep[c].contiguous(), f[c].contiguous(), ids[c].contiguous(),
+                coords[c].contiguous(), valid[c].contiguous(), G)
+        lo, hi = slice(0, 3), slice(3, 6)
+        whole, a, b = half(slice(0, 6)), half(lo), half(hi)
+        mag = half(slice(0, 6), fea.abs())[0]
+        err = (a[0] + b[0] - whole[0]).abs()
+        bound = CAM_SPLIT_ULPS * u * mag
+        moved = int((err > 0).sum())
+        dmis = int((a[1] + b[1] != whole[1]).sum())
+        say(f'cam lift {name}: cameras 0-2 + 3-5 against 0-5 (dense, '
+            f'G={G}): denominators differ in {dmis}, numerators in {moved} '
+            f'of {err.numel()} elements, max err {err.max().item():.3e}, '
+            f'max err / (u sum|v|) '
+            f'{(err / (u * mag).clamp_min(1e-30)).max().item():.2f} '
+            f'(bound {CAM_SPLIT_ULPS})')
+        if dmis or not bool((err <= bound).all()):
+            raise AssertionError(f'cam lift {name}: the camera halves do not '
+                                 f'sum to the frame')
+        for label, part, c in (('0-2', a, lo), ('3-5', b, hi)):
+            want = lift.lift_frame_accumulate_reference(
+                dep[c], fea[c], ids[c], coords[c], valid[c], G)
+            e = (part[0] - want[0]).abs().max().item()
+            tol = KERNEL_RTOL * max(1.0, want[0].abs().max().item())
+            if not e <= tol or int((part[1] != want[1]).sum()) > \
+                    1e-6 * want[1].numel():
+                raise AssertionError(f'cam lift {name} cameras {label}: '
+                                     f'kernel vs plain {e} > {tol}')
+            out['max_abs_err'] = max(out['max_abs_err'], e)
+            del want
+        ms3 = cuda_ms(lambda: half(lo), 20)
+        ms6 = cuda_ms(lambda: half(slice(0, 6)), 20)
+        say(f'cam lift {name}: dense lift of 3 cameras {ms3:.4f} ms, of 6 '
+            f'{ms6:.4f} ms a frame ({ms3 / ms6:.3f}) [{card}]')
+        out[name] = dict(ms_3=ms3, ms_6=ms6, moved=moved, max_err=float(
+            err.max()))
+        del whole, a, b, mag, err, bound
+    del depth, feat, coords, valid
+
+    args = ray_field(bc, dev)
+    per = args[1].shape[0] // 6
+    fp32 = rays.channels_last_field(args[0].permute(3, 0, 1, 2).float())
+    for name, field in (('bfloat16', args[0]), ('float32', fp32)):
+        full = rays.sample_and_composite_rays(field, *args[1:])
+        rest = tuple(t[3 * per:].contiguous() for t in args[1:4])
+        part = rays.sample_and_composite_rays(field, *rest, *args[4:])
+        torch.cuda.synchronize()
+        same = torch.equal(part, full[3 * per:])
+        want = R.sample_and_composite_rays_field_reference(field, *rest,
+                                                           *args[4:])
+        e = (part - want).abs().max().item()
+        tol = RAY_RTOL * max(1.0, want.abs().max().item())
+        say(f'cam rays {name}: cameras 3-5 ({part.shape[0]} rays) '
+            f'{"bit for bit" if same else "NOT"} rows 3-5 of the 6-camera '
+            f'march; against the plain version max abs err {e:.3e} (tol '
+            f'{tol:.1e})')
+        if not same or not e <= tol:
+            raise AssertionError(f'cam rays {name}: a camera subset is not '
+                                 f'its rows of the frame ({same}, {e})')
+        out['max_abs_err'] = max(out['max_abs_err'], e)
+    return out
+
+
+def cam_calibrate(batch, model):
+    """A `trainer_run` init hook: the BN statistics calibrated on the
+    global rows `batch` (`calibrate_batchnorm_`), each rank on its cameras
+    of them (`mesh.shard_batch` under the model's layout)."""
+    import numpy as np
+    import torch
+    from vampire_tpu_torch.parallel.mesh import shard_batch
+    from vampire_tpu_torch.training.train_step import split_mats
+    dev = next(model.parameters()).device
+    b = {k: torch.as_tensor(np.ascontiguousarray(v)).to(dev)
+         for k, v in shard_batch(batch, model.layout).items()}
+    calibrate_batchnorm_(model, (b['imgs'], split_mats(b), b['points']))
+
+
+def cam_phase(card, cfg=None, dev='cuda'):
+    """The camera axis: (a) `cam_kernel_check`; (b) `Trainer.fit` at dp 1
+    x cam 2 (flagship, fp32, B=1 a rank: 2 rows a global batch,
+    N_CAM_STEPS steps, then N_TIMED_STEPS timed), over NCCL on two cards
+    or as two ranks on cuda:0 over gloo, asked for by name, against one
+    process (the dense lift) on the same global batches: step 0's loss
+    terms and unclipped gradients, within SPREAD_FACTOR of a dp 2 x cam 1
+    step's (one step, the control), the fit's launches; the step time and
+    the peak memory of each rank; (c) `validate` on the 2 rows of one
+    global batch at the same layout against the one process, on the
+    initial weights with BN calibrated on another global batch."""
+    import functools
+    import gc
+    import numpy as np
+    import torch
+    from vampire_tpu_torch.configs import flagship_config, synthetic_batch
+    from vampire_tpu_torch.parallel.distributed import spawn
+    from vampire_tpu_torch.parallel._testing import trainer_run, unclipped
+
+    cfg = cfg or flagship_config()
+    cuda = dev == 'cuda'
+    t0 = time.perf_counter()
+    kern = cam_kernel_check(card, cfg.backbone, dev) if cuda else None
+    if cuda:
+        torch.cuda.empty_cache()
+    world, cam = 2, 2
+    backend = ('nccl' if torch.cuda.device_count() >= 2 else 'gloo') \
+        if cuda else 'gloo'
+    say(f'cam: Trainer.fit at dp 1 x cam 2 over {backend}'
+        f'{" (two ranks on cuda:0, asked for by name)" if cuda and backend == "gloo" else ""}'
+        f', float32, B=1 a rank ({world} rows a global batch), '
+        f'{N_CAM_STEPS} steps + {N_TIMED_STEPS} timed')
+
+    def sized(bs, nd):
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, max_epochs=1, compute_dtype='float32',
+            batch_size_per_device=bs, num_devices=nd))
+    P = cfg.train.max_points
+
+    def rows(seed, mode):       # one global batch, `world` rows
+        bs = [synthetic_batch(cfg, batch_size=1, n_points=P, seed=seed + i,
+                              mode=mode) for i in range(world)]
+        return {k: np.concatenate([b[k] for b in bs]) for k in bs[0]}
+    glob = [rows(70 + world * i, 'train') for i in range(N_CAM_STEPS)]
+    val = [rows(90, 'val')]
+    hook = functools.partial(cam_calibrate, rows(95, 'val'))
+    with tempfile.TemporaryDirectory() as wd:
+        single = trainer_run(sized(world, 1), [glob],
+                             os.path.join(wd, 'single'), device=dev,
+                             init_hook=hook, n_timed=N_TIMED_STEPS,
+                             num_devices=world, lift_vectorized=True,
+                             eval_first=True, val_batches=[val])
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ranks = spawn(trainer_run, world,
+                      (sized(1, world), [glob] * world,
+                       os.path.join(wd, 'cam'), None, None, hook,
+                       N_TIMED_STEPS, None, cam, None, None, True,
+                       [val] * world),
+                      device=dev, timeout_s=300,
+                      backend='gloo' if backend == 'gloo' else None)
+        spawn_s = time.perf_counter() - t1
+        # the control: dp 2 x cam 1, a row a rank, step 0 only
+        control = spawn(trainer_run, world,
+                        (sized(1, world), [[{k: v[r:r + 1] for k, v in
+                                             glob[0].items()}]
+                                           for r in range(world)],
+                         os.path.join(wd, 'dp'), None, None, hook, 0, None,
+                         1, True),
+                        device=dev, timeout_s=300,
+                        backend='gloo' if backend == 'gloo' else None)[0]
+    r0 = ranks[0]
+    got = [(r['rank'], r['dp_index'], r['cam_index'], r['backend'])
+           for r in ranks]
+    say(f'cam: ranks (rank, dp, cam, backend) {got}, spawned and run in '
+        f'{spawn_s:.1f} s')
+    if got != [(r, 0, r, backend) for r in range(world)]:
+        raise AssertionError(f'cam: ranks {got}')
+
+    # (b) step 0 against the one process
+    s = single['logs'][0]
+    for r in ranks[1:]:
+        if r['logs'][0] != r0['logs'][0]:
+            raise AssertionError(f'cam: rank {r["rank"]} logged '
+                                 f'{r["logs"][0]}, rank 0 {r0["logs"][0]}')
+    for k, ref in s.items():
+        if k == 'grad_norm':
+            continue
+        if not abs(r0['logs'][0][k] - ref) <= CAM_LOSS_RTOL * abs(ref) + 1e-7:
+            raise AssertionError(f'cam: step 0 {k} {r0["logs"][0][k]} vs '
+                                 f'{ref}')
+    clip = cfg.train.gradient_clip_val
+    want = unclipped(single['grads'], s['grad_norm'], clip)
+
+    def against_single(run):
+        """(median, largest, its tensor, grad_norm) of |d|/|g|."""
+        got = unclipped(run['grads'], run['logs'][0]['grad_norm'], clip)
+        rel = {}
+        for n, g in want.items():
+            ref = float(np.linalg.norm(g))
+            if ref == 0.0:
+                if np.any(got[n]):
+                    raise AssertionError(f'cam: {n} has a gradient on one '
+                                         f'side')
+                continue
+            rel[n] = float(np.linalg.norm(got[n] - g)) / ref
+        worst = max(rel, key=rel.get)
+        return (statistics.median(rel.values()), rel[worst], worst,
+                abs(run['logs'][0]['grad_norm'] - s['grad_norm'])
+                / s['grad_norm'])
+    med, big, worst, norm_rel = against_single(r0)
+    cmed, cbig, cworst, cnorm = against_single(control)
+    tol = dict(median=SPREAD_FACTOR * cmed, max=SPREAD_FACTOR * cbig,
+               norm=SPREAD_FACTOR * max(cnorm, cbig))
+    say(f'cam: step 0 total_loss {r0["logs"][0]["total_loss"]:.6f} vs '
+        f'{s["total_loss"]:.6f} (dp 2 x cam 1: '
+        f'{control["logs"][0]["total_loss"]:.6f}); unclipped gradients '
+        f'|d|/|g| against one process: median {med:.3e} (tol '
+        f'{tol["median"]:.3e}), max {big:.3e} ({worst}; tol '
+        f'{tol["max"]:.3e}), grad_norm {norm_rel:.3e} (tol '
+        f'{tol["norm"]:.3e}); the dp 2 x cam 1 control: median {cmed:.3e}, '
+        f'max {cbig:.3e} ({cworst}), grad_norm {cnorm:.3e} [{card}]')
+    if not max(cmed, cbig) <= CAM_CONTROL_MAX:
+        raise AssertionError(f'cam: the dp control moved the gradients by '
+                             f'{cmed}, {cbig}')
+    if not (med <= tol['median'] and big <= tol['max']
+            and norm_rel <= tol['norm']):
+        raise AssertionError('cam: step 0 gradients differ from one '
+                             'process beyond the dp control\'s spread')
+    cl = control['logs'][0]['total_loss']
+    if not abs(cl - s['total_loss']) <= CAM_LOSS_RTOL * abs(
+            s['total_loss']) + 1e-7:
+        raise AssertionError(f'cam: the dp control\'s loss {cl}')
+    for r in [single] + ranks:
+        for rec in r['logs']:
+            if not all(np.isfinite(v) for v in rec.values()):
+                raise AssertionError(f'cam: non-finite log {rec}')
+    # a rank lifts and marches each row of its dp block (world / dp = cam
+    # rows) once a step, over its own cameras
+    fit_want = {k: (N_CAM_STEPS * cam if k in lift_keys(cfg)
+                    + ('rays', 'rays_bwd') else 0) for k in r0['launches']}
+    say(f'cam: rank 0 fit kernel launches {r0["launches"]}')
+    if cuda and (r0['launches'] != fit_want
+                 or ranks[1]['launches'] != fit_want):
+        raise AssertionError(f'cam: fit launched {r0["launches"]}, want '
+                             f'{fit_want}')
+
+    # (c) validate on the initial weights
+    conf_one, conf_cam = single['val_conf'], r0['val_conf']
+    diff = [int(np.abs(a - b).sum()) for a, b in zip(conf_cam, conf_one)]
+    tot = [int(c.sum()) for c in conf_one]
+    say(f'cam: validate on {world} rows: mIoUs {r0["val_list"]} vs one '
+        f'process {single["val_list"]}; confusion entries moved {diff} of '
+        f'{tot} (argmax near-ties)')
+    if [int(c.sum()) for c in conf_cam] != tot or \
+            any(d > 1e-4 * t for d, t in zip(diff, tot)):
+        raise AssertionError(f'cam: validate differs from one process: '
+                             f'{diff} of {tot}')
+    for r in ranks:
+        if r['val_list'] != r0['val_list']:
+            raise AssertionError('cam: the ranks report other mIoUs')
+    times = [', '.join(f'{t:.1f}' for t in r['step_times']) for r in ranks]
+    say(f'cam step (float32, dp 1 x cam 2 over {backend}): rank medians '
+        f'{[round(r["step_ms"], 2) for r in ranks]} ms ({times}), one '
+        f'process {single["step_ms"]:.2f} ms; peak '
+        f'{[round(r["peak_gb"] or 0, 3) for r in ranks]} GB a rank, one '
+        f'process {single["peak_gb"] or 0:.3f} GB [{card}]')
+    out = dict(backend=backend, fit_launches=r0['launches'],
+               step_ms=[r['step_ms'] for r in ranks],
+               single_step_ms=single['step_ms'],
+               peak_gb=[r['peak_gb'] for r in ranks],
+               single_peak_gb=single['peak_gb'], grad_rel_median=med,
+               grad_rel_max=big, grad_norm_rel=norm_rel,
+               control_grad_rel_median=cmed, control_grad_rel_max=cbig,
+               val_moved=diff, kernels=kern,
+               wall_s=time.perf_counter() - t0)
+    del single, ranks, r0, control
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    say(f'cam: phase wall {out["wall_s"]:.1f} s')
+    return out
+
+
+def cam_launches(cam, kernel):
+    """A kernel's launches in the cam phase's fit: rank 0's."""
+    return cam['fit_launches'][kernel]
+
+
 def multi_launches(multi, kernel):
     """A kernel's launches in the multi-device phase: rank 0's fit and the
     pool's requests."""
@@ -3599,6 +3968,7 @@ def main():
     data = data_phase(card, train['step_ms'])
     var = variants_phase(card)
     multi = multi_phase(card)
+    cam = cam_phase(card)
     extras = extras_phase(card, served['ms']['full'])
     probes, pl = probe_phase(card)
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in
@@ -3626,6 +3996,9 @@ def main():
         'data_launches': data_launches(data, 'lift'),
         'variant_launches': variant_launches(var, 'lift'),
         'multi_launches': multi_launches(multi, 'lift'),
+        'cam_launches': cam_launches(cam, 'lift'),
+        'cam_split_ms': {n: {c: cam['kernels'][n][f'ms_{c}'] for c in (3, 6)}
+                         for n in ('float32', 'bfloat16')},
         'extras_launches': extras_launches(extras, 'lift'),
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
@@ -3671,6 +4044,7 @@ def main():
         'data_launches': data_launches(data, 'rays'),
         'variant_launches': variant_launches(var, 'rays'),
         'multi_launches': multi_launches(multi, 'rays'),
+        'cam_launches': cam_launches(cam, 'rays'),
         'extras_launches': extras_launches(extras, 'rays'),
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
@@ -3723,6 +4097,7 @@ def main():
         'data_launches': data_launches(data, 'lift_bwd'),
         'variant_launches': variant_launches(var, 'lift_bwd'),
         'multi_launches': multi_launches(multi, 'lift_bwd'),
+        'cam_launches': cam_launches(cam, 'lift_bwd'),
         'extras_launches': extras_launches(extras, 'lift_bwd'),
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
@@ -3825,6 +4200,7 @@ def main():
         'data_launches': data_launches(data, 'rays_bwd'),
         'variant_launches': variant_launches(var, 'rays_bwd'),
         'multi_launches': multi_launches(multi, 'rays_bwd'),
+        'cam_launches': cam_launches(cam, 'rays_bwd'),
         'extras_launches': extras_launches(extras, 'rays_bwd'),
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
@@ -3882,7 +4258,12 @@ def main():
             'dist_peak_gb', 'single_peak_gb', 'grad_rel_median',
             'grad_rel_max', 'grad_spread_median', 'grad_spread_max',
             'grad_norm_rel', 'fps_1_replica', 'fps_2_replicas', 'tcp_ms', 'direct_ms',
-            'tcp_overhead_ms', 'wall_s')}}),
+            'tcp_overhead_ms', 'wall_s')},
+        'cam': {k: cam[k] for k in (
+            'backend', 'step_ms', 'single_step_ms', 'peak_gb',
+            'single_peak_gb', 'grad_rel_median', 'grad_rel_max',
+            'grad_norm_rel', 'control_grad_rel_median',
+            'control_grad_rel_max', 'val_moved', 'wall_s')}}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -231,3 +231,27 @@ def test_cli_debug_end_to_end(tree, tmp_path):
     cli.main(common + ['-t', '--vis'])
     assert sorted(p.name for p in (exp / 'visualization').iterdir()) == [
         '0.pkl', '1.pkl']
+
+
+def test_num_devices_trains_and_validates_at_dp_1_x_cam_2(tree, tmp_path,
+                                                          capfd):
+    """`--num-devices 2` takes the JAX default mesh, dp 1 x cam 2: both
+    gloo ranks load the global batch's rows (`make_loader` over the dp
+    size) and split its cameras. fit trains an epoch, rank 0 alone writes
+    the logs and the checkpoint, and `-v` validates it at the same layout
+    (tests/test_torch_parallel_cam.py holds the layout's numbers)."""
+    wd = tmp_path / 'out'
+    common = ['--debug', '--num-devices', '2', '-b', '1', '--data-root',
+              str(tree), '--workdir', str(wd), '--num-workers', '1']
+    cli.main(common + ['--max-epochs', '1', '--no-resume'])
+    out = capfd.readouterr().out
+    assert out.count('ranks: dp 1 x cam 2') == 1
+    exp = wd / tiny_config().train.exp_name
+    assert [p.name for p in (exp / 'checkpoints').iterdir()] == ['0.pt']
+    rows = [json.loads(ln) for ln in
+            (exp / 'scalars.jsonl').read_text().splitlines()]
+    assert [r['step'] for r in rows if 'total_loss' in r] == [1]
+    assert all(np.isfinite(v) for r in rows for v in r.values())
+    cli.main(common + ['-v'])
+    out = capfd.readouterr().out
+    assert 'ranks: dp 1 x cam 2' in out and 'Current val miou' in out

@@ -24,6 +24,7 @@ leaked = sorted(k for k in sys.modules
                 if k.split('.')[0] in BLOCKED and sys.modules[k] is not None)
 assert not leaked, leaked
 print(len(mods))
+print(' '.join(mods))
 '''
 
 
@@ -33,10 +34,14 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     # core/3, models/6, ops/9 (_build, lift, tables, rays, lovasz, nms,
-    # target_assign, gather_probe, msssim), serving/1, training/5, tools/3
-    # (stage_split, gather_probe, grad_spread), data/4
-    # (synthetic, transforms, fake, nuscenes), evaluation/3 (nusc_metric,
-    # det_evaluator, lidarseg), utils/3 (vis, torch_weights, profiling),
-    # exps/5 (the experiment entries), parallel/2 (distributed, _testing),
-    # configs, weights, cli, and the 11 packages
-    assert int(proc.stdout.strip()) >= 58, proc.stdout
+    # target_assign, gather_probe, msssim), serving/1, training/5, tools/7
+    # (stage_split, gather_probe, grad_spread, lift_bilinear, lift_variants,
+    # ray_stop, visualize_preds), data/4 (synthetic, transforms, fake,
+    # nuscenes), evaluation/3 (nusc_metric, det_evaluator, lidarseg),
+    # utils/3 (vis, torch_weights, profiling), exps/5 (the experiment
+    # entries), parallel/3 (distributed, _testing, mesh), configs, weights,
+    # cli, and the 11 packages
+    count, names = proc.stdout.strip().split('\n')
+    assert int(count) >= 63, proc.stdout
+    for m in ('parallel.mesh', 'tools.visualize_preds'):
+        assert f'vampire_tpu_torch.{m}' in names.split(), m

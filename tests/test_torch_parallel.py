@@ -109,9 +109,11 @@ def runs(tree, tmp_path_factory):
     # makes the ranks start equal
     cfgs = [_cfg(2), dataclasses.replace(_cfg(2), train=dataclasses.replace(
         _cfg(2).train, seed=_cfg(2).train.seed + 1))]
+    # cam=1: the dp layout, each rank all cameras of its row (the default
+    # layout of a world of 2 splits the cameras: test_torch_parallel_cam.py)
     two = distributed.spawn(
         trainer_run, 2, (cfgs, [[rows[0]], [rows[1]]], str(two_dir),
-                         str(tree), None, zero_density_bias),
+                         str(tree), None, zero_density_bias, 0, None, 1),
         device='cpu', timeout_s=600)
     exp = tiny_config().train.exp_name
     return dict(rows=rows, one=one, two=two, lr=_cfg(1).train.lr,

@@ -17,15 +17,17 @@ ResNet .pth of the backbone's depth onto the image backbone at init
 (`utils/torch_weights.py`; depth 10, the tiny config's, has none and
 raises KeyError, as in the JAX package).
 
-Data parallel, one process a device (`parallel/distributed.py`):
+Many devices, one process a device (`parallel/distributed.py`):
   torchrun --nproc-per-node N -m vampire_tpu_torch.cli --exp ...
 joins the process group that torchrun's environment describes, each rank
 on cuda:LOCAL_RANK (gloo with `--device cpu`); and in a plain run
   python -m vampire_tpu_torch.cli --num-devices N --exp ...
 starts the N ranks itself, on cuda:0..N-1 (N gloo ranks with `--device
-cpu` or `--debug`). Each rank loads its (rank, world) block of every
-global batch of batch_size_per_device * N rows; the step is the JAX
-package's global-batch step.
+cpu` or `--debug`). The ranks take the JAX `default_mesh` layout
+(`parallel/mesh.py`): dp = N / 2 x cam = 2 where N is even, else dp = N.
+Each dp index loads its block of every global batch of
+batch_size_per_device * N rows, and each rank of it keeps its share of
+the cameras; the step is the JAX package's global-batch step.
 
 Defaults mirror the reference trainer config (base_cli.py:69-92): bf16
 compute with fp32 islands (the reference uses fp16 AMP), grad clip 35, val
@@ -116,12 +118,21 @@ def experiment_config(args):
 
 
 def make_loader(cfg, data_root: str, split: str, mode: str, shuffle: bool,
-                num_workers: int = 4, seed: int = 0):
-    """The DataLoader of one split for this rank: its (rank, world) block of
-    every global batch of batch_size_per_device * world rows."""
+                num_workers: int = 4, seed: int = 0, layout=None):
+    """The DataLoader of one split for this rank: its dp index's block of
+    every global batch of batch_size_per_device * world rows, split over
+    the dp size (the ranks of a cam group load the same rows, and
+    `Trainer.to_device` keeps each one's cameras). `layout`: the ranks'
+    (`Trainer.layout`); None: the coordinates of the default layout."""
     from .configs import DET_CLASSES
     from .data.nuscenes import DataLoader, NuscDetSegDataset
     from .parallel.distributed import rank, world_size
+    from .parallel.mesh import coords, default_shape
+    if layout is None:
+        dp, cam = default_shape(world_size())
+        dp_index = coords(rank(), cam)[0]
+    else:
+        dp, cam, dp_index = layout.dp, layout.cam, layout.dp_index
     # the test split has no Occ3D labels (base_exp.py:313-314)
     name = ('nuscenes_infos_test.pkl' if split == 'test'
             else f'nuscenes_occ_infos_{split}.pkl')
@@ -138,10 +149,10 @@ def make_loader(cfg, data_root: str, split: str, mode: str, shuffle: bool,
     # DDP gather to the dataset length, base_exp.py:920-927); only the
     # train loader drops the ragged tail, and the last global batch of the
     # others is padded (sample_valid)
-    return DataLoader(ds, batch_size=cfg.train.batch_size_per_device,
+    return DataLoader(ds, batch_size=cfg.train.batch_size_per_device * cam,
                       shuffle=shuffle, num_workers=num_workers,
                       seed=seed, drop_last=(mode == 'train'),
-                      rank=rank(), world_size=world_size())
+                      rank=dp_index, world_size=dp)
 
 
 def main(argv=None):
@@ -167,7 +178,7 @@ def _rank_main(argv):
 
 def run(args):
     """One process of the run (the only one, or one rank of a group)."""
-    from .parallel.distributed import initialize, world_size
+    from .parallel.distributed import initialize, is_main_process, world_size
     from .training.trainer import Trainer
 
     device = initialize('cpu' if args.debug else args.device)
@@ -176,10 +187,13 @@ def run(args):
                          f'{world_size()} ranks (torchrun sets the world)')
     cfg = experiment_config(args)
     trainer = Trainer(cfg, workdir=args.workdir, device=device)
+    if world_size() > 1 and is_main_process():
+        print(f'ranks: dp {trainer.layout.dp} x cam {trainer.layout.cam}',
+              flush=True)
 
     def split_loader(split, mode, shuffle):
         return make_loader(cfg, args.data_root, split, mode, shuffle,
-                           args.num_workers, args.seed)
+                           args.num_workers, args.seed, trainer.layout)
 
     if args.validate or args.test or args.predict:
         split = 'val' if not args.predict else 'test'

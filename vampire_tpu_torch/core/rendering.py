@@ -26,7 +26,7 @@ marched whole.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -496,7 +496,8 @@ def _covered(rank, caps, first, chunk, S_n):
 
 
 def compact_valid(valid: torch.Tensor, chunk: int,
-                  pass_fracs: Sequence[float]) -> torch.Tensor:
+                  pass_fracs: Sequence[float],
+                  split: Optional[Callable] = None) -> torch.Tensor:
     """The validity under which the dense march computes the JAX train-mode
     `sample_and_composite_rays_compact` (vampire_tpu/core/rendering.py:240),
     forward and backward: valid * (s < processed[rank]), fp32 (R, S).
@@ -508,22 +509,32 @@ def compact_valid(valid: torch.Tensor, chunk: int,
     density of a zero sample with no value, which is what the march gives a
     sample whose valid is 0. So only the samples from `processed` on
     change, and only where they lie in the field (s < L), i.e. where a cap
-    does not cover the ray's in-field prefix."""
+    does not cover the ray's in-field prefix.
+
+    split: where `valid` holds a part of a frame's rays (its cameras split
+    over the ranks of a cam group, `parallel.mesh.ray_split`), the function
+    that gives the frame's rows of a per-ray tensor and this part's first
+    row: the sort and the caps are then the whole frame's."""
     R_, S_n = valid.shape
     n_pass = -(-S_n // chunk)
     if len(pass_fracs) != n_pass:
         raise ValueError(f'ray_pass_fracs has {len(pass_fracs)} entries but '
                          f'the ray axis makes {n_pass} passes (S={S_n}, '
                          f'chunk={chunk})')
-    rank = _ranks(-ray_lengths(valid))
-    processed = _covered(rank, pass_caps(pass_fracs, R_), 0, chunk, S_n)
+    lengths, first = ray_lengths(valid), 0
+    if split is not None:
+        lengths, first = split(lengths)
+    rank = _ranks(-lengths)
+    processed = _covered(rank, pass_caps(pass_fracs, len(lengths)), 0,
+                         chunk, S_n)[first:first + R_]
     s_idx = torch.arange(S_n, device=valid.device)
     return valid.to(torch.float32) * (s_idx[None, :]
                                       < processed[:, None]).to(torch.float32)
 
 
 def earlyterm_stops(sd_prefix: torch.Tensor, valid: torch.Tensor,
-                    chunk: int, prefix: int, caps_fracs: Sequence[float]
+                    chunk: int, prefix: int, caps_fracs: Sequence[float],
+                    split: Optional[Callable] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The per-ray stops of the JAX `sample_and_composite_rays_earlyterm`
     (vampire_tpu/core/rendering.py:331), from each ray's optical depth over
@@ -539,26 +550,32 @@ def earlyterm_stops(sd_prefix: torch.Tensor, valid: torch.Tensor,
     samples get closed-form fog, so it is the dense ray. Returns
     (stop (R,) int32: S for an exited ray, else prefix * chunk plus the
     samples of the passes whose cap covers its rank; exited (R,) bool;
-    misses (R,) int32, the passes whose cap the ray's rank misses)."""
+    misses (R,) int32, the passes whose cap the ray's rank misses).
+    `split`: as `compact_valid`'s; the sort and the caps are the whole
+    frame's, the results this part's rays'."""
     R_, S_n = valid.shape
     n_pass = -(-S_n // chunk)
     if not 0 < prefix <= n_pass or len(caps_fracs) != n_pass - prefix:
         raise ValueError(f'ray_et_fracs has {len(caps_fracs)} entries but '
                          f'needs {n_pass - prefix} (S={S_n}, chunk={chunk}, '
                          f'prefix={prefix})')
-    exited = ray_lengths(valid) <= prefix * chunk
-    key = sd_prefix.to(torch.float32) + torch.where(
+    lengths, sd, first = ray_lengths(valid), sd_prefix.to(torch.float32), 0
+    if split is not None:
+        (lengths, first), (sd, _) = split(lengths), split(sd)
+    exited = lengths <= prefix * chunk
+    key = sd + torch.where(
         exited, torch.tensor(1e9, dtype=torch.float32, device=valid.device),
         torch.tensor(0.0, dtype=torch.float32, device=valid.device))
     rank = _ranks(key)
-    caps = pass_caps(caps_fracs, R_)
+    caps = pass_caps(caps_fracs, len(key))
     stop = min(S_n, prefix * chunk) + _covered(rank, caps, prefix, chunk,
                                                S_n)
     stop = torch.where(exited, S_n, stop).to(torch.int32)
     misses = torch.zeros_like(rank)
     for cap in caps:
         misses = misses + (rank >= cap).to(misses.dtype)
-    return stop, exited, misses.to(torch.int32)
+    part = slice(first, first + R_)
+    return stop[part], exited[part], misses.to(torch.int32)[part]
 
 
 def earlyterm_uncovered_drops(sd_stop: torch.Tensor, exited: torch.Tensor,

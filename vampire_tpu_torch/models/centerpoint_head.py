@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 
 from ..configs import HeadConfig
-from ..parallel.distributed import all_reduce_sum
+from ..parallel.distributed import all_reduce_sum, group_size, world_size
 from .resnet import Conv2d, ConvBN, ResNet
 from .second_fpn import SECONDFPN
 
@@ -103,7 +103,7 @@ def gaussian_focal_loss(pred: torch.Tensor, gt: torch.Tensor,
 
 def detection_loss(preds: List[Dict[str, torch.Tensor]],
                    targets: Dict[str, torch.Tensor], cfg: HeadConfig,
-                   num_devices: int = 1) -> torch.Tensor:
+                   num_devices: int = 1, group=None) -> torch.Tensor:
     """Sum over tasks of the heatmap focal loss and the weighted L1 box
     loss, in fp32.
 
@@ -115,7 +115,11 @@ def detection_loss(preds: List[Dict[str, torch.Tensor]],
     1e-4 * num_devices): the reference's reduce_mean floors written as one
     global loss. Under a process group num_pos and num_boxes are the global
     batch's (one all-reduce) and each rank returns its share: its rows'
-    sums over the global normalisers.
+    sums over the global normalisers. `group` (None: the world) holds the
+    ranks whose rows make the global batch: the dp group of a dp x cam
+    layout, whose cam groups hold the same rows (`parallel/mesh.py`); each
+    copy's share is divided by the copies, so that the world's sum counts
+    it once.
     """
     total = torch.zeros((), dtype=torch.float32,
                         device=preds[0]['heatmap'].device)
@@ -126,7 +130,7 @@ def detection_loss(preds: List[Dict[str, torch.Tensor]],
     masks = [targets[f'mask_{t}'].to(torch.float32) for t in range(T)]
     counts = all_reduce_sum(torch.stack(
         [torch.sum((g == 1.0).to(torch.float32)) for g in hm_gts]
-        + [torch.sum(m) for m in masks]))
+        + [torch.sum(m) for m in masks]), group)
     for t, pd in enumerate(preds):
         hm_pred = clip_sigmoid(pd['heatmap'])
         cls_avg = torch.clamp(counts[t], min=float(num_devices))
@@ -145,7 +149,8 @@ def detection_loss(preds: List[Dict[str, torch.Tensor]],
         num = torch.clamp(counts[T + t], min=1e-4 * float(num_devices))
         l1 = torch.sum(torch.abs(pred_box - tgt_box) * w) / num
         total = total + cfg.loss_bbox_weight * l1
-    return total
+    copies = world_size() // group_size(group)
+    return total / copies if copies > 1 else total
 
 
 def decode_preds(preds: List[Dict[str, torch.Tensor]], cfg: HeadConfig

@@ -20,6 +20,13 @@ the port builds only in its kernel checks (`ops/tables.py`). The two
 kernels' ops are `torch.autograd.Function`s with backward kernels, so the
 same forward trains (`training/`).
 
+Under a dp x cam layout (`parallel/mesh.py`, set by `Vampire.use_layout`)
+the rank holds its part of each frame's cameras: it encodes them, lifts
+them with the dense lift (`lift_vectorized`, the JAX module's field) into
+partial sums that the cam group adds (`lift`), runs the trunk and the heads
+on the whole field as every rank of its cam group does, and renders the
+rays of its own cameras, whose pass samplers sort the whole frame's rays.
+
 Layouts: inputs and outputs keep the JAX package's layouts (channels-last
 images, (B, Z, Y, X) ordering, occ as (B, X, Y, Z, K)); inside, tensors are
 channels-first as torch convolutions want them.
@@ -42,6 +49,8 @@ from ..core import rendering as R
 from ..core import sampling as S
 from ..ops import lift as lift_ops
 from ..ops import rays as ray_ops
+from ..parallel.distributed import all_reduce_sum
+from ..parallel.mesh import SINGLE, Layout, ray_split
 from .resnet import Conv2d, ResNet
 from .second_fpn import SECONDFPN
 from .unet3d import Conv3d, ConvSoftplus3D, Unet3D
@@ -51,15 +60,18 @@ VARIANTS = ('vampire2', 'lss', 'lss_inpaintor', 'bilinear')
 VIEW_KEYS = ('sensor2ego', 'intrin', 'ida')
 
 
-def lift_layout(c: BackboneConfig) -> Tuple[int, bool]:
+def lift_layout(c: BackboneConfig,
+                dense: bool = False) -> Tuple[int, bool]:
     """(block size, compact) of the lift. The block-compacted lift, as the
     JAX package runs it, where lift_block and lift_block_topk are set and
-    the block divides the (Y, X) plane; else the dense lift, as every block
-    selected by every camera at the largest of 8, 4, 2 and 1 that divides
-    Y and X and keeps the block count under the kernel's 2^16."""
+    the block divides the (Y, X) plane, unless `dense` (the JAX
+    `lift_vectorized`); else the dense lift, as every block selected by
+    every camera at the largest of 8, 4, 2 and 1 that divides Y and X and
+    keeps the block count under the kernel's 2^16."""
     _, Y, X = c.grid_zyx('seg')
     blk = c.lift_block
-    if blk and c.lift_block_topk and not Y % blk and not X % blk:
+    if not dense and blk and c.lift_block_topk and not Y % blk \
+            and not X % blk:
         return blk, True
     for blk in (8, 4, 2, 1):
         if not Y % blk and not X % blk and (Y // blk) * (X // blk) < 2 ** 16:
@@ -134,10 +146,15 @@ def _norm1d(centers, bound):
 
 
 class FieldBackbone(nn.Module):
-    """Camera images -> ego 3D feature field -> metric outputs."""
+    """Camera images -> ego 3D feature field -> metric outputs.
+
+    lift_vectorized: the JAX module's field of that name, which keeps the
+    camera axis so that a camera-sharded mesh sums it by a collective: here
+    the dense lift (`lift_layout(dense=True)`), whatever the config's
+    blocks. A layout that splits the cameras needs it (`layout`)."""
 
     def __init__(self, cfg: BackboneConfig, dtype=torch.float32,
-                 device=None):
+                 device=None, lift_vectorized: bool = False):
         super().__init__()
         c = cfg
         if c.variant not in VARIANTS:
@@ -158,7 +175,9 @@ class FieldBackbone(nn.Module):
                 name, torch.as_tensor(np.ascontiguousarray(a), device=device),
                 persistent=False)
 
-        self.lift_block, self.lift_compact = lift_layout(c)
+        self.lift_vectorized = lift_vectorized
+        self.lift_block, self.lift_compact = lift_layout(c, lift_vectorized)
+        self._layout = SINGLE
         buf('voxel_coords_bm', block_major_voxels(c, self.lift_block))
         buf('norm_voxel_coords', G.make_norm_voxel_coords(
             c.x_bound_seg, c.y_bound_seg, c.z_bound_seg).transpose(3, 0, 1, 2))
@@ -221,6 +240,20 @@ class FieldBackbone(nn.Module):
                                    **kw)
 
     # ------------------------------------------------------------------
+    @property
+    def layout(self) -> Layout:
+        """The dp x cam layout the forward runs under (`parallel/mesh.py`);
+        one that splits the cameras needs `lift_vectorized`."""
+        return self._layout
+
+    @layout.setter
+    def layout(self, layout: Layout) -> None:
+        if layout.cam > 1 and not self.lift_vectorized:
+            raise ValueError('a layout that splits the cameras sums the '
+                             'lift over them: build the model with '
+                             'lift_vectorized=True')
+        self._layout = layout
+
     def _density(self, x):
         return R.density(x, self.cfg.density_mode, self.density_beta,
                          self.cfg.sdf_bias)
@@ -240,7 +273,11 @@ class FieldBackbone(nn.Module):
         into block-major (G, Q, C) accumulators. With a `diagnostics` dict,
         the compacted lift puts there `lift_dropped_blocks`: the blocks that
         hold a valid query and that the top-K dropped, summed over (B, N),
-        the JAX package's sown diagnostic. Returns (B, C, Z, Y, X) fp32.
+        the JAX package's sown diagnostic. Where the layout splits the
+        cameras, feat, depth and mats hold this rank's, and the partial sums
+        are added over the cam group (`all_reduce_sum`, whose backward adds
+        the field's cotangent over it) before the masked mean. Returns
+        (B, C, Z, Y, X) fp32.
         """
         c = self.cfg
         Z, Y, X = c.grid_zyx('seg')
@@ -271,6 +308,14 @@ class FieldBackbone(nn.Module):
             feat[b].contiguous(), ids[b].contiguous(), coords[b].contiguous(),
             valid[b].contiguous(), Gn, plain)
             for b in range(B)]
+        if self.layout.split_cameras:
+            # the cameras' sums over the cam group; the denominator takes
+            # no gradient, as the lift gives it none
+            group = self.layout.cam_group
+            numer = all_reduce_sum(torch.stack([n for n, _ in accs]), group)
+            denom = all_reduce_sum(torch.stack([d for _, d in accs]).detach(),
+                                   group)
+            accs = list(zip(numer.unbind(), denom.unbind()))
         return self._masked_mean(accs)
 
     def _masked_mean(self, accs) -> torch.Tensor:
@@ -376,7 +421,10 @@ class FieldBackbone(nn.Module):
         the early-termination sampler (`ray_ops.render_rays_earlyterm`,
         forward only), whose coverage diagnostic, summed over the frames,
         goes into `diagnostics['ray_et_uncovered_drops']`; the dense march
-        otherwise."""
+        otherwise. Where the layout splits the cameras, the rays are this
+        rank's cameras', the two pass samplers sort each frame's rays over
+        the cam group (`parallel.mesh.ray_split`) and the diagnostic is the
+        group's sum."""
         c = self.cfg
         K = c.num_classes
         Snum = self.frustum.shape[0] - 1    # samples: all planes but the last
@@ -400,23 +448,28 @@ class FieldBackbone(nn.Module):
         B, N, _, fh, fw = geom.shape[:5]
         use_compact = bool(self.training and c.ray_pass_fracs)
         use_et = bool((not self.training) and c.ray_et_fracs)
+        split = ray_split(self.layout)
         outs, drops = [], []
         for b, f in enumerate(fields):
             args = (f, coords[b],
-                    (R.compact_valid(valid[b], c.ray_chunk, c.ray_pass_fracs)
+                    (R.compact_valid(valid[b], c.ray_chunk, c.ray_pass_fracs,
+                                     split)
                      if use_compact else valid[b]),
                     delta[b], self.camera_mids, c.d_bound[1], c.density_mode,
                     self.density_beta, c.sdf_bias)
             if use_et:
                 out, diag = ray_ops.render_rays_earlyterm(
                     *args, c.ray_et_chunk, c.ray_et_prefix, c.ray_et_fracs,
-                    c.ray_et_tau, plain)
+                    c.ray_et_tau, plain, split)
                 drops.append(diag)
             else:
                 out = ray_ops.render_rays(*args, plain)
             outs.append(out)
         if use_et and diagnostics is not None:
-            diagnostics['ray_et_uncovered_drops'] = torch.stack(drops).sum()
+            drops = torch.stack(drops).sum()
+            if split is not None:
+                drops = all_reduce_sum(drops, self.layout.cam_group)
+            diagnostics['ray_et_uncovered_drops'] = drops
         out = torch.stack(outs).reshape(B, N, fh, fw, K + 4)
         up = c.upsample_factor
         size = (fh * up, fw * up)

@@ -11,7 +11,8 @@ in fp32, and the result is cast back to `dtype`. In train mode BatchNorm
 normalises with the batch statistics and updates its running ones as flax
 does (`BatchNorm2d`); under a process group those statistics are the
 global batch's, as the JAX package's step, written over the global batch,
-takes them.
+takes them: over the world, or over a BatchNorm's `group` (the dp group of
+a dp x cam layout, for the layers after the lift, `parallel/mesh.py`).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.distributed import all_reduce_sum, world_size
+from ..parallel.distributed import all_reduce_sum, group_size
 
 
 class Conv2d(nn.Conv2d):
@@ -44,16 +45,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     the unbiased one), running = (1 - momentum) * running + momentum *
     batch, with torch's `momentum` = 1 - flax's. Eval mode is torch's.
 
-    In a world of more than one rank the train-mode statistics are those of
-    every rank's rows together (`global_var_mean`), and every rank applies
-    the same running update; a world of one computes them as one process
-    does, so that it steps exactly as one process."""
+    Over more than one rank the train-mode statistics are those of every
+    rank's rows together (`global_var_mean`), and every rank applies the
+    same running update; the ranks are the world's, or those of `group`
+    where it is set (`Vampire.use_layout`). One rank computes them as one
+    process does, so that it steps exactly as one process."""
+
+    group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if world_size() > 1:
-            var, mean = global_var_mean(x)
+        if group_size(self.group) > 1:
+            var, mean = global_var_mean(x, self.group)
         else:
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
         with torch.no_grad():
@@ -66,18 +70,19 @@ class BatchNorm2d(nn.BatchNorm2d):
                 + self.bias[None, :, None, None])
 
 
-def global_var_mean(x: torch.Tensor):
-    """(biased variance, mean) per channel of (B, C, H, W) rows over every
-    rank, as one process computes them over the concatenated rows: two
-    differentiable all-reduces, the sums and the counts first, then the
-    centred second moments (not E[x^2] - mean^2, which cancels in fp32)."""
+def global_var_mean(x: torch.Tensor, group=None):
+    """(biased variance, mean) per channel of (B, C, H, W) rows over the
+    ranks of `group` (None: the world), as one process computes them over
+    the concatenated rows: two differentiable all-reduces, the sums and the
+    counts first, then the centred second moments (not E[x^2] - mean^2,
+    which cancels in fp32)."""
     n = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype,
                    device=x.device)
-    s = all_reduce_sum(torch.cat([torch.sum(x, dim=(0, 2, 3)), n]))
+    s = all_reduce_sum(torch.cat([torch.sum(x, dim=(0, 2, 3)), n]), group)
     count = s[-1].detach()
     mean = s[:-1] / count
     d = x - mean[None, :, None, None]
-    var = all_reduce_sum(torch.sum(d * d, dim=(0, 2, 3))) / count
+    var = all_reduce_sum(torch.sum(d * d, dim=(0, 2, 3)), group) / count
     return var, mean
 
 

@@ -8,14 +8,19 @@ import torch
 import torch.nn as nn
 
 from ..configs import BackboneConfig, HeadConfig
+from ..parallel.mesh import Layout
 from .centerpoint_head import BEVDepthHead
 from .field import FieldBackbone
+from .resnet import BatchNorm2d
 
 
 class Vampire(nn.Module):
+    """lift_vectorized: the JAX module's field of that name: the dense lift,
+    which a layout that splits the cameras needs (`use_layout`)."""
 
     def __init__(self, backbone_cfg: BackboneConfig, head_cfg: HeadConfig,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 lift_vectorized: bool = False):
         super().__init__()
         # the backbone's BEV feature (det grid, halved iff oY == 256) must
         # land on the head's expected map size
@@ -27,8 +32,25 @@ class Vampire(nn.Module):
                 f'{head_cfg.feature_map_size} (x/y_bound_det vs '
                 f'grid_size/out_size_factor)')
         self.backbone = FieldBackbone(backbone_cfg, dtype=dtype,
-                                      device=device)
+                                      device=device,
+                                      lift_vectorized=lift_vectorized)
         self.head = BEVDepthHead(head_cfg, device=device)
+
+    @property
+    def layout(self) -> Layout:
+        return self.backbone.layout
+
+    def use_layout(self, layout: Layout) -> 'Vampire':
+        """Run under a dp x cam layout (`parallel/mesh.py`): the field sums
+        its lift over the cam group and renders this rank's cameras, and
+        the detection head's BatchNorm, after the lift, takes its
+        statistics over the dp group (the image encoder's, over the world).
+        Returns the model."""
+        self.backbone.layout = layout
+        for m in self.head.modules():
+            if isinstance(m, BatchNorm2d):
+                m.group = layout.dp_group
+        return self
 
     def forward(self, imgs, mats, points=None, lidar_seg: bool = False,
                 camera_renders: bool = True, plain: bool = False,

@@ -16,7 +16,10 @@ JAX step takes them: every rank's rows are gathered in rank order
 of errors, and each rank returns its share, the loss over the world size.
 The gather's backward sums each rank's gradient of the gathered rows over
 the ranks, so the shares' gradients, summed over the ranks, are the
-one-process gradient on the concatenated batch.
+one-process gradient on the concatenated batch. A term that the ranks of
+a cam group hold alike (`parallel/mesh.py`) gathers over the dp `group`
+only; its share is still the loss over the world size, so the world's
+sum counts it once.
 
 Plain PyTorch: no kernel of the JAX package lives here.
 """
@@ -27,7 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.distributed import active, all_gather_rows, world_size
+from ..parallel.distributed import all_gather_rows, group_size, world_size
 
 
 def _lovasz_grad(gt_sorted: torch.Tensor) -> torch.Tensor:
@@ -87,18 +90,22 @@ def _ce_lovasz(logits, labels, valid):
 
 
 def ce_lovasz(logits: torch.Tensor, labels: torch.Tensor,
-              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+              valid: Optional[torch.Tensor] = None,
+              group=None) -> torch.Tensor:
     """The reference's seg loss pairing: CE + Lovász(softmax probs); under
-    a process group, this rank's share of it over the gathered rows."""
-    if not active():
+    a process group, this rank's share of it over the rows gathered from
+    `group` (None: the world)."""
+    if world_size() == 1:
         return _ce_lovasz(logits, labels, valid)
-    valid = None if valid is None else all_gather_rows(valid)
-    return _ce_lovasz(all_gather_rows(logits), all_gather_rows(labels),
-                      valid) / world_size()
+    if group_size(group) > 1:
+        valid = None if valid is None else all_gather_rows(valid, group)
+        logits = all_gather_rows(logits, group)
+        labels = all_gather_rows(labels, group)
+    return _ce_lovasz(logits, labels, valid) / world_size()
 
 
 def ce_lovasz_compact(logits: torch.Tensor, labels: torch.Tensor,
-                      valid: torch.Tensor) -> torch.Tensor:
+                      valid: torch.Tensor, group=None) -> torch.Tensor:
     """`ce_lovasz` on the valid rows only: the same value, with the sorts
     over the valid rows instead of all P (the camera seg mask covers ~2 %
     of the pixels). The JAX package compacts to a static cap for its
@@ -106,8 +113,9 @@ def ce_lovasz_compact(logits: torch.Tensor, labels: torch.Tensor,
     once for the count)."""
     idx = torch.nonzero(valid.reshape(-1), as_tuple=True)[0]
     logits, labels = logits.index_select(0, idx), labels.index_select(0, idx)
-    if active():            # every rank's valid rows, in rank order
-        logits, labels = all_gather_rows(logits), all_gather_rows(labels)
+    if group_size(group) > 1:   # the group's valid rows, in rank order
+        logits = all_gather_rows(logits, group)
+        labels = all_gather_rows(labels, group)
     ones = torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
     # no valid row: 0, as ce_lovasz gives
     return _ce_lovasz(logits, labels, ones) / world_size()

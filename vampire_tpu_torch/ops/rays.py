@@ -594,18 +594,21 @@ class RenderRays(torch.autograd.Function):
 
 
 def earlyterm_march(first: Callable, then: Callable, args: tuple,
-                    chunk: int, prefix: int, caps_fracs, tau: float):
+                    chunk: int, prefix: int, caps_fracs, tau: float,
+                    split: Optional[Callable] = None):
     """The early-termination sampler over the arguments `args` of
     `sample_and_composite_rays`: `first(*args, n)` gives each ray's carried
     state over its first n = prefix * chunk samples (the prefix launch, or
     its plain version), whose optical depth decides the stops once; then
     `then(*args, state, n, stop)` resumes each ray to its stop. Returns
-    (the (R, 3 + K + 1) renders, the coverage diagnostic, the stops)."""
+    (the (R, 3 + K + 1) renders, the coverage diagnostic of these rays,
+    the stops). `split`: where the rays are a part of a frame's, as
+    `core.rendering.earlyterm_stops` takes it."""
     valid = args[2]
     n = min(valid.shape[1], prefix * chunk)
     state = first(*args, n)
     stop, exited, misses = R.earlyterm_stops(state[:, -1], valid, chunk,
-                                             prefix, caps_fracs)
+                                             prefix, caps_fracs, split)
     out, sd = then(*args, state, n, stop)
     return out, R.earlyterm_uncovered_drops(sd, exited, misses, tau), stop
 
@@ -621,7 +624,7 @@ class RenderRaysEarlyTerm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, field, beta, coords, valid, deltas, mids, bg_depth,
                 density_mode, sdf_bias, chunk, prefix, caps_fracs, tau,
-                plain):
+                plain, split):
         if plain:
             first = R.sample_and_composite_rays_field_prefix_reference
             then = R.sample_and_composite_rays_field_resume_reference
@@ -631,7 +634,7 @@ class RenderRaysEarlyTerm(torch.autograd.Function):
         out, diag, _ = earlyterm_march(
             first, then, (field, coords, valid, deltas, mids, bg_depth,
                           density_mode, beta, sdf_bias),
-            chunk, prefix, caps_fracs, tau)
+            chunk, prefix, caps_fracs, tau, split)
         ctx.mark_non_differentiable(diag)
         return out, diag
 
@@ -648,16 +651,19 @@ def render_rays_earlyterm(field: torch.Tensor, coords: torch.Tensor,
                           mids: torch.Tensor, bg_depth: float,
                           density_mode: str, beta: torch.Tensor,
                           sdf_bias: float, chunk: int, prefix: int,
-                          caps_fracs, tau: float, plain: bool = False):
+                          caps_fracs, tau: float, plain: bool = False,
+                          split: Optional[Callable] = None):
     """The JAX `sample_and_composite_rays_earlyterm` with `return_diag`
     (`render_rays`' arguments, then ray_et_chunk, ray_et_prefix,
     ray_et_fracs, ray_et_tau): ((R, 3 + K + 1) fp32 renders, int64 0-dim
-    count of uncovered drops). `plain` runs both passes through the plain
-    version."""
+    count of uncovered drops among these rays). `plain` runs both passes
+    through the plain version. `split`: where the rays are this rank's
+    cameras of a frame (`parallel.mesh.ray_split`), the stops come from the
+    frame's sort (`core.rendering.earlyterm_stops`)."""
     return RenderRaysEarlyTerm.apply(
         field, beta, coords, valid, deltas, mids, float(bg_depth),
         density_mode, float(sdf_bias), int(chunk), int(prefix),
-        tuple(caps_fracs), float(tau), plain)
+        tuple(caps_fracs), float(tau), plain, split)
 
 
 def render_rays(field: torch.Tensor, coords: torch.Tensor,

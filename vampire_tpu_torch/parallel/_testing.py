@@ -12,6 +12,10 @@ test module (and so no jax). No entry point of the port calls it.
     from vampire_tpu_torch.parallel._testing import trainer_run
     ranks = spawn(trainer_run, 2, (cfg, [[row_a], [row_b]], workdir),
                   device='cpu', timeout_s=600)
+
+The ranks take `cam` (a dp x cam layout of the world, `parallel/mesh.py`;
+None: the default layout); each rank's batches are its dp index's rows,
+with every camera: `Trainer.to_device` keeps its own.
 """
 from __future__ import annotations
 
@@ -27,9 +31,12 @@ import numpy as np
 import torch
 
 from ..ops import launch_counts, reset_launch_counts
-from ..training.train_step import build_train_step, init_train_confusion
+from ..training.train_step import (build_metric_eval_step,
+                                   build_train_step, init_train_confusion,
+                                   split_mats)
 from ..training.trainer import Trainer
 from .distributed import active, rank, rank_device, world_size
+from .mesh import make_layout
 
 
 class _RecordingTrainer(Trainer):
@@ -59,7 +66,12 @@ def _numpy(tensors):
 def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
                 data_root: Optional[str] = None, device=None,
                 init_hook: Optional[Callable] = None, n_timed: int = 0,
-                num_devices: Optional[int] = None) -> dict:
+                num_devices: Optional[int] = None, cam: Optional[int] = None,
+                lift_vectorized: Optional[bool] = None,
+                forward: Optional[Sequence[dict]] = None,
+                eval_first: bool = False,
+                val_batches: Optional[Sequence[Sequence[dict]]] = None,
+                image_every: int = 500) -> dict:
     """This rank's run of `Trainer`: `init_state`, `fit` over its batches
     (`batches_by_rank[rank]`, numpy batch dicts) with every step logged,
     `n_timed` more steps timed, then, with a `data_root` (a nuScenes
@@ -71,25 +83,45 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
         what `init_state`'s broadcast makes equal, the seed.
     init_hook: called with the model after `init_state` (e.g.
         `zero_density_bias`); picklable, from a module that imports no test
-        code.
+        code. The EMA then starts from the weights it leaves.
     num_devices: the Trainer's num_devices, the detection loss's floors
         max(num_pos, num_devices); by default the world size. One process
         held to a world of N takes N, as the JAX package's
         `test_dp_equivalence` pins the floors across its layouts.
+    cam: the layout's cam size (`make_layout(cam=cam)`); None: the
+        default layout.
+    lift_vectorized: the Trainer's; None: where the layout splits the
+        cameras.
+    forward: one numpy batch dict a rank (`forward[rank]`, its dp index's
+        rows with every camera) to run through the model in eval mode with
+        the camera renders, after `init_hook` and before `fit`.
+    val_batches: one list of numpy batch dicts a rank (its dp index's
+        rows): `validate` over it (`val_list`, the global mIoUs) and this
+        rank's own confusions of the same forwards (`val_conf`, seg and
+        occ, summed over the batches), after the `data_root` calls.
+    eval_first: run those calls on the initial weights, before `fit`,
+        where the sides of a comparison hold the same bits.
+    image_every: `fit`'s panel cadence (its default 500).
 
     Returns this rank's records: `logs` (each logged step's scalars),
     `grads` (step 0's gradients as AdamW receives them: summed over the
     ranks and clipped), `state` (parameters and buffers after `fit`), `ema`,
     `train_conf` (this rank's own train confusions), `launches` (the kernel
     launches of `fit`), `step_ms` and `peak_gb` of the timed steps,
-    `validate`, and the process group's `backend` (None without one).
+    `validate`, the process group's `backend` (None without one), the
+    layout's `dp`, `cam`, `dp_index` and `cam_index`, and with a `forward`
+    its numpy outputs (`forward`: the field outputs and the detection
+    preds as `det_<task>_<name>`).
     """
     r = rank()
     seed = (cfg[0] if isinstance(cfg, (list, tuple)) else cfg).train.seed
     if isinstance(cfg, (list, tuple)):
         cfg = cfg[r]                    # the loaders keep rank 0's seed
     device = torch.device(device) if device is not None else rank_device()
-    trainer = _RecordingTrainer(cfg, workdir=workdir, device=device)
+    layout = None if cam is None else make_layout(cam=cam)
+    trainer = _RecordingTrainer(cfg, workdir=workdir, device=device,
+                                layout=layout,
+                                lift_vectorized=lift_vectorized)
     if num_devices is not None:
         trainer.num_devices = num_devices
     batches = list(batches_by_rank[r])
@@ -97,6 +129,41 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
     model = trainer.model
     if init_hook is not None:
         init_hook(model)
+        if state.ema_params is not None:
+            state.ema_params = {k: v.detach().clone()
+                                for k, v in model.named_parameters()}
+    out = {}
+
+    def evaluate():
+        if data_root is not None:
+            from ..cli import make_loader
+
+            def loader(split):
+                return make_loader(cfg, data_root, split, split, False, 1,
+                                   seed, trainer.layout)
+            out['validate'] = trainer.validate(loader('val'), state)
+            trainer.test(loader('val'), state)
+            trainer.predict(loader('test'), state)
+        if val_batches is not None:
+            mine = list(val_batches[r])
+            out['val_list'] = trainer.validate(mine, state)
+            step = build_metric_eval_step(model, cfg)
+            confs = [step(trainer.to_device(b)) for b in mine]
+            model.train()
+            out['val_conf'] = [sum(c[i] for c in confs).cpu().numpy()
+                               for i in range(2)]
+    if eval_first:
+        evaluate()
+    fwd = None
+    if forward is not None:
+        b = trainer.to_device(forward[r])
+        model.eval()
+        with torch.no_grad():
+            fo, preds = model(b['imgs'], split_mats(b), b['points'])
+        model.train()
+        fwd = _numpy({k: v for k, v in fo.items() if v is not None})
+        fwd.update(_numpy({f'det_{t}_{k}': v for t, p in enumerate(preds)
+                           for k, v in p.items()}))
     grads = {}
 
     def keep_grads(opt, *_):
@@ -106,10 +173,13 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
                                  if p.requires_grad}))
     hook = state.optimizer.register_step_pre_hook(keep_grads)
     reset_launch_counts()
-    state = trainer.fit(batches, state=state, log_every=1)
+    state = trainer.fit(batches, state=state, log_every=1,
+                        image_every=image_every)
     launched = launch_counts()
     hook.remove()
-    out = dict(rank=r, world=world_size(),
+    lay = trainer.layout
+    out.update(rank=r, world=world_size(), forward=fwd, dp=lay.dp,
+               cam=lay.cam, dp_index=lay.dp_index, cam_index=lay.cam_index,
                backend=torch.distributed.get_backend() if active() else None,
                logs=trainer.records, grads=grads,
                state=_numpy(model.state_dict()),
@@ -137,15 +207,22 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
                    peak_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                             if cuda else None))
 
-    if data_root is not None:
-        from ..cli import make_loader
-
-        def loader(split):
-            return make_loader(cfg, data_root, split, split, False, 1, seed)
-        out['validate'] = trainer.validate(loader('val'), state)
-        trainer.test(loader('val'), state)
-        trainer.predict(loader('test'), state)
+    if not eval_first:
+        evaluate()
     return out
+
+
+@torch.no_grad()
+def load_weights(state_dict: dict, model, fp32_samples: bool = False) -> None:
+    """An `init_hook` (through `functools.partial(load_weights, sd)`): the
+    model's parameters and buffers from `state_dict`, tensors or numpy
+    arrays, all keys; with `fp32_samples`, the field's point queries and
+    rays sample an fp32 copy (`FieldBackbone.sample_dtype`), as a
+    comparison of gradients with another package wants."""
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                           state_dict.items()}, strict=True)
+    if fp32_samples:
+        model.backbone.sample_dtype = torch.float32
 
 
 @torch.no_grad()

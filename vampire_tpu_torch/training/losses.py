@@ -17,6 +17,12 @@ count, the segmentation terms run over the gathered rows (`ops/lovasz.py`)
 and the detection loss divides by the global normalisers. The shares sum
 over the ranks to the one-process loss on the concatenated batch; the
 `logs` hold the global values, the same on every rank.
+
+Under a dp x cam layout (`parallel/mesh.py`) the terms of the camera
+renders (depth, camera seg, rgb) reduce over the world, since every rank
+holds other cameras; the terms after the lift (BEV, points, occupancy,
+detection) reduce over the dp group, since the ranks of a cam group hold
+them alike, and each rank's share of them is divided by cam.
 """
 from __future__ import annotations
 
@@ -28,7 +34,9 @@ from ..configs import HeadConfig
 from ..models.centerpoint_head import detection_loss
 from ..ops.lovasz import ce_lovasz, ce_lovasz_compact
 from ..ops.msssim import ms_ssim_per_image
-from ..parallel.distributed import active, all_reduce_sum
+from ..parallel.distributed import (active, all_reduce_sum, group_size,
+                                    world_size)
+from ..parallel.mesh import SINGLE, Layout
 
 # ImageNet statistics of the normalized images, RGB, in [0, 1] units
 _RGB_MEAN = (0.485, 0.456, 0.406)
@@ -41,12 +49,17 @@ def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                group=None) -> torch.Tensor:
     """The mean of x over the mask; under a process group, this rank's
-    share of the global batch's: the local sum over the global count."""
+    share of the global batch's: the local sum over the count of `group`
+    (None: the world), divided by the world's copies of the group's rows
+    (cam, for the dp group of a dp x cam layout)."""
     mf = mask.to(torch.float32)
-    return torch.sum(x * mf) / torch.clamp(all_reduce_sum(torch.sum(mf)),
-                                           min=1.0)
+    out = torch.sum(x * mf) / torch.clamp(
+        all_reduce_sum(torch.sum(mf), group), min=1.0)
+    copies = world_size() // group_size(group)
+    return out / copies if copies > 1 else out
 
 
 def denormalize_images(imgs: torch.Tensor) -> torch.Tensor:
@@ -60,11 +73,13 @@ def denormalize_images(imgs: torch.Tensor) -> torch.Tensor:
 def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
                    batch: Dict[str, torch.Tensor], train_cfg,
                    head_cfg: HeadConfig, sdf_bias: float,
-                   density_mode: str = 'sdf', num_devices: int = 1
+                   density_mode: str = 'sdf', num_devices: int = 1,
+                   layout: Layout = SINGLE
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total weighted loss (under a process group, this rank's share) and
     the per-term scalars (global), every term and log key of the JAX
-    `compute_losses`.
+    `compute_losses`. `layout` is the model's (`Vampire.layout`): its dp
+    group reduces the terms after the lift.
 
     The rgb term (loss_weights[2] != 0; no preset sets it) is the mean
     smooth L1 plus 1 - MS-SSIM of the key frame's renders against its
@@ -81,7 +96,8 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
                      depth_labels=batch['depth_labels'][:, 0],
                      seg_labels=batch['seg_labels'][:, 0])
 
-    det_loss = detection_loss(det_preds, batch, head_cfg, num_devices)
+    rows = layout.dp_group          # the ranks that hold the other rows
+    det_loss = detection_loss(det_preds, batch, head_cfg, num_devices, rows)
     logs['detection_loss'] = det_loss
 
     fg_mask = batch['depth_labels'] > 0.0
@@ -114,36 +130,37 @@ def compute_losses(field_out: Dict[str, torch.Tensor], det_preds,
     bev_mask = batch['bev_mask']
     bev_height_loss = masked_mean(
         smooth_l1(batch['bev_height'], field_out['bev_height_preds']),
-        bev_mask)
+        bev_mask, rows)
     logs['bev_height_loss'] = bev_height_loss
     bev_seg_loss = ce_lovasz_compact(
         field_out['bev_seg_logits_preds'].reshape(-1, K),
-        batch['bev_seg'].reshape(-1), bev_mask.reshape(-1))
+        batch['bev_seg'].reshape(-1), bev_mask.reshape(-1), rows)
     logs['bev_seg_loss'] = bev_seg_loss
 
     pts_seg_loss = ce_lovasz(field_out['pts_logits'].reshape(-1, K),
                              batch['point_labels'].reshape(-1),
-                             batch['point_valid'].reshape(-1))
+                             batch['point_valid'].reshape(-1), rows)
     logs['pts_seg_loss'] = pts_seg_loss
 
     if density_mode == 'sdf' and lw[3] != 0.0:
         sdf_loss = masked_mean(
             (field_out['pts_sdf'].to(torch.float32) - sdf_bias) ** 2,
-            batch['point_valid'])
+            batch['point_valid'], rows)
     else:
         sdf_loss = torch.zeros((), device=seg_logits.device)
     logs['sdf_loss'] = sdf_loss
 
     mask_cam = batch['mask_camera'].reshape(-1)
     occ_seg_loss = ce_lovasz(field_out['occ_logits'].reshape(-1, K),
-                             batch['occ_semantics'].reshape(-1), mask_cam)
+                             batch['occ_semantics'].reshape(-1), mask_cam,
+                             rows)
     logs['visible_occ_seg_loss'] = occ_seg_loss
 
     occ_density = field_out['occ_density'].reshape(-1).to(torch.float32)
     occ_labels = batch['occ_density_labels'].reshape(-1).to(torch.float32)
     sq = (occ_labels - occ_density) ** 2
-    vis_density_loss = masked_mean(sq, mask_cam)
-    invis_density_loss = masked_mean(sq, ~mask_cam)
+    vis_density_loss = masked_mean(sq, mask_cam, rows)
+    invis_density_loss = masked_mean(sq, ~mask_cam, rows)
     logs['visible_occ_density_loss'] = vis_density_loss
     logs['invisible_occ_density_loss'] = invis_density_loss
     density_loss = vis_density_loss + invis_density_loss

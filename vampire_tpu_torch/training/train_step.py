@@ -12,8 +12,11 @@ on its block of the global batch: the losses are its share of the global
 loss, BatchNorm takes the global statistics, and the gradients are summed
 over the ranks in one flat all-reduce before the clip, so that the clip,
 AdamW, the EMA and the lr schedule see the one-process gradient of the
-concatenated batch on every rank. The confusions stay per rank (the
-Trainer sums them before it reports).
+concatenated batch on every rank. Under a dp x cam layout (the model's,
+`Vampire.use_layout`) the rank's block is its rows' share of the cameras,
+and the losses reduce each term over the ranks that hold it
+(`losses.py`). The confusions stay per rank (the Trainer sums them over
+the dp group before it reports).
 
 The eval steps run the metrics graph (no camera renders, the lift kernel
 only) in eval mode under `torch.no_grad()`, with the weights the model
@@ -64,7 +67,8 @@ def build_train_step(cfg, num_devices: int = 1, with_metrics: bool = True):
                           points=batch['points'])
         total, logs = compute_losses(fo, preds, batch, tc, cfg.head,
                                      cfg.backbone.sdf_bias,
-                                     cfg.backbone.density_mode, num_devices)
+                                     cfg.backbone.density_mode, num_devices,
+                                     model.layout)
         params = state.trainable()
         for p in params:
             p.grad = None

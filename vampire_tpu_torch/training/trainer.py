@@ -29,6 +29,15 @@ summed over the ranks; `test` and `predict` gather every rank's results
 group every process is the main one and the collectives are the
 identity. The CLI (`cli.py`) drives it over the loaders of
 `data/nuscenes.py`.
+
+The ranks take a dp x cam layout (`parallel/mesh.py`), by default the JAX
+`default_mesh` policy, as the JAX Trainer takes its mesh: cam = 2 in an
+even world above 1. Then the model is the dense-lift one
+(`lift_vectorized`, as the JAX Trainer picks it), `to_device` keeps the
+rank's cameras of its loader rows (`mesh.shard_batch`), the confusions are
+summed over the dp group, and `test` and `predict` gather over it, so that
+each row counts once; `log_images` gathers the panel frame's cameras over
+the cam group.
 """
 from __future__ import annotations
 
@@ -47,9 +56,11 @@ from ..configs import LABEL_17_NAMES
 from ..evaluation.det_evaluator import DetNuscEvaluator, apply_circle_nms
 from ..evaluation.lidarseg import lidarseg_labels, write_submission
 from ..models.vampire import Vampire, init_params_
-from ..parallel.distributed import (all_reduce_sum, barrier,
-                                    broadcast_module_, is_main_process,
-                                    process_allgather, rank, world_size)
+from ..parallel.distributed import (all_gather_rows, all_reduce_sum,
+                                    barrier, broadcast_module_,
+                                    is_main_process, process_allgather, rank,
+                                    world_size)
+from ..parallel.mesh import Layout, default_layout, shard_batch
 from ..serving.server import _argmax, _to_numpy, set_fp32_precision
 from ..utils.torch_weights import graft_into_model_, load_torchvision_resnet
 from ..utils.vis import tile_cameras, visualize_depth, visualize_semantic
@@ -64,10 +75,17 @@ DEVICE_KEYS_EXCLUDE = ('meta',)
 
 class Trainer:
 
-    def __init__(self, cfg, workdir: str = './outputs', device='cuda'):
+    def __init__(self, cfg, workdir: str = './outputs', device='cuda',
+                 layout: Optional[Layout] = None,
+                 lift_vectorized: Optional[bool] = None):
         """`device` is explicit (no device is guessed). The compute dtype
         follows cfg.train.compute_dtype; on a card the fp32 islands run in
-        full fp32 (TF32 off), as the server runs them."""
+        full fp32 (TF32 off), as the server runs them. `layout`: the ranks'
+        dp x cam layout (`parallel.mesh.make_layout`); None takes
+        `default_layout()`, which in a process group every rank builds at
+        once (it makes the groups), as every rank builds its Trainer.
+        `lift_vectorized`: the dense lift (the JAX Trainer's argument);
+        None takes it where the layout splits the cameras."""
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == 'cuda':
@@ -76,8 +94,13 @@ class Trainer:
         os.makedirs(self.workdir, exist_ok=True)
         self.dtype = (torch.bfloat16 if cfg.train.compute_dtype == 'bfloat16'
                       else torch.float32)
+        self.layout = default_layout() if layout is None else layout
+        if lift_vectorized is None:
+            lift_vectorized = self.layout.cam > 1
         self.model = Vampire(cfg.backbone, cfg.head, dtype=self.dtype,
-                             device=self.device)
+                             device=self.device,
+                             lift_vectorized=lift_vectorized)
+        self.model.use_layout(self.layout)
         # the devices the step runs over (one process a device): the
         # detection loss floors, as the JAX Trainer's mesh.size
         self.num_devices = world_size()
@@ -123,8 +146,12 @@ class Trainer:
                                   steps_per_epoch)
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                for k, v in batch.items() if k not in DEVICE_KEYS_EXCLUDE}
+        """The batch on the device: under the layout, this rank's cameras
+        of its rows (`mesh.shard_batch`)."""
+        batch = shard_batch({k: v for k, v in batch.items()
+                             if k not in DEVICE_KEYS_EXCLUDE}, self.layout)
+        return {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device)
+                for k, v in batch.items()}
 
     def log_scalars(self, step: int, scalars: Dict[str, Any]):
         if self._log_file is None:      # not the main process
@@ -227,7 +254,8 @@ class Trainer:
                         print(f'epoch {epoch} it {it}/{steps_per_epoch} loss '
                               f"{float(logs['total_loss']):.4f}", flush=True)
                 if (image_every and state.step % image_every == 0
-                        and is_main_process()):
+                        and (is_main_process()
+                             or self.layout.split_cameras)):
                     try:
                         self.log_images(state, dev_batch)
                     except Exception as e:  # vis must never stop training
@@ -245,8 +273,10 @@ class Trainer:
     def _report_train_iou(self, conf, step: int) -> None:
         """Epoch-end train IoU reports: per-class lidarseg IoU over classes
         1..16 and occupancy IoU over 0..16, accumulated on the device and
-        summed over the ranks; the main process reports."""
-        conf_seg, conf_occ = (all_reduce_sum(c).cpu().numpy() for c in conf)
+        summed over the dp group (each row once); the main process
+        reports."""
+        conf_seg, conf_occ = (all_reduce_sum(c, self.layout.dp_group)
+                              .cpu().numpy() for c in conf)
         if not is_main_process():
             return
         seg = JaccardIndex(17, ignore_index=0)
@@ -272,10 +302,15 @@ class Trainer:
         written with PIL: rgb_gts (the key frame's denormalised images),
         rgb_preds, depth_preds, seg_preds (argmax on the device), bev_seg
         and bev_height. Mirrored to TensorBoard where the sink exists. The
-        model is back in its mode afterwards."""
+        model is back in its mode afterwards. Where the layout splits the
+        cameras, every rank calls it: the forward sums the lift over the
+        cam group, and the camera panels gather its ranks' cameras."""
         from PIL import Image
         model = state.model
         mats = {k: v[:1] for k, v in split_mats(dev_batch).items()}
+        gt_imgs = dev_batch['imgs']
+        if gt_imgs.dim() == 6:       # multi-sweep batch: panel the key frame
+            gt_imgs = gt_imgs[:, 0]
         was_training = model.training
         model.eval()
         try:
@@ -283,21 +318,26 @@ class Trainer:
                 fo, _ = model(dev_batch['imgs'][:1], mats,
                               points=dev_batch['points'][:1],
                               lidar_seg=True)
-                out = _to_numpy(dict(
+                out = dict(
                     depth=fo['depth_preds'][0],
                     seg=_argmax(fo['seg_logits_preds'][0]),
                     rgb=fo['rgb_preds'][0],
+                    gt=denormalize_images(gt_imgs[:1])[0],
                     bev_seg=_argmax(fo['bev_seg_logits_preds'][0]),
-                    bev_height=fo['bev_height_preds'][0]))
+                    bev_height=fo['bev_height_preds'][0])
+                if self.layout.split_cameras:   # the frame's cameras
+                    for k in ('depth', 'seg', 'rgb', 'gt'):
+                        out[k] = all_gather_rows(out[k],
+                                                 self.layout.cam_group)
         finally:
             model.train(was_training)
+        if not is_main_process():
+            return
+        out = _to_numpy(out)
+        gt = out['gt']
         step = int(state.step)
         d = os.path.join(self.workdir, 'panels')
         os.makedirs(d, exist_ok=True)
-        gt_imgs = dev_batch['imgs']
-        if gt_imgs.dim() == 6:       # multi-sweep batch: panel the key frame
-            gt_imgs = gt_imgs[:, 0]
-        gt = denormalize_images(gt_imgs[:1])[0].cpu().numpy()
         panels = {
             'rgb_gts': tile_cameras(
                 (np.clip(gt, 0, 1) * 255).astype(np.uint8)),
@@ -360,9 +400,9 @@ class Trainer:
                 conf_seg, conf_occ = step(self.to_device(batch))
                 val_iou.update_confusion(conf_seg.cpu().numpy())
                 occ_iou.update_confusion(conf_occ.cpu().numpy())
-        for m in (val_iou, occ_iou):
+        for m in (val_iou, occ_iou):       # each row once: the dp group
             m.conf = all_reduce_sum(torch.from_numpy(m.conf).to(
-                self.device)).cpu().numpy()
+                self.device), self.layout.dp_group).cpu().numpy()
         iou = val_iou.compute()[1:]
         miou = float(np.nanmean(iou))
         occ = occ_iou.compute()[:-1]
@@ -421,7 +461,8 @@ class Trainer:
                 out = step(self.to_device(batch))
                 self._det_results(batch, {'det': _to_numpy(out['det'])},
                                   results, metas)
-        pairs = process_allgather((results, metas))
+        # the dp group's rows: rank 0's group holds each row once
+        pairs = process_allgather((results, metas), self.layout.dp_group)
         if not is_main_process():
             return
         results = [r for rs, _ in pairs for r in rs]
@@ -508,7 +549,8 @@ class Trainer:
                     seg_results.append(
                         (batch['meta']['lidar_token'][b],
                          lidarseg_labels(out['pts_logits'][b], n)))
-        gathered = process_allgather((results, metas, seg_results))
+        gathered = process_allgather((results, metas, seg_results),
+                                     self.layout.dp_group)
         if not is_main_process():
             return
         results = [r for rs, _, _ in gathered for r in rs]
