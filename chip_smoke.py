@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training and evaluation paths,
 its input pipeline, its other field variants, its multi-device paths, its
-other ray samplers, losses and init and logging extras, and its row-gather
-probes once on one NVIDIA GPU.
+other ray samplers, losses and init and logging extras, its row-gather
+probes and its accuracy studies once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -210,6 +210,26 @@ nonzero without printing a result (numbered as they run):
                too (`also_at`): `row_gather` at the vmem bf16 table
                (`gk_tala`), the dma sub-command's depth-8 gather of 2^16
                rows (`k_s2`) and its 2 MB static copy (`k_static`).
+ 13. converge - the accuracy studies. `tools/convergence_study.run` with
+               flagship_config() in bf16 (seeded weights, the flagship
+               recipe unchanged): 300 steps over 4 consistent_batch scenes
+               at B=1, then the detection chain (decode_preds, circle NMS,
+               the in-repo NDS/mAP) against the scenes' GT boxes. Checks
+               every term and grad_norm finite at every step; each step's
+               launches (lift 1+1, rays 1+1, corner table 0+0) and the
+               eval's (the lift once a scene); each of the 9 loss terms
+               and the total falls by tests/test_overfit.py's rule (the
+               last 10 steps' mean under max(0.95 x, x - 1e-4), x the
+               first 10 steps' max); the total's last/first ratio <= 0.10
+               (JAX recorded 0.0185); car AP at 2 m >= 0.5 (JAX recorded
+               0.9556). Prints each term's first and last beside the JAX
+               record's (scripts/convergence_study.json, read only), the
+               step's median ms (host clock), the peak memory and the
+               det_eval. Then `tools/multisweep_ab.run` at tiny_config
+               (120 steps an arm, 3 + 3 scenes, as the JAX record): each
+               arm's training total falls, every held-out loss is finite,
+               the launches (the F=2 arm's lift over 12 views a frame);
+               prints f2_over_f1. Prints the phase's wall time.
 
 Every kernel line carries its bound: the bytes it must move (each input
 read once, each output written once; the rows or field voxels the indices
@@ -239,9 +259,11 @@ phase's request, step and validate times and peak memory (`variants`,
 `sweeps`, `dense`), the multi-device phase's world, step times, rates
 and TCP overhead (`multi`), the cam phase's backend, step times, peak
 memory a rank and gradient differences (`cam`) and the extras phase's
-times, diagnostic and trace size (`extras`). The last three lines are a JSON object of the
-kernels run, the card's name and power limit, and `{"ok": true, "device":
-{...}}`.
+times, diagnostic and trace size (`extras`), and the converge phase's
+launches (`converge_launches`: the study's 300 steps and det eval, the
+multi-sweep A/B's two arms) and numbers (`converge`). The last three
+lines are a JSON object of the kernels run, the card's name and power
+limit, and `{"ok": true, "device": {...}}`.
 """
 import contextlib
 import dataclasses
@@ -1793,7 +1815,7 @@ def train_phase(card, cfg=None, dev='cuda', n_batches=N_TRAIN_BATCHES,
 
     # more steps, timed: host clock around each step ending in a
     # synchronize, and the peak memory over them
-    step = build_train_step(cfg)
+    step = build_train_step(cfg, with_metrics=True)
     conf = init_train_confusion(cfg, trainer.device)
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -2533,7 +2555,7 @@ def sweep_phase(card, cfg=None, dev='cuda'):
         trainer = Trainer(cfg, workdir=wd, device=dev)
         state = trainer.init_state(train_b, 1)
         out['grad'] = train_grad_check(card, cfg, trainer, train_b, dev)
-        step = build_train_step(cfg)
+        step = build_train_step(cfg, with_metrics=True)
         conf = init_train_confusion(cfg, trainer.device)
         b = trainer.to_device(train_b)
         if dev == 'cuda':
@@ -3004,7 +3026,7 @@ def extras_train(card, cfg, dev):
         trainer.log_images(state, dev_batch)
         torch.cuda.synchronize()
         panel_ms = (time.perf_counter() - h0) * 1e3
-        step = build_train_step(cfg)
+        step = build_train_step(cfg, with_metrics=True)
         conf = init_train_confusion(cfg, trainer.device)
         times = []
         for i in range(N_EXTRA_TIMED):
@@ -3908,6 +3930,165 @@ def multi_launches(multi, kernel):
                 pool=multi['pool_launches'][kernel])
 
 
+# the converge phase: tools/convergence_study.py at the JAX record's
+# settings (scripts/convergence_study.json: 300 steps over 4 consistent
+# scenes, B=1, bf16, the flagship recipe), then tools/multisweep_ab.py at
+# the JAX record's 120 steps an arm over 3 + 3 scenes
+CONVERGE_STEPS = 300
+CONVERGE_BATCHES = 4
+# tests/test_overfit.py's rule for each loss term: the mean of the last
+# window under max(0.95 x, x - 1e-4), x the first window's max
+TERM_FACTOR = 0.95
+TERM_SLACK = 1e-4
+TERM_WINDOW = 10
+# the total's last/first ratio (JAX recorded 0.0185) and car AP at 2 m
+# (JAX recorded 0.9556) the run must reach
+TOTAL_RATIO_MAX = 0.10
+CAR_AP_2M_MIN = 0.5
+AB_STEPS = 120
+AB_SCENES = 3
+LOSS_TERMS = ('detection_loss', 'camera_depth_loss', 'camera_seg_loss',
+              'bev_seg_loss', 'bev_height_loss', 'pts_seg_loss',
+              'visible_occ_seg_loss', 'visible_occ_density_loss',
+              'invisible_occ_density_loss')
+
+
+def term_falls(xs, window=TERM_WINDOW):
+    """tests/test_overfit.py's rule over a trajectory: (first window's max,
+    last window's mean, passed)."""
+    first = max(xs[:window])
+    last = sum(xs[-window:]) / len(xs[-window:])
+    return first, last, last < max(TERM_FACTOR * first, first - TERM_SLACK)
+
+
+def jax_record():
+    """The JAX package's convergence record (read only), or None."""
+    path = os.path.join(ROOT, 'scripts', 'convergence_study.json')
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def converge_run(card, cfg, dev, steps, n_batches):
+    """The convergence study on `dev` in bf16 and its checks: finite logs,
+    the launches of each step, each term's fall, the total's ratio and
+    car AP at 2 m."""
+    import torch
+    from vampire_tpu_torch.tools import convergence_study as C
+    reset_counts()
+    rec = C.run(cfg, steps, n_batches, device=dev, dtype=torch.bfloat16,
+                log=lambda msg: say(f'converge: {msg}'))
+    launched = counts()
+    bad = [k for k in C.KEYS if not all(np.isfinite(rec['history'][k]))]
+    if bad:
+        raise AssertionError(f'converge: non-finite {bad}')
+    want = {k: 1 for k in lift_keys(cfg) + ('rays', 'rays_bwd')}
+    wrong = [(i, l) for i, l in enumerate(rec['launches']) if l != want]
+    if wrong:
+        raise AssertionError(f'converge: steps {wrong[:5]} launched other '
+                             f'than {want} ({len(wrong)} steps)')
+    if rec['eval_launches'] != {lift_forward_keys(cfg)[0]: n_batches}:
+        raise AssertionError(f'converge: the det eval launched '
+                             f'{rec["eval_launches"]}')
+    jrec = jax_record()
+    failed = []
+    window = min(TERM_WINDOW, max(1, steps // 5))
+    for k in LOSS_TERMS + ('total_loss',):
+        first, last, ok = term_falls(rec['history'][k], window)
+        s = rec['summary'][k]
+        j = jrec['summary'][k] if jrec else None
+        say(f'converge {k}: first {s["first"]:.4f} -> last {s["last"]:.4f} '
+            f'(ratio {s["ratio"]}; first-window max {first:.4f}, last '
+            f'mean {last:.4f}, {"falls" if ok else "DOES NOT FALL"}); JAX '
+            f'recorded ' + (f'{j["first"]} -> {j["last"]} (ratio '
+                            f'{j["ratio"]})' if j else 'nothing'))
+        if not ok:
+            failed.append(k)
+    ratio = rec['summary']['total_loss']['ratio']
+    det = rec['det_eval']
+    ms = statistics.median(rec['step_ms'][1:] or rec['step_ms'])
+    say(f'converge: {steps} steps over {n_batches} scenes in '
+        f'{rec["wall_s"]:.1f} s; step median {ms:.2f} ms (host clock, step '
+        f'0 apart), peak memory {rec["peak_gb"] or 0:.3f} GB; launches '
+        f'{launched} [{card}]')
+    say(f'converge det_eval: {json.dumps(det)}; JAX recorded '
+        + (json.dumps(jrec['det_eval']) if jrec else 'nothing'))
+    if failed:
+        raise AssertionError(f'converge: {failed} do not fall '
+                             f'(tests/test_overfit.py rule)')
+    if ratio is None or ratio > TOTAL_RATIO_MAX:
+        raise AssertionError(f'converge: total loss ratio {ratio} > '
+                             f'{TOTAL_RATIO_MAX}')
+    if det['car_ap']['2.0'] < CAR_AP_2M_MIN:
+        raise AssertionError(f'converge: car AP at 2 m {det["car_ap"]} < '
+                             f'{CAR_AP_2M_MIN}')
+    return dict(launched=launched, step_ms=ms, peak_gb=rec['peak_gb'],
+                wall_s=rec['wall_s'], total_ratio=ratio, det_eval=det,
+                summary=rec['summary'])
+
+
+def multisweep_run(card, dev, steps, scenes):
+    """tools/multisweep_ab.py at tiny_config on `dev`: each arm's training
+    total falls (last window's mean under the first's), every held-out
+    loss is finite, each arm's steps launch the lift and the rays once
+    each way and its held-out forwards once each (the F=2 arm's lift over
+    a frame's 12 views)."""
+    from vampire_tpu_torch.data.synthetic import tiny_config
+    from vampire_tpu_torch.tools import multisweep_ab as MS
+    cfg = tiny_config()
+    reset_counts()
+    out = MS.run(steps=steps, train_scenes=scenes, val_scenes=scenes,
+                 device=dev, log=lambda msg: say(f'multisweep:{msg}'))
+    launched = counts()
+    window = min(TERM_WINDOW, max(1, steps // 5))
+    for arm in ('f1', 'f2'):
+        tot = out['train_total'][arm]
+        first = sum(tot[:window]) / window
+        last = sum(tot[-window:]) / window
+        if not last < first:
+            raise AssertionError(f'multisweep {arm}: the training total '
+                                 f'does not fall ({first} -> {last})')
+        bad = [k for k, v in out[arm].items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f'multisweep {arm}: non-finite {bad}')
+        say(f'multisweep {arm}: training total {first:.4f} -> {last:.4f}; '
+            f'held-out {out[arm]}')
+    fwd = 2 * (steps + scenes)
+    want = {k: (fwd if k in lift_forward_keys(cfg) + ('rays',) else
+                2 * steps if k in lift_keys(cfg) + ('rays_bwd',) else 0)
+            for k in launched}
+    if launched != want:
+        raise AssertionError(f'multisweep: launches {launched}, want {want}')
+    say(f'multisweep: f2_over_f1 {out["f2_over_f1"]}; launches {launched} '
+        f'[{card}]')
+    return dict(launched=launched, f2_over_f1=out['f2_over_f1'],
+                f1=out['f1'], f2=out['f2'])
+
+
+def converge_phase(card, cfg=None, dev='cuda', steps=CONVERGE_STEPS,
+                   n_batches=CONVERGE_BATCHES, ab_steps=AB_STEPS,
+                   ab_scenes=AB_SCENES):
+    """The accuracy studies on the card: the flagship convergence run with
+    its detection eval (`converge_run`), then the multi-sweep A/B
+    (`multisweep_run`). Returns both parts' launches and numbers."""
+    from vampire_tpu_torch.configs import flagship_config
+    cfg = cfg or flagship_config()
+    t0 = time.perf_counter()
+    out = dict(study=converge_run(card, cfg, dev, steps, n_batches),
+               multisweep=multisweep_run(card, dev, ab_steps, ab_scenes))
+    out['wall_s'] = time.perf_counter() - t0
+    say(f'converge: phase wall {out["wall_s"]:.1f} s [{card}]')
+    return out
+
+
+def converge_launches(cv, kernel):
+    """A kernel's launches in the converge phase: the study's steps and
+    its det eval, and the multi-sweep A/B's two arms."""
+    return dict(study=cv['study']['launched'][kernel],
+                multisweep=cv['multisweep']['launched'][kernel])
+
+
 REPLACES = dict(
     row_gather='scripts/perf_vmem_gather.py:123, '
                'scripts/perf_r3_gather_layouts.py:74, '
@@ -3971,6 +4152,7 @@ def main():
     cam = cam_phase(card)
     extras = extras_phase(card, served['ms']['full'])
     probes, pl = probe_phase(card)
+    cv = converge_phase(card)
     leaked = sorted(m for m in sys.modules if m.split('.')[0] in
                     ('jax', 'jaxlib', 'flax', 'optax', 'vampire_tpu'))
     if leaked:
@@ -4000,6 +4182,7 @@ def main():
         'cam_split_ms': {n: {c: cam['kernels'][n][f'ms_{c}'] for c in (3, 6)}
                          for n in ('float32', 'bfloat16')},
         'extras_launches': extras_launches(extras, 'lift'),
+        'converge_launches': converge_launches(cv, 'lift'),
         'max_abs_err': k['lift']['max_abs_err'],
         'ms': k['lift']['bfloat16']['ms'],
         'plain_ms': k['lift']['bfloat16']['plain_ms'],
@@ -4018,6 +4201,7 @@ def main():
         'eval_launches': eval_launches(ev, 'corner_table'),
         'data_launches': data_launches(data, 'corner_table'),
         'extras_launches': extras_launches(extras, 'corner_table'),
+        'converge_launches': converge_launches(cv, 'corner_table'),
         'max_abs_err': k['corner_table']['max_abs_err'],
         'ms': k['corner_table']['bfloat16']['ms'],
         'plain_ms': k['corner_table']['bfloat16']['plain_ms'],
@@ -4046,6 +4230,7 @@ def main():
         'multi_launches': multi_launches(multi, 'rays'),
         'cam_launches': cam_launches(cam, 'rays'),
         'extras_launches': extras_launches(extras, 'rays'),
+        'converge_launches': converge_launches(cv, 'rays'),
         'max_abs_err': k['rays']['max_abs_err'],
         'ms': k['rays']['ms'],
         'plain_ms': k['rays']['plain_ms'],
@@ -4065,6 +4250,7 @@ def main():
                        'second resumed from the first\'s carried state',
         'launches': extras['earlyterm']['launched']['rays_stop'],
         'extras_launches': extras_launches(extras, 'rays_stop'),
+        'converge_launches': converge_launches(cv, 'rays_stop'),
         'train_launches': tl['rays_stop'],
         'per': 'frame (ms: launch 1 + launch 2; bound: one read of each '
                'sample before its final stop; the carried state apart, '
@@ -4099,6 +4285,7 @@ def main():
         'multi_launches': multi_launches(multi, 'lift_bwd'),
         'cam_launches': cam_launches(cam, 'lift_bwd'),
         'extras_launches': extras_launches(extras, 'lift_bwd'),
+        'converge_launches': converge_launches(cv, 'lift_bwd'),
         'max_abs_err': k['lift_bwd']['max_abs_err'],
         'ms': k['lift_bwd']['bfloat16']['ms'],
         'plain_ms': k['lift_bwd']['bfloat16']['plain_ms'],
@@ -4119,6 +4306,7 @@ def main():
         'train_launches': bil['train']['launched']['lift_bilinear'],
         'validate_launches': bil['validate']['launched']['lift_bilinear'],
         'extras_launches': extras_launches(extras, 'lift_bilinear'),
+        'converge_launches': converge_launches(cv, 'lift_bilinear'),
         'per': 'frame',
         'max_abs_err': k['lift_bilinear']['max_abs_err'],
         'ms': k['lift_bilinear']['bfloat16']['ms'],
@@ -4142,6 +4330,7 @@ def main():
         'metrics_launches': bil['serve']['metrics']['slot_map'],
         'train_launches': bil['train']['launched']['slot_map'],
         'validate_launches': bil['validate']['launched']['slot_map'],
+        'converge_launches': converge_launches(cv, 'slot_map'),
         'per': 'frame (ms: a call back to back)',
         'max_abs_err': k['lift_bilinear']['slot_map']['max_abs_err'],
         'ms': k['lift_bilinear']['slot_map']['ms'],
@@ -4158,6 +4347,7 @@ def main():
         'launches': bil['train']['launched']['lift_bilinear_bwd'],
         'serve_launches': bil['serve']['full']['lift_bilinear_bwd'],
         'extras_launches': extras_launches(extras, 'lift_bilinear_bwd'),
+        'converge_launches': converge_launches(cv, 'lift_bilinear_bwd'),
         'per': 'frame',
         'ctas': k['lift_bilinear_bwd']['ctas'],
         'live_ctas': k['lift_bilinear_bwd']['live_ctas'],
@@ -4181,6 +4371,7 @@ def main():
         'eval_launches': eval_launches(ev, 'corner_table_bwd'),
         'data_launches': data_launches(data, 'corner_table_bwd'),
         'extras_launches': extras_launches(extras, 'corner_table_bwd'),
+        'converge_launches': converge_launches(cv, 'corner_table_bwd'),
         'max_abs_err': k['corner_table_bwd']['max_abs_err'],
         'ms': k['corner_table_bwd']['bfloat16']['ms'],
         'plain_ms': k['corner_table_bwd']['bfloat16']['plain_ms'],
@@ -4202,6 +4393,7 @@ def main():
         'multi_launches': multi_launches(multi, 'rays_bwd'),
         'cam_launches': cam_launches(cam, 'rays_bwd'),
         'extras_launches': extras_launches(extras, 'rays_bwd'),
+        'converge_launches': converge_launches(cv, 'rays_bwd'),
         'max_abs_err': k['rays_bwd']['max_abs_err'],
         'ms': k['rays_bwd']['ms'],
         'plain_ms': k['rays_bwd']['plain_ms'],
@@ -4263,7 +4455,15 @@ def main():
             'backend', 'step_ms', 'single_step_ms', 'peak_gb',
             'single_peak_gb', 'grad_rel_median', 'grad_rel_max',
             'grad_norm_rel', 'control_grad_rel_median',
-            'control_grad_rel_max', 'val_moved', 'wall_s')}}),
+            'control_grad_rel_max', 'val_moved', 'wall_s')},
+        'converge': dict(
+            wall_s=cv['wall_s'],
+            step_ms=cv['study']['step_ms'], peak_gb=cv['study']['peak_gb'],
+            study_wall_s=cv['study']['wall_s'],
+            total_ratio=cv['study']['total_ratio'],
+            ratios={k: v['ratio'] for k, v in cv['study']['summary'].items()},
+            det_eval=cv['study']['det_eval'],
+            multisweep_f2_over_f1=cv['multisweep']['f2_over_f1'])}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({'ok': True, 'device': {

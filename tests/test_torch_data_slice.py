@@ -111,8 +111,8 @@ def slice_(tmp_path_factory):
     tm.train()
     tm.backbone.sample_dtype = torch.float32
     state = tts.create_train_state(tm, cfg.train, steps_per_epoch=1)
-    _, tlogs, _ = build_train_step(cfg)(state, to_torch(ttrain),
-                                        init_train_confusion(cfg))
+    _, tlogs, _ = build_train_step(cfg, with_metrics=True)(
+        state, to_torch(ttrain), init_train_confusion(cfg))
     return dict(batches=batches, jlogs=jlogs, tlogs=tlogs, jconf=jconf,
                 tconf=tconf, jout=jout)
 

@@ -151,8 +151,8 @@ def _steps(cfg, batch):
     tm.load_state_dict(from_flax(variables, tm), strict=True)
     state = tts.create_train_state(tm, cfg.train, steps_per_epoch=1)
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-    state, tlogs, tconf = build_train_step(cfg)(state, tb,
-                                                torch_confusion(cfg))
+    step = build_train_step(cfg, with_metrics=True)
+    state, tlogs, tconf = step(state, tb, torch_confusion(cfg))
 
     def mapped(params):
         return from_flax({'params': params,
@@ -301,7 +301,8 @@ def test_frozen_stem_takes_no_gradient_and_keeps_its_statistics():
     batch = {k: torch.from_numpy(np.asarray(v)) for k, v in
              synthetic_batch(cfg, batch_size=1, n_points=128, seed=1,
                              mode='train').items()}
-    build_train_step(cfg)(tts_state, batch, torch_confusion(cfg))
+    build_train_step(cfg, with_metrics=True)(tts_state, batch,
+                                              torch_confusion(cfg))
     assert tm.training and not stem.training and not stem.bn.training
     for k, v in stem.state_dict().items():
         assert torch.equal(v, before[k]), k

@@ -307,6 +307,14 @@ def ablation_config(name: str) -> VampireConfig:
     )
 
 
-# at the end: data/synthetic.py imports the classes above
-from .data.synthetic import (camera_rig, synthetic_batch,  # noqa: E402,F401
-                             tiny_config)
+_SYNTHETIC = ('camera_rig', 'synthetic_batch', 'tiny_config')
+
+
+def __getattr__(name):
+    """`camera_rig`, `synthetic_batch` and `tiny_config` of
+    `data/synthetic.py`, imported on first use: that module imports this
+    one, so either can be the first a process imports."""
+    if name in _SYNTHETIC:
+        from .data import synthetic
+        return getattr(synthetic, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -189,7 +189,7 @@ def trainer_run(cfg, batches_by_rank: Sequence[Sequence[dict]], workdir: str,
 
     if n_timed:
         cuda = device.type == 'cuda'
-        step = build_train_step(cfg, trainer.num_devices)
+        step = build_train_step(cfg, trainer.num_devices, with_metrics=True)
         conf = init_train_confusion(cfg, device)
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)

@@ -182,7 +182,7 @@ def main(argv=None):
         trainer = Trainer(cfg, workdir=wd, device='cuda')
         state = trainer.init_state(loader[0], len(loader))
         on_card = [trainer.to_device(b) for b in loader]
-        step = TS.build_train_step(cfg)
+        step = TS.build_train_step(cfg, with_metrics=True)
         conf = [TS.init_train_confusion(cfg, trainer.device)]
         TS.compute_losses = timed('losses', TS.compute_losses)
         TS.clip_by_global_norm_ = timed('clip_by_global_norm_',

@@ -50,13 +50,14 @@ def init_train_confusion(cfg, device=None) -> Tuple[torch.Tensor,
             torch.zeros((K, K), device=device))
 
 
-def build_train_step(cfg, num_devices: int = 1, with_metrics: bool = True):
-    """Returns train_step(state, batch, conf=None) -> (state, logs, new
-    conf), or (state, logs) without metrics; `state` is updated in place
-    (torch modules and optimizers are mutable). `logs` holds every loss
-    term and the pre-clip `grad_norm`, as 0-dim tensors. with_metrics=True threads the
-    (conf_seg, conf_occ) accumulators through the step, updated from the
-    same predictions the loss used."""
+def build_train_step(cfg, num_devices: int = 1, with_metrics: bool = False):
+    """Returns train_step(state, batch) -> (state, logs), as the JAX
+    package's default, or with with_metrics=True train_step(state, batch,
+    conf) -> (state, logs, new conf); `state` is updated in place (torch
+    modules and optimizers are mutable). `logs` holds every loss term and
+    the pre-clip `grad_norm`, as 0-dim tensors. with_metrics=True threads
+    the (conf_seg, conf_occ) accumulators through the step, updated from
+    the same predictions the loss used."""
     tc = cfg.train
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
