@@ -194,8 +194,9 @@ nonzero without printing a result (numbered as they run):
                `utils.profiling.trace` (a non-empty Chrome trace). The
                torchvision graft: a ResNet-50 state dict made from a
                seeded generator, saved, grafted by `init_state` (every
-               backbone tensor bit for bit), then one request under
-               `run_time`. Prints the phase's wall time.
+               backbone tensor bit for bit), then one request with the
+               tracer on (its `server.*` spans). Prints the phase's wall
+               time.
  12. probe   - `python -m vampire_tpu_torch.tools.gather_probe`'s vmem,
                layouts and dma sub-commands and its scale sub-command on
                the ray stage's 1,387,029-row tables of 256 and 176 bf16
@@ -2763,8 +2764,7 @@ def earlyterm_serve(card, cfg, dev, dense_ms):
     """The full-render graph of `cfg` with ray_et_fracs = ET_FRACS, under a
     partly-opaque density head, through InferenceServer: N_REQUESTS
     requests (the lift once and the ray kernel's stop mode twice a
-    request), the diagnostic, and one request under
-    `utils.profiling.run_time`. Request 0's kernel forward is checked
+    request), and the diagnostic. Request 0's kernel forward is checked
     twice over. On its own inputs: the plain march at the forward's own
     stops gives every ray's render within RAY_RTOL, and the stops the plain
     key gives move at most ET_CROSSED_MAX of the rays (the two sum a ray's
@@ -2778,7 +2778,6 @@ def earlyterm_serve(card, cfg, dev, dense_ms):
     import math
     import torch
     from vampire_tpu_torch.serving import InferenceServer
-    from vampire_tpu_torch.utils.profiling import run_time
     bc = dataclasses.replace(cfg.backbone, ray_et_fracs=ET_FRACS)
     cfg = dataclasses.replace(cfg, backbone=bc)
     samples, calib = request_frames(cfg)
@@ -2808,7 +2807,6 @@ def earlyterm_serve(card, cfg, dev, dense_ms):
             outs.append(server.infer(smp))
             lat.append((time.perf_counter() - h0) * 1e3)
         launched = counts()
-        run_time('extras early-term request')(server.infer)(samples[0])
     finally:
         server.stop()
     ms = statistics.median(lat)
@@ -3108,12 +3106,13 @@ def graft_serve(card, cfg, dev):
     download): every image-backbone tensor must equal the file's bit for
     bit. Then an InferenceServer on the grafted weights (the other BN
     layers calibrated, the backbone's statistics the file's) serves one
-    full-render request under `utils.profiling.run_time`: one lift and one
-    ray launch, finite outputs of the served shapes."""
+    full-render request with `utils.profiling`'s tracer on: one lift and
+    one ray launch, finite outputs of the served shapes, one span of each
+    of the batch's phases."""
     import torch
     from vampire_tpu_torch.serving import InferenceServer
     from vampire_tpu_torch.training.trainer import Trainer
-    from vampire_tpu_torch.utils.profiling import run_time
+    from vampire_tpu_torch.utils import profiling
     from vampire_tpu_torch.utils.torch_weights import (
         convert_torchvision_resnet)
     sd = torchvision_resnet50(4)
@@ -3151,12 +3150,26 @@ def graft_serve(card, cfg, dev):
     try:
         reset_counts()
         torch.cuda.synchronize()
+        profiling.enable()
         h0 = time.perf_counter()
-        out = run_time('extras grafted request')(server.infer)(samples[0])
+        out = server.infer(samples[0])
         ms = (time.perf_counter() - h0) * 1e3
+        profiling.disable()
         launched = counts()
     finally:
+        profiling.disable()
         server.stop()
+    spans = {s['name']: (s['end_ns'] - s['start_ns']) / 1e6
+             for s in profiling.collect()['spans']}
+    phases = ('server.queue', 'server.linger', 'server.batch',
+              'server.assemble', 'server.h2d', 'server.forward',
+              'server.decode', 'server.d2h', 'server.nms', 'server.deliver')
+    missing = [p for p in phases if p not in spans]
+    if missing:
+        raise AssertionError(f'extras graft: the traced request gave no '
+                             f'{missing} spans')
+    say('extras graft: traced request, host ms: ' + ', '.join(
+        f'{p[7:]} {spans[p]:.2f}' for p in phases))
     want = {k: 0 for k in launched}
     want.update(lift=1, rays=1)
     shapes = served_shapes(cfg, samples[0]['imgs'].shape[0])[1]

@@ -27,6 +27,13 @@ partial sums that the cam group adds (`lift`), runs the trunk and the heads
 on the whole field as every rank of its cam group does, and renders the
 rays of its own cameras, whose pass samplers sort the whole frame's rays.
 
+With `utils.profiling` on, the forward's stages are spans:
+`model.encoder` (image backbone and neck), `model.lift` (the depth
+softmax, `channel_lower`, the lift, the position channels), `model.trunk`
+(`base_conv` and the density/seg/feature/rgb heads), `model.queries`
+(points, Occ3D), `model.rays` (the camera rays) and `model.bev` (the BEV
+render, the gate, `voxel_output`, the resize).
+
 Layouts: inputs and outputs keep the JAX package's layouts (channels-last
 images, (B, Z, Y, X) ordering, occ as (B, X, Y, Z, K)); inside, tensors are
 channels-first as torch convolutions want them.
@@ -51,6 +58,7 @@ from ..ops import lift as lift_ops
 from ..ops import rays as ray_ops
 from ..parallel.distributed import all_reduce_sum
 from ..parallel.mesh import SINGLE, Layout, ray_split
+from ..utils import profiling
 from .resnet import Conv2d, ResNet
 from .second_fpn import SECONDFPN
 from .unet3d import Conv3d, ConvSoftplus3D, Unet3D
@@ -534,49 +542,56 @@ class FieldBackbone(nn.Module):
                              f'lift kernel sums at most '
                              f'{lift_ops.MAX_CAMERAS}')
         x = imgs.reshape(B * NT, H, W, 3).permute(0, 3, 1, 2)
-        feats = self.img_neck(self.img_backbone(x.to(self.dtype)))
+        with profiling.span('model.encoder'):
+            feats = self.img_neck(self.img_backbone(x.to(self.dtype)))
         h, w = feats.shape[2:]
-        depth = None
-        if c.variant != 'bilinear':
-            depth = torch.softmax(
-                self.mapping_along_depth(feats).to(torch.float32), dim=1)
-            depth = depth.to(self.dtype).reshape(B, NT, -1, h, w)
-        low = self.channel_lower(feats).permute(0, 2, 3, 1)
-        low = low.reshape(B, NT, h, w, -1)
+        with profiling.span('model.lift'):
+            depth = None
+            if c.variant != 'bilinear':
+                depth = torch.softmax(
+                    self.mapping_along_depth(feats).to(torch.float32), dim=1)
+                depth = depth.to(self.dtype).reshape(B, NT, -1, h, w)
+            low = self.channel_lower(feats).permute(0, 2, 3, 1)
+            low = low.reshape(B, NT, h, w, -1)
+            voxel_feats = self.lift(depth, low, lift_mats, plain,
+                                    diagnostics)                  # fp32
+            if c.cat_pos:
+                pos = self.norm_voxel_coords[None].expand(B, -1, -1, -1, -1)
+                voxel_feats = torch.cat([voxel_feats, pos], dim=1)
+        with profiling.span('model.trunk'):
+            base = self.base_conv(voxel_feats.to(self.dtype))
+            sdf_vol = self.density_conv(base).to(torch.float32)
+            seg_vol = self.seg_conv(base).to(torch.float32)
+            rgb_in = (self.feature_conv(base) if c.variant == 'bilinear'
+                      else base)
+            rgb_vol = torch.sigmoid(self.rgb_conv(rgb_in).to(torch.float32))
+            fused = torch.cat([sdf_vol, seg_vol, rgb_vol], dim=1)
 
-        voxel_feats = self.lift(depth, low, lift_mats, plain,
-                                diagnostics)                      # fp32
-        if c.cat_pos:
-            pos = self.norm_voxel_coords[None].expand(B, -1, -1, -1, -1)
-            voxel_feats = torch.cat([voxel_feats, pos], dim=1)
-        base = self.base_conv(voxel_feats.to(self.dtype))
-        sdf_vol = self.density_conv(base).to(torch.float32)
-        seg_vol = self.seg_conv(base).to(torch.float32)
-        rgb_in = self.feature_conv(base) if c.variant == 'bilinear' else base
-        rgb_vol = torch.sigmoid(self.rgb_conv(rgb_in).to(torch.float32))
-        fused = torch.cat([sdf_vol, seg_vol, rgb_vol], dim=1)
-
-        pts_logits = pts_sdf = None
-        if points is not None:
-            pts_logits, pts_sdf = self._query_points(fused, points)
-        occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol,
-                                                  mats.get('bda'))
+        with profiling.span('model.queries'):
+            pts_logits = pts_sdf = None
+            if points is not None:
+                pts_logits, pts_sdf = self._query_points(fused, points)
+            occ_logits, occ_density = self._query_occ(seg_vol, sdf_vol,
+                                                      mats.get('bda'))
         rgb_p = seg_p = depth_p = None
         if camera_renders:
-            rgb_p, seg_p, depth_p = self._render_cameras(
-                key_mats, self._ray_fields(fused), plain, diagnostics)
-        (bev_rgb, bev_seg, bev_height, bev_density,
-         vox_out) = self._render_bev(fused, base.to(torch.float32))
+            with profiling.span('model.rays'):
+                rgb_p, seg_p, depth_p = self._render_cameras(
+                    key_mats, self._ray_fields(fused), plain, diagnostics)
+        with profiling.span('model.bev'):
+            (bev_rgb, bev_seg, bev_height, bev_density,
+             vox_out) = self._render_bev(fused, base.to(torch.float32))
 
-        # BEV feature for the det head; channel order c*Zd+z
-        gate = (torch.tanh(bev_density) if c.density_mode == 'sdf'
-                else bev_density)
-        vo = vox_out * gate[:, None]                    # (B, Cv, Zd, Y, X)
-        Bv, Cv, Zd, Yd, Xd = vo.shape
-        bev_feat = self.voxel_output(vo.reshape(Bv, Cv * Zd, Yd, Xd))
-        _, oY, oX = c.grid_zyx('det')
-        if oY == 256:
-            bev_feat = S.resize_linear(bev_feat, (oY // 2, oX // 2), (2, 3))
+            # BEV feature for the det head; channel order c*Zd+z
+            gate = (torch.tanh(bev_density) if c.density_mode == 'sdf'
+                    else bev_density)
+            vo = vox_out * gate[:, None]                # (B, Cv, Zd, Y, X)
+            Bv, Cv, Zd, Yd, Xd = vo.shape
+            bev_feat = self.voxel_output(vo.reshape(Bv, Cv * Zd, Yd, Xd))
+            _, oY, oX = c.grid_zyx('det')
+            if oY == 256:
+                bev_feat = S.resize_linear(bev_feat, (oY // 2, oX // 2),
+                                           (2, 3))
 
         return dict(
             bev_feature=bev_feat.permute(0, 2, 3, 1),  # (B, Y', X', C)

@@ -9,6 +9,7 @@ import torch.nn as nn
 
 from ..configs import BackboneConfig, HeadConfig
 from ..parallel.mesh import Layout
+from ..utils import profiling
 from .centerpoint_head import BEVDepthHead
 from .field import FieldBackbone
 from .resnet import BatchNorm2d
@@ -66,7 +67,8 @@ class Vampire(nn.Module):
                            diagnostics=diagnostics)
         if lidar_seg and not self.training:
             return fo, None
-        return fo, self.head(fo['bev_feature'])
+        with profiling.span('model.head'):
+            return fo, self.head(fo['bev_feature'])
 
 
 @torch.no_grad()

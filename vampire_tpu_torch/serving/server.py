@@ -12,6 +12,14 @@ keys: None (the default, the full-render graph) or a selection that holds
 'camera_renders' runs the camera-ray branch; the others run the metrics
 graph (`camera_renders=False`), which skips the camera rays.
 
+With `utils.profiling`'s tracer on, a request's wait in the queue is a
+`server.queue` span (under its id, `Future.trace_id`), and each batch a
+`server.batch` span (rows, padding rows, request ids) holding its phases:
+`server.assemble`, `server.h2d`, `server.forward`, `server.decode`,
+`server.d2h`, `server.nms` (per request) and `server.deliver` (the
+futures' callbacks); `server.linger` is the dispatcher's wait for a batch
+to fill.
+
 Front-ends, as in the JAX package:
   * in-process: `InferenceServer.submit(sample) -> Future` (thread-safe)
     or the synchronous `infer(sample)`;
@@ -40,6 +48,7 @@ from ..configs import synthetic_batch
 from ..models.centerpoint_head import decode_preds
 from ..models.vampire import Vampire, init_params_
 from ..ops.nms import apply_circle_nms
+from ..utils import profiling
 
 MATS_KEYS = ('sensor2ego', 'intrin', 'ida', 'bda')
 INPUT_KEYS = ('imgs',) + MATS_KEYS + ('points',)
@@ -130,10 +139,12 @@ class InferenceServer:
     def forward(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """One micro-batch through the model; returns numpy outputs (the
         per-task decoded boxes under 'det')."""
-        imgs, mats, points = self.to_device(batch)
-        fo, preds = self.model(imgs, mats, points=points,
-                               lidar_seg=not self.with_det,
-                               camera_renders=self.camera_renders)
+        with profiling.span('server.h2d'):
+            imgs, mats, points = self.to_device(batch)
+        with profiling.span('server.forward'):
+            fo, preds = self.model(imgs, mats, points=points,
+                                   lidar_seg=not self.with_det,
+                                   camera_renders=self.camera_renders)
         g = self.outputs
 
         def want(group):
@@ -155,8 +166,10 @@ class InferenceServer:
                 out['bev_height'] = fo['bev_height_preds']
                 out['bev_rgb'] = fo['bev_rgb_preds']
         if self.with_det:
-            out['det'] = decode_preds(preds, self.cfg.head)
-        return _to_numpy(out)
+            with profiling.span('server.decode'):
+                out['det'] = decode_preds(preds, self.cfg.head)
+        with profiling.span('server.d2h'):
+            return _to_numpy(out)
 
     def warmup(self):
         """Run the example batch once (kernel build, allocations, cuDNN and
@@ -195,6 +208,10 @@ class InferenceServer:
         (N, 4, 4), bda (4, 4), optional points (P, 3). Returns a Future
         resolving to the per-frame output dict."""
         fut: Future = Future()
+        queued = profiling.begin('server.queue')
+        if queued is not None:      # the request's id: its queue span's
+            queued.attrs['id'] = fut.trace_id = queued.id
+            fut.trace_queued = queued
         self._q.put((sample, fut))
         return fut
 
@@ -204,19 +221,20 @@ class InferenceServer:
     def _loop(self):
         while not self._stop.is_set():
             try:
-                first = self._q.get(timeout=0.05)
+                first = _dequeued(self._q.get(timeout=0.05))
             except queue.Empty:
                 continue
             reqs = [first]
             deadline = time.monotonic() + self.max_wait
-            while len(reqs) < self.max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    reqs.append(self._q.get(timeout=timeout))
-                except queue.Empty:
-                    break
+            with profiling.span('server.linger'):
+                while len(reqs) < self.max_batch:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        reqs.append(_dequeued(self._q.get(timeout=timeout)))
+                    except queue.Empty:
+                        break
             try:
                 self._run_batch(reqs)
             except Exception as e:  # the dispatcher must outlive a bad batch
@@ -224,7 +242,9 @@ class InferenceServer:
                     if not fut.done():
                         fut.set_exception(e)
 
-    def _run_batch(self, reqs):
+    def _assemble(self, reqs) -> Dict[str, np.ndarray]:
+        """The requests' inputs stacked into one batch of `max_batch`
+        rows, padded by repeating the last."""
         n = len(reqs)
         batch = {}
         for k in INPUT_KEYS:
@@ -240,15 +260,37 @@ class InferenceServer:
                     raise KeyError(f"request missing input '{k}'")
             rows += [rows[-1]] * (self.max_batch - n)   # pad: repeat last
             batch[k] = np.stack(rows)
-        out = self.forward(batch)
-        self.stats['requests'] += n
-        self.stats['batches'] += 1
-        self.stats['padded_rows'] += self.max_batch - n
-        for i, (_, fut) in enumerate(reqs):
-            res = {k: v[i] for k, v in out.items() if k != 'det'}
-            if self.with_det:
-                res['det'] = apply_circle_nms(out['det'], self.cfg.head, i)
-            fut.set_result(res)
+        return batch
+
+    def _run_batch(self, reqs):
+        n = len(reqs)
+        with profiling.span('server.batch') as traced:
+            if traced is not None:
+                traced.attrs.update(
+                    rows=n, padded=self.max_batch - n,
+                    ids=[getattr(f, 'trace_id', None) for _, f in reqs])
+            with profiling.span('server.assemble'):
+                batch = self._assemble(reqs)
+            out = self.forward(batch)
+            self.stats['requests'] += n
+            self.stats['batches'] += 1
+            self.stats['padded_rows'] += self.max_batch - n
+            for i, (_, fut) in enumerate(reqs):
+                res = {k: v[i] for k, v in out.items() if k != 'det'}
+                if self.with_det:
+                    with profiling.span('server.nms',
+                                        id=getattr(fut, 'trace_id', None)):
+                        res['det'] = apply_circle_nms(out['det'],
+                                                      self.cfg.head, i)
+                with profiling.span('server.deliver'):
+                    fut.set_result(res)
+
+
+def _dequeued(item):
+    """A (sample, future) pair the dispatcher took from the queue: ends
+    its `server.queue` span where tracing made one."""
+    profiling.end(getattr(item[1], 'trace_queued', None))
+    return item
 
 
 def _argmax(logits):

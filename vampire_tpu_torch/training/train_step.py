@@ -6,6 +6,10 @@ the frozen stem, camera renders on, the lift and ray kernels with their
 backward kernels), all task losses, backward, global-norm clipping,
 AdamW, the optional EMA, and the two train-IoU confusion matrices. The BN
 running statistics move during the forward, as flax's mutable batch_stats.
+With `utils.profiling` on, each phase is a span: `trainer.forward` and
+`trainer.losses` (with CUDA events), `trainer.backward` (the gradients'
+all-reduce included), `trainer.clip`, `trainer.adamw`, `trainer.ema`,
+`trainer.metrics`.
 
 Under a process group (`parallel/distributed.py`) each rank runs the step
 on its block of the global batch: the losses are its share of the global
@@ -31,6 +35,7 @@ import torch
 
 from ..models.centerpoint_head import decode_preds
 from ..parallel.distributed import all_reduce_sum_
+from ..utils import profiling
 from .losses import compute_losses
 from .metrics import confusion_update
 from .train_state import TrainState, clip_by_global_norm_, ema_update, lr_at
@@ -64,33 +69,39 @@ def build_train_step(cfg, num_devices: int = 1, with_metrics: bool = False):
                    conf=None):
         model = state.model
         model.train()
-        fo, preds = model(batch['imgs'], split_mats(batch),
-                          points=batch['points'])
-        total, logs = compute_losses(fo, preds, batch, tc, cfg.head,
-                                     cfg.backbone.sdf_bias,
-                                     cfg.backbone.density_mode, num_devices,
-                                     model.layout)
-        params = state.trainable()
-        for p in params:
-            p.grad = None
-        total.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        all_reduce_sum_(grads)
-        for p, g in zip(params, grads):
-            p.grad = g
-        logs['grad_norm'] = clip_by_global_norm_(grads,
-                                                 tc.gradient_clip_val)
-        for group in state.optimizer.param_groups:
-            group['lr'] = lr_at(tc, state.steps_per_epoch, state.step)
-        state.optimizer.step()
+        with profiling.span('trainer.forward', device=True):
+            fo, preds = model(batch['imgs'], split_mats(batch),
+                              points=batch['points'])
+        with profiling.span('trainer.losses', device=True):
+            total, logs = compute_losses(fo, preds, batch, tc, cfg.head,
+                                         cfg.backbone.sdf_bias,
+                                         cfg.backbone.density_mode,
+                                         num_devices, model.layout)
+        with profiling.span('trainer.backward'):
+            params = state.trainable()
+            for p in params:
+                p.grad = None
+            total.backward()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            all_reduce_sum_(grads)
+            for p, g in zip(params, grads):
+                p.grad = g
+        with profiling.span('trainer.clip'):
+            logs['grad_norm'] = clip_by_global_norm_(grads,
+                                                     tc.gradient_clip_val)
+        with profiling.span('trainer.adamw'):
+            for group in state.optimizer.param_groups:
+                group['lr'] = lr_at(tc, state.steps_per_epoch, state.step)
+            state.optimizer.step()
         if state.ema_params is not None:
-            ema_update(state.ema_params, model, state.step, tc.ema_decay)
+            with profiling.span('trainer.ema'):
+                ema_update(state.ema_params, model, state.step, tc.ema_decay)
         state.step += 1
         logs = {k: v.detach() for k, v in logs.items()}
         if not with_metrics:
             return state, logs
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span('trainer.metrics'):
             seg_pred = torch.argmax(fo['pts_logits'][..., 1:-1], dim=-1) + 1
             valid = batch['point_valid'] & (batch['point_labels'] != 0)
             conf_seg = confusion_update(conf[0], seg_pred,

@@ -62,6 +62,7 @@ from ..parallel.distributed import (all_gather_rows, all_reduce_sum,
                                     world_size)
 from ..parallel.mesh import Layout, default_layout, shard_batch
 from ..serving.server import _argmax, _to_numpy, set_fp32_precision
+from ..utils import profiling
 from ..utils.torch_weights import graft_into_model_, load_torchvision_resnet
 from ..utils.vis import tile_cameras, visualize_depth, visualize_semantic
 from .losses import denormalize_images
@@ -148,10 +149,12 @@ class Trainer:
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch on the device: under the layout, this rank's cameras
         of its rows (`mesh.shard_batch`)."""
-        batch = shard_batch({k: v for k, v in batch.items()
-                             if k not in DEVICE_KEYS_EXCLUDE}, self.layout)
-        return {k: torch.as_tensor(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        with profiling.span('trainer.to_device', device=True):
+            batch = shard_batch({k: v for k, v in batch.items()
+                                 if k not in DEVICE_KEYS_EXCLUDE},
+                                self.layout)
+            return {k: torch.as_tensor(np.ascontiguousarray(v)).to(
+                self.device) for k, v in batch.items()}
 
     def log_scalars(self, step: int, scalars: Dict[str, Any]):
         if self._log_file is None:      # not the main process
