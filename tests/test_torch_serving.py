@@ -261,3 +261,163 @@ def test_tcp_roundtrip(server):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+@pytest.fixture(scope='module')
+def three_rows(server):
+    """An unstarted server of three rows on the fixture's weights: its
+    dispatcher's batch function is driven directly, so that a batch holds
+    exactly the requests given."""
+    return InferenceServer(server.cfg, 'cpu', server.model.state_dict(),
+                           max_batch=3, outputs='metrics')
+
+
+def _served(srv, samples):
+    """`_run_batch` over `samples` as one micro-batch: the results."""
+    from concurrent.futures import Future
+    reqs = [(s, Future()) for s in samples]
+    srv._run_batch(reqs)
+    return [f.result(timeout=0) for _, f in reqs]
+
+
+def test_partial_batch_rows_equal_full_forward(three_rows):
+    """A batch of 2 requests in 3 rows: each request gets, bit for bit,
+    its row of the full padded forward (`forward` of a plain dict returns
+    all rows), boxes after NMS included; the outputs' bytes counted are
+    those of the 2 rows, not of 3, and none went through pinned blocks
+    on the CPU."""
+    from vampire_tpu_torch.serving.server import apply_circle_nms
+    srv = three_rows
+    cfg = srv.cfg
+    samples = [_sample(cfg, 11), _sample(cfg, 12)]
+    before = dict(srv.stats)
+    got = _served(srv, samples)
+    after = dict(srv.stats)
+    full = srv.forward(dict(srv._assemble([(s, None) for s in samples])))
+    assert all(v.shape[0] == 3 for k, v in full.items() if k != 'det')
+    for i, res in enumerate(got):
+        assert set(res) == set(full)
+        for k in ('occ_logits', 'occ_density', 'pts_logits'):
+            assert res[k].dtype == full[k].dtype
+            np.testing.assert_array_equal(res[k], full[k][i], err_msg=k)
+        for a, b in zip(res['det'], apply_circle_nms(full['det'], cfg.head,
+                                                     i)):
+            np.testing.assert_array_equal(a, b)
+    rows_bytes = sum(v[:2].nbytes for k, v in full.items() if k != 'det')
+    rows_bytes += sum(v[:2].nbytes for task in full['det']
+                      for v in task.values())
+    assert after['d2h_bytes'] - before['d2h_bytes'] == rows_bytes
+    assert after['d2h_pinned_bytes'] == before['d2h_pinned_bytes']
+    assert after['padded_rows'] - before['padded_rows'] == 1
+
+
+def test_kept_result_survives_later_batches(three_rows):
+    """A result kept from one batch is unchanged after two later batches
+    ran on other inputs: no later copy writes into a kept result."""
+    srv = three_rows
+    cfg = srv.cfg
+    kept = _served(srv, [_sample(cfg, 13)])[0]
+    frozen = {k: v.copy() for k, v in kept.items() if k != 'det'}
+    later = [_served(srv, [_sample(cfg, 14 + j), _sample(cfg, 16 + j)])
+             for j in range(2)]
+    assert not np.array_equal(later[0][0]['occ_logits'], frozen['occ_logits'])
+    for k, v in frozen.items():
+        np.testing.assert_array_equal(kept[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize('rows', [None, 2])
+def test_to_numpy_keeps_the_tree(rows):
+    """`_to_numpy` (the trainer's too) gives the tree back with numpy
+    arrays for tensors: dicts stay dicts, lists and tuples come back as
+    lists, other leaves as they are; with `rows`, the first rows of each
+    tensor, `leaf[i]` row i; the bytes it counts are those handed out."""
+    from vampire_tpu_torch.serving.server import _to_numpy
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(3, 4, generator=g)
+    b = torch.randint(0, 9, (3, 2), generator=g, dtype=torch.int32)
+    c = torch.rand(3, generator=g) > 0.5
+    tree = {'a': a, 'nest': [b, {'c': c, 'tag': 'x'}], 'pair': (a, 7)}
+    stats = dict(d2h_bytes=0, d2h_pinned_bytes=0)
+    out = _to_numpy(tree, rows=rows, stats=stats)
+    assert set(out) == {'a', 'nest', 'pair'}
+    assert isinstance(out['nest'], list) and isinstance(out['pair'], list)
+    assert out['nest'][1]['tag'] == 'x' and out['pair'][1] == 7
+    n = 3 if rows is None else rows
+    for got, want in ((out['a'], a), (out['nest'][0], b),
+                      (out['nest'][1]['c'], c), (out['pair'][0], a)):
+        assert isinstance(got, np.ndarray) and got.dtype == want.numpy().dtype
+        np.testing.assert_array_equal(got, want.numpy()[:n])
+        for i in range(n):
+            np.testing.assert_array_equal(got[i], want.numpy()[i])
+    assert stats == dict(d2h_bytes=n * (2 * 16 + 8 + 1), d2h_pinned_bytes=0)
+
+
+@pytest.mark.gpu
+def test_outputs_leave_the_card_through_pinned_blocks():
+    """On a card: `_to_numpy` of a tree of card tensors equals `.cpu()
+    .numpy()` of each, in pinned memory, one block for the tree, or with
+    `rows` one block a row; a served batch of 2 requests in 3 rows gives
+    each request its own pinned block, its rows of the full padded
+    forward, and every byte handed out went through a pinned block."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (pinned host blocks)')
+    from vampire_tpu_torch.serving.server import _to_numpy
+    g = torch.Generator(device='cuda').manual_seed(0)
+    a = torch.randn(3, 5, 7, device='cuda', generator=g)
+    b = torch.randint(0, 9, (3, 4), device='cuda', generator=g,
+                      dtype=torch.int32)
+    c = torch.rand(3, 6, device='cuda', generator=g) > 0.5
+    tree = {'a': a, 'nest': [b, {'c': c}], 't': a.transpose(1, 2)}
+    want = {'a': a, 'b': b, 'c': c, 't': a.transpose(1, 2)}
+
+    def leaves(out):
+        return dict(a=out['a'], b=out['nest'][0], c=out['nest'][1]['c'],
+                    t=out['t'])
+
+    whole = leaves(_to_numpy(tree))
+    for k, v in whole.items():
+        np.testing.assert_array_equal(v, want[k].cpu().numpy(), err_msg=k)
+        assert torch.from_numpy(v).is_pinned(), k
+    stats = dict(d2h_bytes=0, d2h_pinned_bytes=0)
+    split = leaves(_to_numpy(tree, rows=2, stats=stats))
+    assert stats['d2h_bytes'] == stats['d2h_pinned_bytes'] == 2 * sum(
+        t[0].numel() * t.element_size() for t in want.values())
+    for k, v in split.items():
+        assert isinstance(v, list) and len(v) == 2
+        for i in range(2):
+            np.testing.assert_array_equal(v[i], want[k][i].cpu().numpy())
+            assert torch.from_numpy(v[i]).is_pinned(), k
+        assert not np.shares_memory(v[0], v[1])
+    assert _blocks(split['a'][0], split['c'][0], split['t'][0]) == 1
+    assert _blocks(split['a'][0], split['a'][1]) == 2
+
+    cfg = tiny_config()
+    srv = InferenceServer(cfg, 'cuda', max_batch=3, outputs='metrics')
+    samples = [_sample(cfg, 21), _sample(cfg, 22)]
+    before = dict(srv.stats)
+    got = _served(srv, samples)
+    d2h = srv.stats['d2h_bytes'] - before['d2h_bytes']
+    pinned = srv.stats['d2h_pinned_bytes'] - before['d2h_pinned_bytes']
+    full = srv.forward(dict(srv._assemble([(s, None) for s in samples])))
+    assert d2h == pinned > 0
+    arrays = [[v for k, v in r.items() if k != 'det'] for r in got]
+    for i, res in enumerate(got):
+        for k in ('occ_logits', 'occ_density', 'pts_logits'):
+            assert res[k].dtype == full[k].dtype
+            assert torch.from_numpy(res[k]).is_pinned(), k
+            np.testing.assert_allclose(res[k], full[k][i], rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+        assert _blocks(*arrays[i]) == 1
+    assert _blocks(arrays[0][0], arrays[1][0]) == 2
+    assert not any(np.shares_memory(x, y) for x in arrays[0]
+                   for y in arrays[1])
+
+
+def _blocks(*arrays) -> int:
+    """How many distinct host blocks the arrays view: the storages of the
+    tensors at the ends of their `base` chains."""
+    def block(a):
+        while not isinstance(a, torch.Tensor):
+            a = a.base
+        return a.untyped_storage().data_ptr()
+    return len({block(a) for a in arrays})

@@ -3,9 +3,12 @@
 
 A dispatcher thread drains a request queue into micro-batches of at most
 `max_batch` frames; partial batches are padded by repeating the last sample
-and the padding rows are dropped on the way out. Detection boxes are
-decoded on the device and circle-NMSed on the host by the C++ library of
-`ops/nms.py` (a failed build of it raises).
+so that the forward keeps one shape, and only the requests' rows leave the
+device: on a card each request's outputs are copied into a pinned host
+block of its own, all copies of a batch non-blocking, then one
+synchronisation (`_to_numpy`). Detection boxes are decoded on the device
+and circle-NMSed on the host by the C++ library of `ops/nms.py` (a failed
+build of it raises).
 
 `outputs` selects the output groups as in the JAX server, with the same
 keys: None (the default, the full-render graph) or a selection that holds
@@ -126,7 +129,10 @@ class InferenceServer:
         self._q: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
-        self.stats = dict(requests=0, batches=0, padded_rows=0)
+        # d2h_bytes: output bytes handed out; d2h_pinned_bytes: those of
+        # them copied from a card into pinned blocks
+        self.stats = dict(requests=0, batches=0, padded_rows=0,
+                          d2h_bytes=0, d2h_pinned_bytes=0)
 
     # ------------------------------------------------------------------
     def to_device(self, batch: Dict[str, np.ndarray]):
@@ -138,7 +144,10 @@ class InferenceServer:
     @torch.inference_mode()
     def forward(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         """One micro-batch through the model; returns numpy outputs (the
-        per-task decoded boxes under 'det')."""
+        per-task decoded boxes under 'det'). A batch that `_assemble` made
+        gives back only its requests' rows (`_to_numpy` with `rows`: on a
+        card each output a list of rows, one pinned block a request); any
+        other batch all of its rows, each output one array."""
         with profiling.span('server.h2d'):
             imgs, mats, points = self.to_device(batch)
         with profiling.span('server.forward'):
@@ -169,7 +178,8 @@ class InferenceServer:
             with profiling.span('server.decode'):
                 out['det'] = decode_preds(preds, self.cfg.head)
         with profiling.span('server.d2h'):
-            return _to_numpy(out)
+            return _to_numpy(out, rows=getattr(batch, 'rows', None),
+                             stats=self.stats)
 
     def warmup(self):
         """Run the example batch once (kernel build, allocations, cuDNN and
@@ -242,11 +252,11 @@ class InferenceServer:
                     if not fut.done():
                         fut.set_exception(e)
 
-    def _assemble(self, reqs) -> Dict[str, np.ndarray]:
+    def _assemble(self, reqs) -> "_Batch":
         """The requests' inputs stacked into one batch of `max_batch`
         rows, padded by repeating the last."""
         n = len(reqs)
-        batch = {}
+        batch = _Batch(rows=n)
         for k in INPUT_KEYS:
             rows = []
             for sample, _ in reqs:
@@ -286,6 +296,15 @@ class InferenceServer:
                     fut.set_result(res)
 
 
+class _Batch(dict):
+    """A micro-batch's stacked inputs and `rows`, the number of leading
+    rows that belong to requests: `forward` copies out only those."""
+
+    def __init__(self, rows: int):
+        super().__init__()
+        self.rows = rows
+
+
 def _dequeued(item):
     """A (sample, future) pair the dispatcher took from the queue: ends
     its `server.queue` span where tracing made one."""
@@ -298,14 +317,101 @@ def _argmax(logits):
     return torch.argmax(logits, -1).to(torch.int32)
 
 
-def _to_numpy(tree):
+# where each array starts in a host block, bytes
+_BLOCK_ALIGN = 256
+
+
+def _to_numpy(tree, rows: Optional[int] = None,
+              stats: Optional[Dict[str, int]] = None):
+    """The tensors of a tree of dicts, lists and tuples as numpy arrays,
+    in the same tree (a tuple comes back as a list).
+
+    A CPU tensor comes back as its `.numpy()` view. Tensors on a card are
+    copied into pinned host memory from PyTorch's caching host allocator,
+    every copy non-blocking on the current stream, then one
+    synchronisation; the arrays are views of that memory.
+
+    With `rows`, only the first `rows` rows of each tensor come out. On a
+    card row i of every tensor goes into a block of its own, and each
+    tensor comes back as the list of its rows, so that whoever keeps row
+    i's arrays holds only that block; a CPU tensor comes back as the one
+    array of its first `rows` rows. `leaf[i]` is row i either way. Without
+    `rows`, one block holds the whole tree.
+
+    `stats`, where given, adds the bytes that come out to `d2h_bytes` and
+    those copied into pinned blocks to `d2h_pinned_bytes`.
+    """
+    leaves = []
+    _leaves(tree, leaves)
+    cut = [t.detach() if rows is None else t.detach()[:rows]
+           for t in leaves]
+    on_card = [t for t in cut if t.device.type != 'cpu']
+    copies = iter(_pinned_copies(on_card, rows))
+    arrays = [next(copies) if t.device.type != 'cpu' else t.numpy()
+              for t in cut]
+    if stats is not None:
+        stats['d2h_bytes'] += sum(_nbytes(t) for t in cut)
+        stats['d2h_pinned_bytes'] += sum(_nbytes(t) for t in on_card)
+    return _rebuild(tree, iter(arrays))
+
+
+def _leaves(tree, out: list) -> None:
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+
+
+def _rebuild(tree, arrays):
+    """`tree` with its tensors replaced by `arrays`, in `_leaves` order."""
+    if isinstance(tree, torch.Tensor):
+        return next(arrays)
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
+        return {k: _rebuild(v, arrays) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_numpy(v) for v in tree]
+        return [_rebuild(v, arrays) for v in tree]
     return tree
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _pinned_copies(ts, rows: Optional[int]) -> list:
+    """Host copies of the card's tensors `ts` as numpy arrays, one for each
+    tensor: without `rows` all in one pinned block; with `rows` the list of
+    the tensor's `rows` rows, row i of every tensor in block i."""
+    if not ts:
+        return []
+    groups = [ts] if rows is None else [[t[i] for t in ts]
+                                        for i in range(rows)]
+    views = [_pinned_block(g) for g in groups]
+    for device in {t.device for t in ts}:
+        torch.cuda.current_stream(device).synchronize()
+    arrays = [[v.numpy() for v in g] for g in views]
+    if rows is None:
+        return arrays[0]
+    return [[a[j] for a in arrays] for j in range(len(ts))]
+
+
+def _pinned_block(ts) -> list:
+    """One block of pinned host memory with room for each tensor of `ts`,
+    each copied into its view of it, non-blocking; the views."""
+    offsets, size = [], 0
+    for t in ts:
+        offsets.append(size)
+        size += -(-_nbytes(t) // _BLOCK_ALIGN) * _BLOCK_ALIGN
+    block = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+    views = []
+    for t, o in zip(ts, offsets):
+        v = block[o:o + _nbytes(t)].view(t.dtype).view(t.shape)
+        v.copy_(t, non_blocking=True)
+        views.append(v)
+    return views
 
 
 class ReplicaPool:
